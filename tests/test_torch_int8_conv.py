@@ -8,7 +8,8 @@ import pytest
 import torch
 
 from tpu_unet.ops.pallas.int8_conv import conv3x3_int8_fused, conv3x3_int8_reference
-from tpu_unet_torch.ops.kernels.int8_conv import conv3x3_int8, conv3x3_int8_plain
+from tpu_unet_torch.ops.kernels.int8_conv import (conv3x3_int8, conv3x3_int8_plain,
+                                                  pad_channels)
 
 
 def _case(shape, seed, lo=-127):
@@ -21,10 +22,11 @@ def _case(shape, seed, lo=-127):
     return x, k, scale, bias, np.float32(0.05)
 
 
-def _port(x, k, scale, bias, s_out, relu):
-    """The port's wrapper on CPU tensors, with the kernel in K2's (Cout,3,3,Cin) layout."""
-    return conv3x3_int8(torch.from_numpy(x),
-                        torch.from_numpy(np.ascontiguousarray(k.transpose(3, 0, 1, 2))),
+def _port(x, k, scale, bias, s_out, relu, pad_w=False):
+    """The port's wrapper on CPU tensors, with the kernel in K2's (Cout,3,3,Cin)
+    layout (its Cin zero-padded by pad_channels with ``pad_w``)."""
+    w = torch.from_numpy(np.ascontiguousarray(k.transpose(3, 0, 1, 2)))
+    return conv3x3_int8(torch.from_numpy(x), pad_channels(w) if pad_w else w,
                         torch.from_numpy(scale), torch.from_numpy(bias),
                         torch.tensor(s_out), relu=relu).numpy()
 
@@ -57,12 +59,14 @@ def test_saturation_clips_instead_of_wrapping():
     assert got.max() == 127
 
 
+@pytest.mark.parametrize("pad_w", [False, True])
 @pytest.mark.parametrize("relu", [True, False])
-def test_three_input_channels(relu):
-    """inc.conv1's Cin=3 (the CUDA wrapper pads it to 32 with zeros)."""
+def test_three_input_channels(relu, pad_w):
+    """inc.conv1's Cin=3 (the CUDA wrapper pads it to 32 with zeros), with the
+    weights as they are or already padded, as _QuantExec keeps them."""
     x, k, scale, bias, s_out = _case((2, 16, 16, 3, 64), seed=11)
     ref = np.asarray(conv3x3_int8_reference(x, k, scale, bias, s_out, relu=relu))
-    np.testing.assert_array_equal(_port(x, k, scale, bias, s_out, relu), ref)
+    np.testing.assert_array_equal(_port(x, k, scale, bias, s_out, relu, pad_w), ref)
 
 
 def test_wide_input_is_exact_where_float32_is_not():

@@ -176,6 +176,24 @@ def test_jax_qparams_file_loads_in_the_port(setup, tmp_path):
         np.testing.assert_array_equal(vv, original[k], err_msg=k)
 
 
+def test_quantize_from_train_state_runs_on_the_device_asked_for(setup):
+    """The one-call PTQ equals its three steps on the CPU when asked for, and
+    its default device (cuda) raises without a GPU instead of calibrating on
+    the CPU."""
+    got = tq.quantize_from_train_state("anomaly_unet", setup["sd"], setup["calib"],
+                                       device="cpu")
+    fparams = tq.full_fold(setup["sd"])
+    want = tq.quantize_model("anomaly_unet", fparams,
+                             tq.calibrate_absmax("anomaly_unet", fparams, setup["calib"]))
+    got, want = dict(_flat(_to_numpy(got))), dict(_flat(_to_numpy(want)))
+    assert set(got) == set(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA GPU"):
+            tq.quantize_from_train_state("anomaly_unet", setup["sd"], setup["calib"])
+
+
 def test_chunk_calibration_and_unported_archs():
     chunks = tq.chunk_calibration(np.zeros((38, 4, 4, 3), np.uint8), 16)
     assert [len(c) for c in chunks] == [16, 16]

@@ -46,8 +46,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from tpu_unet_torch.core.device import resolve_device
 from tpu_unet_torch.ops.augment import eval_transform
-from tpu_unet_torch.ops.kernels.int8_conv import conv3x3_int8
+from tpu_unet_torch.ops.kernels.int8_conv import conv3x3_int8, pad_channels
 from tpu_unet_torch.utils.weights import (ladder_layout, qparams_from_numpy,
                                           qparams_to_numpy)
 
@@ -213,20 +214,47 @@ class _CalibExec:
         return torch.sigmoid(y) if activation == "sigmoid" else y
 
 
-def _int_matmul(x2d: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-    """Exact int8 (M, C) x (C, K) -> int32 (M, K); K padded for CUDA's int8 matmul."""
+def _pad_cols(k: torch.Tensor) -> torch.Tensor:
+    """Zero-pad an int8 (C, K) matrix's K to CUDA's torch._int_mm multiple."""
     pad = -k.shape[1] % _MM_MULTIPLE
-    acc = torch._int_mm(x2d, F.pad(k, (0, pad)) if pad else k)
-    return acc[:, :k.shape[1]] if pad else acc
+    return F.pad(k, (0, pad)) if pad else k
+
+
+def _int_matmul(x2d: torch.Tensor, k: torch.Tensor, n_out: int) -> torch.Tensor:
+    """Exact int8 (M, C) x (C, K) -> int32 (M, n_out), K >= n_out (padded columns)."""
+    return torch._int_mm(x2d, k)[:, :n_out]
 
 
 class _QuantExec:
     """int8 forward over the quantized tree. Tensors flow as (q_int8, scale)
     with NHWC int8 data and 0-dim float32 scales on the same device."""
 
+    conv3x3 = staticmethod(conv3x3_int8)  # chip_smoke.py swaps in the plain version
+
     def __init__(self, qparams):
         self.layers = qparams["layers"]
         self.scales = qparams["scales"]
+        self._consts: Dict[str, Dict[str, torch.Tensor]] = {}
+
+    def _leaf(self, path, s_in, kind):
+        """A layer's kernel, combined scale ``s_in * w_scale`` and bias in the
+        form its op takes, made on the layer's first call and kept: a layer's
+        input scale is the same on every call. 3x3 kernels come zero-padded to
+        K2's channel multiple; the transposed conv's (Cin, 2, 2, Cout) kernel
+        comes as a (Cin, 4 * Cout) matrix, its scale and bias repeated to match;
+        matrices come with their columns padded for ``_int_matmul``."""
+        c = self._consts.get(path)
+        if c is None:
+            leaf = _get(self.layers, path)
+            k, scale, bias = leaf["kernel"], s_in * leaf["w_scale"], leaf["bias"]
+            if kind == "conv":
+                k = pad_channels(k)
+            elif kind == "up":
+                k, scale, bias = k.reshape(k.shape[0], -1), scale.repeat(4), bias.repeat(4)
+            if kind != "conv":
+                k = _pad_cols(k)
+            c = self._consts[path] = {"kernel": k, "scale": scale, "bias": bias}
+        return c
 
     @staticmethod
     def _requant(y_f32, scale, lo=-127):
@@ -239,10 +267,9 @@ class _QuantExec:
     def double_conv(self, xs, path):
         x, s_in = xs
         for i in (1, 2):
-            leaf = _get(self.layers, f"{path}/conv{i}")
+            c = self._leaf(f"{path}/conv{i}", s_in, "conv")
             s_out = self.scales[f"{path}/relu{i}"]
-            x = conv3x3_int8(x, leaf["kernel"], s_in * leaf["w_scale"], leaf["bias"],
-                             s_out, relu=True)
+            x = self.conv3x3(x, c["kernel"], c["scale"], c["bias"], s_out, relu=True)
             s_in = s_out
         return x, s_in
 
@@ -259,12 +286,12 @@ class _QuantExec:
                                       "are not ported yet")
         x, s_in = xs
         skip, s_skip = skips
-        leaf = _get(self.layers, f"{path}/up")
+        c = self._leaf(f"{path}/up", s_in, "up")
         n, h, w, cin = x.shape
-        cout = leaf["kernel"].shape[-1]
-        acc = _int_matmul(x.reshape(-1, cin), leaf["kernel"].reshape(cin, 4 * cout))
-        y = acc.to(torch.float32) * (s_in * leaf["w_scale"]).repeat(4)
-        y = y + leaf["bias"].repeat(4)
+        cout = c["bias"].numel() // 4
+        acc = _int_matmul(x.reshape(-1, cin), c["kernel"], 4 * cout)
+        y = acc.to(torch.float32) * c["scale"]
+        y = y + c["bias"]
         # Shared concat scale: the transposed conv's epilogue quantizes
         # straight to it, the skip requants int8 -> int8.
         s_cat = self.scales[f"{path}/cat"]
@@ -277,10 +304,10 @@ class _QuantExec:
 
     def head(self, xs, path, activation):
         x, s_in = xs
-        leaf = _get(self.layers, f"{path}/conv")
-        n, h, w, c = x.shape
-        acc = _int_matmul(x.reshape(-1, c), leaf["kernel"])
-        y = acc.to(torch.float32) * (s_in * leaf["w_scale"]) + leaf["bias"]
+        c = self._leaf(f"{path}/conv", s_in, "head")
+        n, h, w, cin = x.shape
+        acc = _int_matmul(x.reshape(-1, cin), c["kernel"], c["bias"].numel())
+        y = acc.to(torch.float32) * c["scale"] + c["bias"]
         y = y.reshape(n, h, w, -1)
         return torch.sigmoid(y) if activation == "sigmoid" else y
 
@@ -463,10 +490,10 @@ def quantize_from_train_state(arch: str, state_dict: Dict[str, torch.Tensor],
                               calib_batches: Iterable[np.ndarray],
                               max_batches: int = 8,
                               percentile: Optional[float] = None,
-                              device="cpu") -> Dict[str, Any]:
-    """One-call PTQ: fold BN, calibrate activation scales on ``device``,
-    quantize weights."""
-    fparams = tree_to(full_fold(state_dict, arch), device)
+                              device="cuda") -> Dict[str, Any]:
+    """One-call PTQ: fold BN, calibrate activation scales on ``device``
+    (``cuda`` unless the caller asks for ``cpu``), quantize weights."""
+    fparams = tree_to(full_fold(state_dict, arch), resolve_device(device))
     absmax = calibrate_absmax(arch, fparams, calib_batches,
                               max_batches=max_batches, percentile=percentile)
     return quantize_model(arch, fparams, absmax)

@@ -32,6 +32,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from tpu_unet_torch.core.device import resolve_device
 from tpu_unet_torch.core.precision import get_policy
 from tpu_unet_torch.data.transforms import load_image_rgb
 from tpu_unet_torch.metrics.anomaly import anomaly_score
@@ -41,18 +42,6 @@ from tpu_unet_torch.ops.fold_bn import fold_batchnorm
 from tpu_unet_torch.ops.quantize import (_QuantExec, _run, build_plan, chunk_calibration,
                                          quantize_from_train_state, tree_to)
 from tpu_unet_torch.utils.weights import load_reference_checkpoint
-
-
-def resolve_device(device) -> torch.device:
-    """``torch.device`` for ``device``; raises when CUDA is asked for and there
-    is no GPU (nothing falls back to the CPU)."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device 'cuda' was asked for but no CUDA GPU is "
-                           "available; pass device='cpu' to run on the CPU")
-    if device.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {device}")
-    return device
 
 
 def _latency_stats_ms(run_once, n_iters: int) -> dict:
@@ -260,9 +249,10 @@ class AnomalyScorer:
             qparams = tree_to(qparams, device)
             plans = {False: build_plan("anomaly_unet", score_only=True),
                      True: build_plan("anomaly_unet")}
+            qexec = _QuantExec(qparams)  # keeps each leaf's constants across batches
 
             def forward(img, with_amap):
-                return _run(_QuantExec(qparams), img, plans[with_amap])
+                return _run(qexec, img, plans[with_amap])
         else:
             model = build_model("anomaly_unet", policy=get_policy(precision),
                                 base_features=base_features)
