@@ -4,14 +4,21 @@
     python3 chip_smoke.py
 
 1. Builds the CUDA kernels from tpu_unet_torch/csrc (one nvcc each, in
-   parallel) and prints the build time and ptxas's register and spill report.
+   parallel) and prints the build time, ptxas's register and spill report and
+   a count of the tensor-core and TMA instructions in the built code.
 2. K1 (normalize_u8) at the serving batch (128, 256, 256, 3): kernel against
-   its plain PyTorch version on the card, bit for bit, in float32 and
-   bfloat16; both timed.
+   its plain PyTorch version on the card and on the CPU, bit for bit, in
+   float32 and bfloat16; both timed, beside their bounds.
 3. K2 (conv3x3_int8) at the 18 conv shapes of the int8 score path at batch 8,
    plus one relu=False case: kernel against its plain version (float64
-   accumulation, exact) on the card, bit for bit; both timed. Again at the
-   main path's batch 128, bit for bit, the kernel timed.
+   accumulation, exact) on the card, bit for bit, with the weights as they
+   come (the wrapper packs them). Again at the main path's batch 128 with the
+   weights packed ahead as the int8 forward keeps them: bit for bit, the
+   kernel and the plain version timed, the kernel's share of its bound, and
+   as a yardstick a bfloat16 channels_last F.conv2d of the same shape
+   (cuDNN: the same work at half the int8 tensor-core rate, not the same
+   function; the port never calls it). Seven shapes off the main path that
+   exercise the tiling's edges are held bit for bit too.
 4. The main path at full width: AnomalyUNet(base_features=64) at 256², weights
    from a seed and BN statistics warmed on synthetic images, served by
    AnomalyScorer in bf16 and int8 (calibrated on 2 batches of 16) at batch
@@ -39,8 +46,8 @@ import subprocess
 import sys
 import time
 
-# (H = W, Cin, Cout) of the 18 3x3 convs of the int8 score path, in order:
-# encoder inc, down1..down4, then the reconstruction decoder up1..up4.
+# (H = W, Cin, Cout) of the 18 3x3 convs of the int8 score path (AnomalyUNet,
+# base 64, 256 x 256), in order: encoder inc, down1..down4, decoder up1..up4.
 SCORE_PATH_CONVS = [
     (256, 3, 64), (256, 64, 64), (128, 64, 128), (128, 128, 128),
     (64, 128, 256), (64, 256, 256), (32, 256, 512), (32, 512, 512),
@@ -48,6 +55,10 @@ SCORE_PATH_CONVS = [
     (32, 1024, 512), (32, 512, 512), (64, 512, 256), (64, 256, 256),
     (128, 256, 128), (128, 128, 128), (256, 128, 64), (256, 64, 64),
 ]
+# (N, H, W, Cin, Cout) off the main path, checked bit for bit.
+ODD_CONVS = [(1, 10, 20, 32, 16), (2, 70, 70, 64, 64), (1, 5, 3, 3, 16),
+             (1, 9, 130, 3, 80), (1, 3, 3, 32, 128), (2, 17, 33, 96, 144),
+             (1, 6, 7, 2, 32)]
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 PEAK_INT8_OPS = 1979e12      # H100 SXM dense int8 tensor-core rate
 PEAK_F32_FLOPS = 67e12       # H100 SXM float32 outside the tensor cores
@@ -162,12 +173,19 @@ def phase_build(report):
     wall = time.perf_counter() - t0
     print(f"[build] {len(res)} kernels in {wall:.1f} s (parallel nvcc): "
           + ", ".join(f"{k} {v['seconds']:.1f} s" for k, v in res.items()), flush=True)
+    sass = {}
+    cuobjdump = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
     for name, r in res.items():
         for line in r["log"].splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build] {name}: {line.strip()}")
-    report["build"] = {"wall_s": wall, **{k: {"seconds": v["seconds"], "log": v["log"]}
-                                          for k, v in res.items()}}
+        if os.path.exists(cuobjdump):  # wgmma is GMMA in SASS, a TMA load UTMALDG
+            out = subprocess.run([cuobjdump, "-sass", r["path"]], capture_output=True,
+                                 text=True, timeout=120).stdout
+            sass[name] = {op: out.count(op) for op in ("GMMA", "UTMALDG", "IMMA", "HMMA")}
+            print(f"[build] {name}: SASS instruction counts {sass[name]}")
+    report["build"] = {"wall_s": wall, "sass_counts": sass,
+                       **{k: {"seconds": v["seconds"], "log": v["log"]} for k, v in res.items()}}
 
 
 def phase_k1(torch, report):
@@ -175,29 +193,45 @@ def phase_k1(torch, report):
     g = torch.Generator(device="cuda").manual_seed(1)
     x = torch.randint(0, 256, (128, 256, 256, 3), generator=g, device="cuda",
                       dtype=torch.uint8)
-    k_ms, out = cuda_ms(torch, lambda: normalize_u8(x), iters=20, warmup=5)
+    warm_clocks(torch)  # the build left the card idle; K1's runs are short
+    k_ms, out = cuda_ms(torch, lambda: normalize_u8(x), iters=200, warmup=20)
     p_ms, ref = cuda_ms(torch, lambda: normalize_u8_plain(x), iters=5, warmup=2)
     check(torch.equal(out.view(torch.int32), ref.view(torch.int32)),
           "K1 f32 differs from its plain version")
-    out16 = normalize_u8(x, out_dtype=torch.bfloat16)
+    k16_ms, out16 = cuda_ms(torch, lambda: normalize_u8(x, out_dtype=torch.bfloat16),
+                            iters=200, warmup=20)
     ref16 = normalize_u8_plain(x, out_dtype=torch.bfloat16)
     check(torch.equal(out16.view(torch.int16), ref16.view(torch.int16)),
           "K1 bf16 differs from its plain version")
+    # The kernel computes its table with its own IEEE arithmetic; the CPU's
+    # plain version is a witness that shares no code with the card.
+    x_cpu = x.cpu()
+    check(torch.equal(out.cpu().view(torch.int32), normalize_u8_plain(x_cpu).view(torch.int32)),
+          "K1 f32 on the card differs from the plain version on the CPU")
+    check(torch.equal(out16.cpu().view(torch.int16),
+                      normalize_u8_plain(x_cpu, out_dtype=torch.bfloat16).view(torch.int16)),
+          "K1 bf16 on the card differs from the plain version on the CPU")
+    del x_cpu
     torch.cuda.synchronize()
     n = x.numel()
     b_ms, b_by = bound_ms(n * (1 + 4), 3 * n, PEAK_F32_FLOPS)
+    b16_ms, _ = bound_ms(n * (1 + 2), 3 * n, PEAK_F32_FLOPS)
     err = float((out - ref).abs().max())
     print(f"[K1] (128,256,256,3) u8->f32: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-          f"bound {b_ms:.4f} ms ({b_by}), bit-exact f32 and bf16", flush=True)
+          f"bound {b_ms:.4f} ms ({b_by}), {100 * b_ms / k_ms:.1f}% of bound; u8->bf16: "
+          f"kernel {k16_ms:.4f} ms, bound {b16_ms:.4f} ms, {100 * b16_ms / k16_ms:.1f}% of "
+          f"bound; bit-exact f32 and bf16 against the plain version on the card and the "
+          f"CPU", flush=True)
     report["k1"] = {"shape": [128, 256, 256, 3], "kernel_ms": k_ms, "plain_ms": p_ms,
-                    "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
+                    "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
+                    "kernel_ms_bf16": k16_ms, "bound_ms_bf16": b16_ms}
 
 
-def _k2_case(torch, n, hw, cin, cout, seed):
+def _k2_case(torch, n, hw, cin, cout, seed, width=None):
     g = torch.Generator(device="cuda").manual_seed(seed)
-    lo = -127 if cin == 3 else 0  # the quantized input vs post-ReLU activations
-    x = torch.randint(lo, 128, (n, hw, hw, cin), generator=g, device="cuda",
-                      dtype=torch.int8)
+    lo = -127 if cin <= 3 else 0  # the quantized input vs post-ReLU activations
+    x = torch.randint(lo, 128, (n, hw, width or hw, cin), generator=g,
+                      device="cuda", dtype=torch.int8)
     w = torch.randint(-127, 128, (cout, 3, 3, cin), generator=g, device="cuda",
                       dtype=torch.int8)
     s_out = torch.full((), 0.05, device="cuda")
@@ -208,55 +242,88 @@ def _k2_case(torch, n, hw, cin, cout, seed):
 
 
 def phase_k2(torch, report):
+    import torch.nn.functional as F
     from tpu_unet_torch.ops.kernels.int8_conv import (conv3x3_int8, conv3x3_int8_plain,
-                                                      pad_channels)
+                                                      pack_weights)
     rows = []
     cases = [(hw, cin, cout, True) for hw, cin, cout in SCORE_PATH_CONVS]
     cases.append((64, 256, 256, False))
     for i, (hw, cin, cout, relu) in enumerate(cases):
         n = 8
         x, w, scale, bias, s_out = _k2_case(torch, n, hw, cin, cout, seed=100 + i)
-        k_ms, out = cuda_ms(torch, lambda: conv3x3_int8(x, w, scale, bias, s_out, relu),
-                            iters=10)
-        p_ms, ref = cuda_ms(torch, lambda: conv3x3_int8_plain(x, w, scale, bias, s_out,
-                                                              relu), iters=1)
+        out = conv3x3_int8(x, w, scale, bias, s_out, relu)  # natural weights, packed inside
+        ref = conv3x3_int8_plain(x, w, scale, bias, s_out, relu)
         diff = int((out.int() - ref.int()).abs().max())
         check(diff == 0, f"K2 differs from its plain version at {(n, hw, cin, cout, relu)}"
                          f" (max |diff| {diff}, {int((out != ref).sum())} values)")
         hist = torch.bincount((out.int() + 128).flatten(), minlength=256)
         levels = int((hist > 0).sum())
+        wp = pack_weights(w, cin)
+        k_ms, _ = cuda_ms(torch, lambda: conv3x3_int8(x, wp, scale, bias, s_out, relu),
+                          iters=10)
+        p_ms, _ = cuda_ms(torch, lambda: conv3x3_int8_plain(x, w, scale, bias, s_out,
+                                                            relu), iters=1)
         n_pix = n * hw * hw
         b_ms, b_by = bound_ms(n_pix * cin + 9 * cin * cout + n_pix * cout + 8 * cout,
                               2 * n_pix * 9 * cin * cout, PEAK_INT8_OPS)
         row = {"n": n, "hw": hw, "cin": cin, "cout": cout, "relu": relu,
                "kernel_ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
                "max_abs_err": diff, "int8_levels_hit": levels}
-        if relu:  # the main path's batch, weights padded ahead as _QuantExec keeps them
+        msg = (f"[K2] b{n} {hw}x{hw} {cin:4d}->{cout:4d} relu={relu!s:5}: kernel "
+               f"{k_ms:.4f} ms, plain {p_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}), "
+               f"{100 * b_ms / k_ms:.1f}% of bound, {levels} int8 levels, bit-exact")
+        del x, w, out, ref
+        if relu:  # the main path's batch, weights packed ahead as _QuantExec keeps them
             xb, wb, sb, bb, so = _k2_case(torch, 128, hw, cin, cout, seed=200 + i)
-            wb = pad_channels(wb)
+            wb = pack_weights(wb, cin)
+            # warmup 3: the caching allocator holds two outputs by then
             row["kernel_ms_b128"], out = cuda_ms(
-                torch, lambda: conv3x3_int8(xb, wb, sb, bb, so, True), iters=5)
-            ref = conv3x3_int8_plain(xb, wb, sb, bb, so, True)
+                torch, lambda: conv3x3_int8(xb, wb, sb, bb, so, True), iters=5, warmup=3)
+            row["plain_ms_b128"], ref = cuda_ms(
+                torch, lambda: conv3x3_int8_plain(xb, wb, sb, bb, so, True), iters=1,
+                warmup=0)
             diff_b128 = int((out.int() - ref.int()).abs().max())
             check(diff_b128 == 0, f"K2 differs from its plain version at "
                                   f"{(128, hw, cin, cout, relu)} (max |diff| {diff_b128}, "
                                   f"{int((out != ref).sum())} values)")
             row["max_abs_err_b128"] = diff_b128
-            del out, ref
-            row["bound_ms_b128"], _ = bound_ms(
+            del out, ref, wb
+            row["bound_ms_b128"], row["bound_by_b128"] = bound_ms(
                 128 * hw * hw * (cin + cout) + 9 * cin * cout + 8 * cout,
                 2 * 128 * hw * hw * 9 * cin * cout, PEAK_INT8_OPS)
-            if cin % 32:  # the wrapper's zero pad of the channels (inside kernel_ms)
-                row["pad_ms_b128"], _ = cuda_ms(
-                    torch, lambda: torch.nn.functional.pad(xb, (0, -cin % 32)), iters=5)
-            del xb, wb, sb, bb, so
+            row["pct_of_bound_b128"] = 100 * row["bound_ms_b128"] / row["kernel_ms_b128"]
+            # Yardstick: the same conv in bf16 through cuDNN, channels_last.
+            xf = xb.to(torch.bfloat16).permute(0, 3, 1, 2)
+            wf = torch.randn(cout, cin, 3, 3, device="cuda", dtype=torch.bfloat16).to(
+                memory_format=torch.channels_last)
+            row["bf16_cudnn_ms_b128"], _ = cuda_ms(
+                torch, lambda: F.conv2d(xf, wf, padding=1), iters=5)
+            del xb, sb, bb, so, xf, wf
+            msg += (f"; b128 {row['kernel_ms_b128']:.3f} ms, bound "
+                    f"{row['bound_ms_b128']:.3f} ms ({row['bound_by_b128']}), "
+                    f"{row['pct_of_bound_b128']:.1f}% of bound, bit-exact; plain "
+                    f"{row['plain_ms_b128']:.1f} ms; bf16 cuDNN yardstick "
+                    f"{row['bf16_cudnn_ms_b128']:.3f} ms")
         rows.append(row)
-        print(f"[K2] b{n} {hw}x{hw} {cin:4d}->{cout:4d} relu={relu!s:5}: kernel "
-              f"{k_ms:.4f} ms, plain {p_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}), "
-              f"{100 * b_ms / k_ms:.1f}% of bound, {levels} int8 levels, bit-exact"
-              + (f"; b128 {row['kernel_ms_b128']:.3f} ms, bit-exact" if relu else "")
-              + (f" (of which channel pad {row['pad_ms_b128']:.3f} ms)"
-                 if "pad_ms_b128" in row else ""), flush=True)
+        print(msg, flush=True)
+    # Shapes off the main path that exercise the tiling's edges: W < 64 and not
+    # a multiple of 64, tiny images, W not a multiple of 128 on the
+    # first-layer kernel, Cin padded by the wrapper (96, 2), Cout not a
+    # multiple of the tile.
+    for i, (n, h, w_, cin, cout) in enumerate(ODD_CONVS):
+        x, w, scale, bias, s_out = _k2_case(torch, n, h, cin, cout, seed=300 + i, width=w_)
+        for relu in (True, False):
+            out = conv3x3_int8(x, w, scale, bias, s_out, relu)
+            ref = conv3x3_int8_plain(x, w, scale, bias, s_out, relu)
+            check(torch.equal(out, ref), f"K2 differs from its plain version at "
+                                         f"{(n, h, w_, cin, cout, relu)}")
+    print(f"[K2] {len(ODD_CONVS)} off-path shapes {ODD_CONVS}, relu on and off: "
+          f"bit-exact", flush=True)
+    path = [r for r in rows if r["relu"]]
+    total, bound = sum(r["kernel_ms_b128"] for r in path), sum(r["bound_ms_b128"] for r in path)
+    print(f"[K2] b128, the 18 score-path convs: kernel {total:.3f} ms, bound {bound:.3f} ms, "
+          f"{100 * bound / total:.1f}% of bound; bf16 cuDNN yardstick "
+          f"{sum(r['bf16_cudnn_ms_b128'] for r in path):.3f} ms", flush=True)
     report["k2"] = rows
 
 
@@ -415,8 +482,9 @@ def main():
          "source": "tpu_unet_torch/csrc/normalize_u8.cu",
          "replaces": "tpu_unet/ops/pallas/preprocess.py:61",
          "launches": launches["normalize_u8"], "max_abs_err": k1["max_abs_err"],
-         "ms": k1["kernel_ms"], "kernel_ms": k1["kernel_ms"], "plain_ms": k1["plain_ms"],
+         "ms": k1["kernel_ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"], "library_ms": None,
+         "ms_bf16": k1["kernel_ms_bf16"], "bound_ms_bf16": k1["bound_ms_bf16"],
          "shape": "(128,256,256,3) u8 -> f32"},
         {"name": "conv3x3_int8", "route": "cuda",
          "source": "tpu_unet_torch/csrc/conv3x3_int8.cu",
@@ -424,15 +492,16 @@ def main():
          "launches": launches["conv3x3_int8"],
          "max_abs_err": max(max(r["max_abs_err"], r.get("max_abs_err_b128", 0))
                             for r in k2),
-         "ms": sum(r["kernel_ms"] for r in path_rows),
-         "kernel_ms": sum(r["kernel_ms"] for r in path_rows),
-         "plain_ms": sum(r["plain_ms"] for r in path_rows),
-         "bound_ms": sum(r["bound_ms"] for r in path_rows),
-         "bound_by": _dominant_bound(path_rows),
+         "ms": sum(r["kernel_ms_b128"] for r in path_rows),
+         "plain_ms": sum(r["plain_ms_b128"] for r in path_rows),
+         "bound_ms": sum(r["bound_ms_b128"] for r in path_rows),
+         "bound_by": _dominant_bound([{"bound_ms": r["bound_ms_b128"],
+                                       "bound_by": r["bound_by_b128"]} for r in path_rows]),
          "library_ms": None,
-         "ms_b128": sum(r["kernel_ms_b128"] for r in path_rows),
-         "bound_ms_b128": sum(r["bound_ms_b128"] for r in path_rows),
-         "shape": "the 18 score-path convs at batch 8, summed"},
+         "bf16_cudnn_ms": sum(r["bf16_cudnn_ms_b128"] for r in path_rows),
+         "ms_b8": sum(r["kernel_ms"] for r in path_rows),
+         "bound_ms_b8": sum(r["bound_ms"] for r in path_rows),
+         "shape": "the 18 score-path convs at batch 128, summed"},
     ]
     report["kernels"] = kernels
     smi = nvidia_smi_line()

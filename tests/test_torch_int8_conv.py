@@ -9,6 +9,7 @@ import torch
 
 from tpu_unet.ops.pallas.int8_conv import conv3x3_int8_fused, conv3x3_int8_reference
 from tpu_unet_torch.ops.kernels.int8_conv import (conv3x3_int8, conv3x3_int8_plain,
+                                                  pack_first_layer, pack_weights,
                                                   pad_channels)
 
 
@@ -22,11 +23,11 @@ def _case(shape, seed, lo=-127):
     return x, k, scale, bias, np.float32(0.05)
 
 
-def _port(x, k, scale, bias, s_out, relu, pad_w=False):
+def _port(x, k, scale, bias, s_out, relu, packed_w=False):
     """The port's wrapper on CPU tensors, with the kernel in K2's (Cout,3,3,Cin)
-    layout (its Cin zero-padded by pad_channels with ``pad_w``)."""
+    layout (packed by pack_weights with ``packed_w``)."""
     w = torch.from_numpy(np.ascontiguousarray(k.transpose(3, 0, 1, 2)))
-    return conv3x3_int8(torch.from_numpy(x), pad_channels(w) if pad_w else w,
+    return conv3x3_int8(torch.from_numpy(x), pack_weights(w, x.shape[3]) if packed_w else w,
                         torch.from_numpy(scale), torch.from_numpy(bias),
                         torch.tensor(s_out), relu=relu).numpy()
 
@@ -59,14 +60,14 @@ def test_saturation_clips_instead_of_wrapping():
     assert got.max() == 127
 
 
-@pytest.mark.parametrize("pad_w", [False, True])
+@pytest.mark.parametrize("packed_w", [False, True])
 @pytest.mark.parametrize("relu", [True, False])
-def test_three_input_channels(relu, pad_w):
-    """inc.conv1's Cin=3 (the CUDA wrapper pads it to 32 with zeros), with the
-    weights as they are or already padded, as _QuantExec keeps them."""
+def test_three_input_channels(relu, packed_w):
+    """inc.conv1's Cin=3 (the first-layer kernel on CUDA), with the weights as
+    they are or packed by pack_first_layer, as _QuantExec keeps them."""
     x, k, scale, bias, s_out = _case((2, 16, 16, 3, 64), seed=11)
     ref = np.asarray(conv3x3_int8_reference(x, k, scale, bias, s_out, relu=relu))
-    np.testing.assert_array_equal(_port(x, k, scale, bias, s_out, relu, pad_w), ref)
+    np.testing.assert_array_equal(_port(x, k, scale, bias, s_out, relu, packed_w), ref)
 
 
 def test_wide_input_is_exact_where_float32_is_not():
@@ -100,3 +101,91 @@ def test_cpu_wrapper_launches_nothing_and_checks_inputs():
     plain = conv3x3_int8_plain(torch.from_numpy(x), kt, torch.from_numpy(scale),
                                torch.from_numpy(bias), torch.tensor(s_out))
     assert plain.is_contiguous() and plain.shape == (1, 8, 8, 8)
+
+
+def _im2col_conv(x, w_packed, scale, bias, s_out, relu):
+    """The first-layer kernel's arithmetic in numpy: each pixel's 3x3 x Cin
+    neighbourhood as one K row (k = tap * Cin + ci, zero padded to 32) times
+    pack_first_layer's (Cout, 32) weights, then _QuantExec's requant."""
+    n, h, w, cin = x.shape
+    xp = np.pad(x.astype(np.int64), ((0, 0), (1, 1), (1, 1), (0, 0)))
+    taps = [xp[:, ky:ky + h, kx:kx + w, :] for ky in range(3) for kx in range(3)]
+    rows = np.concatenate(taps, axis=-1)  # (n, h, w, 9 * cin), k = tap * cin + ci
+    rows = np.pad(rows, ((0, 0), (0, 0), (0, 0), (0, 32 - 9 * cin)))
+    acc = rows @ w_packed.astype(np.int64).T
+    y = acc.astype(np.float32) * scale + bias
+    lo = -127
+    if relu:
+        y, lo = np.maximum(y, np.float32(0)), 0
+    return np.clip(np.round(y / s_out), lo, 127).astype(np.int8)
+
+
+@pytest.mark.parametrize("relu", [True, False])
+def test_pack_first_layer_is_exact(relu):
+    """9 taps x 3 channels in one 32-wide k-step: the packed weights through
+    an im2col product give the plain version's and the JAX reference's bits."""
+    cin = 3
+    x, k, scale, bias, s_out = _case((2, 12, 10, cin, 32), seed=20 + relu)
+    w = torch.from_numpy(np.ascontiguousarray(k.transpose(3, 0, 1, 2)))
+    packed = pack_first_layer(w)
+    assert packed.shape == (32, 32) and not packed[:, 9 * cin:].any()
+    got = _im2col_conv(x, packed.numpy(), scale, bias, s_out, relu)
+    ref = np.asarray(conv3x3_int8_reference(x, k, scale, bias, s_out, relu=relu))
+    plain = conv3x3_int8_plain(torch.from_numpy(x), w, torch.from_numpy(scale),
+                               torch.from_numpy(bias), torch.tensor(s_out), relu).numpy()
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(plain, ref)
+
+
+@pytest.mark.parametrize("form", ["natural", "packed"])
+@pytest.mark.parametrize("cin", [3, 1, 16, 64, 40, 96])
+def test_wrapper_takes_every_weight_form(cin, form):
+    """Natural and pack_weights'd weights give the same bits on CPU tensors
+    (the plain version unpacks what the kernel reads)."""
+    x, k, scale, bias, s_out = _case((1, 9, 7, cin, 48), seed=30 + cin)
+    w = torch.from_numpy(np.ascontiguousarray(k.transpose(3, 0, 1, 2)))
+    w = {"natural": w, "packed": pack_weights(w, cin)}[form]
+    got = conv3x3_int8(torch.from_numpy(x), w, torch.from_numpy(scale),
+                       torch.from_numpy(bias), torch.tensor(s_out)).numpy()
+    ref = np.asarray(conv3x3_int8_reference(x, k, scale, bias, s_out))
+    np.testing.assert_array_equal(got, ref)
+
+
+@pytest.mark.parametrize("cin", [3, 2, 32, 40, 96])
+def test_pack_weights_layout(cin):
+    """pack_weights' layout element by element: for Cin = 3,
+    [o, t * 3 + i] = w[o, t // 3, t % 3, i]; for any other Cin,
+    [k, t, o, i] = w[o, t // 3, t % 3, 16 k + i] (zero past Cin)."""
+    cout = 16
+    w = torch.from_numpy(np.random.default_rng(cin).integers(
+        -127, 128, (cout, 3, 3, cin)).astype(np.int8))
+    p = pack_weights(w, cin)
+    if cin == 3:
+        assert p.shape == (cout, 32)
+        for t in range(9):
+            for i in range(cin):
+                assert torch.equal(p[:, t * cin + i], w[:, t // 3, t % 3, i])
+    else:
+        cp = cin + -cin % 32
+        assert p.shape == (cp // 16, 9, cout, 16) and p.is_contiguous()
+        wp = pad_channels(w)
+        for t in range(9):
+            for c in range(cp):
+                assert torch.equal(p[c // 16, t, :, c % 16], wp[:, t // 3, t % 3, c])
+
+
+@pytest.mark.parametrize("cin,bad_shape", [
+    (3, (8, 31)),             # first-layer packing is 32 wide
+    (3, (2, 9, 8, 16)),       # Cin = 3 takes pack_first_layer's form, not this one
+    (64, (8, 32)),            # a first-layer packing for Cin = 64
+    (64, (3, 9, 8, 16)),      # Cin / 16 is 4
+    (64, (4, 9, 8, 8)),       # 16-byte rows
+    (2, (8, 32)),             # only Cin = 3 packs into one k-step
+    (3, (8, 3, 3, 32)),       # natural weights with Cin zero-padded: not a form
+    (16, (8, 3, 3, 32)),
+])
+def test_check_rejects_wrongly_packed_weights(cin, bad_shape):
+    x = torch.zeros(1, 4, 4, cin, dtype=torch.int8)
+    w = torch.zeros(bad_shape, dtype=torch.int8)
+    with pytest.raises(ValueError):
+        conv3x3_int8(x, w, torch.ones(8), torch.zeros(8), torch.tensor(1.0))

@@ -96,3 +96,26 @@ def test_to_float_and_normalize_match_jax():
 def test_wrapper_rejects_bad_input(bad, err):
     with pytest.raises(err):
         normalize_u8(bad)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_lookup_table_holds_every_result(out_dtype):
+    """The kernel's 768-entry table, computed as each of its blocks computes
+    it (v / 255, - mean[c], / std[c], each step rounded to float32, then the
+    output type), here in numpy: entry v * 3 + c is normalize_u8_plain's
+    result for value v in channel c, for all 768 pairs, and gathering from it
+    reproduces the plain version on a random batch."""
+    from tpu_unet_torch.ops.augment import IMAGENET_MEAN, IMAGENET_STD
+    v = np.arange(768, dtype=np.uint32) // 3
+    c = np.arange(768) % 3
+    x = v.astype(np.float32) / np.float32(255)
+    mean, std = np.float32(IMAGENET_MEAN)[c], np.float32(IMAGENET_STD)[c]
+    table = torch.from_numpy((x - mean) / std).to(out_dtype)
+    bits = torch.int32 if out_dtype == torch.float32 else torch.int16
+    ramp = torch.arange(256, dtype=torch.uint8).view(1, 1, 256, 1).expand(1, 1, 256, 3)
+    want = normalize_u8(ramp.contiguous(), out_dtype=out_dtype).reshape(-1)
+    assert torch.equal(table.view(bits), want.view(bits))
+    img = torch.from_numpy(_images(6, (2, 8, 16, 3)))
+    gathered = table[img.long() * 3 + torch.arange(3)]
+    assert torch.equal(gathered.view(bits),
+                       normalize_u8_plain(img, out_dtype=out_dtype).view(bits))

@@ -41,13 +41,15 @@ KERNELS = {
     }),
     "conv3x3_int8": ("conv3x3_int8.cu", {
         "tpu_unet_conv3x3_int8": [_P] * 6 + [_I] * 6 + [_P],
+        "tpu_unet_conv3x3_int8_c3": [_P] * 6 + [_I] * 6 + [_P],
     }),
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
 
-def _nvcc() -> str:
+def nvcc() -> str:
+    """The path of nvcc: on PATH, else under PyTorch's CUDA_HOME."""
     path = shutil.which("nvcc")
     if path is None:
         from torch.utils.cpp_extension import CUDA_HOME
@@ -80,7 +82,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
             result[name] = {"path": str(out), "seconds": 0.0, "log": ""}
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / KERNELS[name][0])]
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / KERNELS[name][0])]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         running[name] = (proc, tmp, out, time.perf_counter())

@@ -6,10 +6,17 @@ int8 NHWC 3x3 SAME stride-1 conv with int32 accumulation, then
 as int8 (``lo`` = 0 after ReLU, -127 without). It is the conv of
 ``ops/quantize.py::_QuantExec.double_conv``.
 
-Weight layout ("K2's layout"): ``(Cout, 3, 3, Cin)`` int8, i.e. OHWI, so each
-output channel's taps are contiguous along Cin, as the kernel's B operand
-wants. ``w`` may come with its Cin zero-padded to the kernel's channel
-multiple (:func:`pad_channels`), as weights that serve many calls are kept.
+Weights come in one of two forms, both int8:
+
+- natural, ``(Cout, 3, 3, Cin)`` (OHWI);
+- packed for the kernel (:func:`pack_weights`), as weights that serve many
+  calls are kept: for Cin != 3, ``(Cin32 / 16, 9, Cout, 16)`` with Cin32 the
+  padded Cin, element ``[k, t, o, i]`` = ``w[o, t // 3, t % 3, 16 k + i]``,
+  so one TMA box brings a 32-channel k-step's nine taps as K-major tiles; for
+  Cin = 3 (the first layer, RGB), :func:`pack_first_layer`'s ``(Cout, 32)``,
+  ``[o, t * 3 + i]`` = ``w[o, t // 3, t % 3, i]`` and zeros after 27, so the
+  whole kernel is one k32 step.
+
 ``scale`` (= s_in * w_scale) and ``bias`` are ``(Cout,)`` float32 and
 ``out_scale`` a one-element float32 tensor, all on the input's device.
 
@@ -28,20 +35,69 @@ import torch.nn.functional as F
 
 from tpu_unet_torch.ops.kernels import build
 
-_CIN_MULTIPLE = 32  # the kernel's channel slice (one mma k-step)
+_CIN_MULTIPLE = 32  # the kernel's k-step (one wgmma k32)
+_FIRST_LAYER_CIN = 3  # RGB: 9 taps x 3 channels fit one k-step
+
+
+def _padded(cin: int) -> int:
+    return cin + -cin % _CIN_MULTIPLE
 
 
 def pad_channels(t: torch.Tensor) -> torch.Tensor:
-    """Zero-pad the last (channel) dim up to the kernel's channel multiple."""
+    """Zero-pad the last (channel) dim up to the kernel's channel multiple
+    (the wrapper pads ``x`` with it)."""
     pad = -t.shape[-1] % _CIN_MULTIPLE
     return F.pad(t, (0, pad)) if pad else t
+
+
+def pack_first_layer(w: torch.Tensor) -> torch.Tensor:
+    """Natural (Cout, 3, 3, 3) weights -> the first-layer kernel's (Cout, 32):
+    taps x channels in one k32 step, zeros after 27."""
+    if w.dim() != 4 or tuple(w.shape[1:]) != (3, 3, _FIRST_LAYER_CIN):
+        raise ValueError(f"pack_first_layer takes (Cout, 3, 3, 3), got {tuple(w.shape)}")
+    flat = w.reshape(w.shape[0], 9 * _FIRST_LAYER_CIN)
+    return F.pad(flat, (0, _CIN_MULTIPLE - 9 * _FIRST_LAYER_CIN)).contiguous()
+
+
+def pack_weights(w: torch.Tensor, cin: int) -> torch.Tensor:
+    """Natural weights of a conv with ``cin`` input channels -> the layout
+    the kernel reads (see the module docstring)."""
+    if cin == _FIRST_LAYER_CIN:
+        return pack_first_layer(w)
+    w = F.pad(w, (0, -cin % _CIN_MULTIPLE))
+    return w.reshape(w.shape[0], 9, -1, 16).permute(2, 1, 0, 3).contiguous()
+
+
+def _packed_shape(cin: int, cout: int) -> tuple:
+    if cin == _FIRST_LAYER_CIN:
+        return (cout, _CIN_MULTIPLE)
+    return (_padded(cin) // 16, 9, cout, 16)
+
+
+def _is_natural(w: torch.Tensor, cin: int) -> bool:
+    return w.dim() == 4 and tuple(w.shape[1:]) == (3, 3, cin)
+
+
+def _cout(w: torch.Tensor, cin: int) -> int:
+    """Cout of natural or packed weights (a packed Cin != 3 is (., 9, Cout, 16))."""
+    return w.shape[2] if w.dim() == 4 and not _is_natural(w, cin) else w.shape[0]
+
+
+def _natural(w: torch.Tensor, cin: int) -> torch.Tensor:
+    """Natural or packed weights -> natural (Cout, 3, 3, cin)."""
+    if _is_natural(w, cin):
+        return w
+    cout = _cout(w, cin)
+    if w.dim() == 2:
+        return w[:, :9 * cin].reshape(cout, 3, 3, cin)
+    return w.permute(2, 1, 0, 3).reshape(cout, 3, 3, -1)[..., :cin]
 
 
 def conv3x3_int8_plain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                        bias: torch.Tensor, out_scale: torch.Tensor,
                        relu: bool = True) -> torch.Tensor:
     """Plain PyTorch version of K2 (``_QuantExec.double_conv``'s body)."""
-    w = w[..., :x.shape[3]]  # drop pad_channels' zeros
+    w = _natural(w, x.shape[3])
     acc = F.conv2d(x.permute(0, 3, 1, 2).to(torch.float64),
                    w.permute(0, 3, 1, 2).to(torch.float64), padding=1)
     # acc holds exact integers below 2**31, so this cast rounds as int32 -> f32 does.
@@ -58,12 +114,15 @@ def conv3x3_int8_plain(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
 def _check(x, w, scale, bias, out_scale) -> None:
     if x.dtype != torch.int8 or w.dtype != torch.int8:
         raise TypeError(f"conv3x3_int8 takes int8 x and w, got {x.dtype}, {w.dtype}")
-    if x.dim() != 4 or w.dim() != 4 or tuple(w.shape[1:3]) != (3, 3) \
-            or w.shape[3] not in (x.shape[3], x.shape[3] + -x.shape[3] % _CIN_MULTIPLE):
-        raise ValueError(f"conv3x3_int8 takes x (N,H,W,Cin) and w (Cout,3,3,Cin), "
-                         f"Cin of w optionally padded by pad_channels, got "
-                         f"{tuple(x.shape)} and {tuple(w.shape)}")
-    cout = w.shape[0]
+    if x.dim() != 4:
+        raise ValueError(f"conv3x3_int8 takes x (N,H,W,Cin), got {tuple(x.shape)}")
+    cin = x.shape[3]
+    if w.dim() not in (2, 4) or not (_is_natural(w, cin)
+                                     or tuple(w.shape) == _packed_shape(cin, _cout(w, cin))):
+        raise ValueError(f"conv3x3_int8 takes w as (Cout,3,3,Cin) or packed by "
+                         f"pack_weights, {_packed_shape(cin, 'Cout')} for Cin={cin}; "
+                         f"got x {tuple(x.shape)} and w {tuple(w.shape)}")
+    cout = _cout(w, cin)
     for name, t in (("scale", scale), ("bias", bias)):
         if t.dtype != torch.float32 or tuple(t.shape) != (cout,):
             raise ValueError(f"{name} must be float32 of shape ({cout},), got "
@@ -81,29 +140,37 @@ def _check(x, w, scale, bias, out_scale) -> None:
 def conv3x3_int8(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
                  bias: torch.Tensor, out_scale: torch.Tensor,
                  relu: bool = True) -> torch.Tensor:
-    """int8 (N, H, W, Cin) x (Cout, 3, 3, Cin) -> requantized int8 (N, H, W, Cout).
+    """int8 (N, H, W, Cin) x weights -> requantized int8 (N, H, W, Cout).
 
-    On CUDA, Cin that is not a multiple of 32 (the first layer's 3 channels)
-    is zero-padded here: one extra pass that writes the padded input (32
-    bytes a pixel instead of 3), and one over ``w`` unless it came padded.
+    On CUDA, natural weights are packed here on every call (pack them once
+    with :func:`pack_weights` where they serve many calls). Cin = 3 goes to
+    the first-layer kernel, which reads the input as it is; any other Cin
+    that is not a multiple of 32 is zero-padded here (one extra pass over x).
+    Cout must be a multiple of 16.
     """
     _check(x, w, scale, bias, out_scale)
     if x.device.type == "cpu":
         return conv3x3_int8_plain(x, w, scale, bias, out_scale, relu)
     if x.device.type != "cuda":
         raise ValueError(f"conv3x3_int8 runs on cpu or cuda, not {x.device}")
-    n, h, wd, _ = x.shape
-    cout = w.shape[0]
-    x, w = pad_channels(x), pad_channels(w)
+    n, h, wd, cin = x.shape
+    cout = _cout(w, cin)
+    if cout % 16:
+        raise ValueError(f"conv3x3_int8 on CUDA needs Cout % 16 == 0, got {cout}")
+    if _is_natural(w, cin):
+        w = pack_weights(w, cin)
+    first = cin == _FIRST_LAYER_CIN
+    if not first:
+        x = pad_channels(x)
     if x.data_ptr() % 16 or w.data_ptr() % 16:
         raise ValueError("conv3x3_int8 needs 16-byte aligned x and w on CUDA "
                          "(a view at an odd offset: pass a contiguous copy)")
     out = torch.empty((n, h, wd, cout), dtype=torch.int8, device=x.device)
     lib = build.load("conv3x3_int8")
-    err = lib.tpu_unet_conv3x3_int8(
-        x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-        out_scale.data_ptr(), out.data_ptr(), n, h, wd, x.shape[3], cout,
-        int(relu), build.current_stream(x.device))
+    fn = lib.tpu_unet_conv3x3_int8_c3 if first else lib.tpu_unet_conv3x3_int8
+    err = fn(x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+             out_scale.data_ptr(), out.data_ptr(), n, h, wd, x.shape[3], cout,
+             int(relu), build.current_stream(x.device))
     build.check(lib, "conv3x3_int8", err)
     conv3x3_int8.launches += 1
     return out

@@ -5,9 +5,12 @@ computes ``eval_transform``: ``(x / 255 - mean[c]) / std[c]`` over an NHWC
 uint8 batch, written as float32 (or bfloat16 when asked) in one pass.
 
 :func:`normalize_u8_plain` is the same function in plain PyTorch, in the same
-order of operations, so the kernel and it agree bit for bit. The wrapper
-:func:`normalize_u8` runs the plain version for CPU tensors and the kernel for
-CUDA tensors; ``normalize_u8.launches`` counts kernel launches.
+order of operations. The kernel is a table lookup: a uint8 value in one of 3
+channels has 768 possible results, and each block of the kernel computes them
+with the same IEEE operations in the same order, so the kernel and the plain
+version agree bit for bit. The wrapper :func:`normalize_u8` runs the plain
+version for CPU tensors and the kernel for CUDA tensors;
+``normalize_u8.launches`` counts kernel launches.
 """
 
 from __future__ import annotations

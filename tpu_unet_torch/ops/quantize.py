@@ -48,7 +48,7 @@ import torch.nn.functional as F
 
 from tpu_unet_torch.core.device import resolve_device
 from tpu_unet_torch.ops.augment import eval_transform
-from tpu_unet_torch.ops.kernels.int8_conv import conv3x3_int8, pad_channels
+from tpu_unet_torch.ops.kernels.int8_conv import conv3x3_int8, pack_weights
 from tpu_unet_torch.utils.weights import (ladder_layout, qparams_from_numpy,
                                           qparams_to_numpy)
 
@@ -239,8 +239,8 @@ class _QuantExec:
     def _leaf(self, path, s_in, kind):
         """A layer's kernel, combined scale ``s_in * w_scale`` and bias in the
         form its op takes, made on the layer's first call and kept: a layer's
-        input scale is the same on every call. 3x3 kernels come zero-padded to
-        K2's channel multiple; the transposed conv's (Cin, 2, 2, Cout) kernel
+        input scale is the same on every call. 3x3 kernels come packed in
+        K2's layout (``pack_weights``); the transposed conv's (Cin, 2, 2, Cout) kernel
         comes as a (Cin, 4 * Cout) matrix, its scale and bias repeated to match;
         matrices come with their columns padded for ``_int_matmul``."""
         c = self._consts.get(path)
@@ -248,7 +248,7 @@ class _QuantExec:
             leaf = _get(self.layers, path)
             k, scale, bias = leaf["kernel"], s_in * leaf["w_scale"], leaf["bias"]
             if kind == "conv":
-                k = pad_channels(k)
+                k = pack_weights(k, k.shape[3])
             elif kind == "up":
                 k, scale, bias = k.reshape(k.shape[0], -1), scale.repeat(4), bias.repeat(4)
             if kind != "conv":
