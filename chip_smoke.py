@@ -31,6 +31,22 @@
    per leg: device time by kernel category and the device's idle share.
 5. The same int8 forward at batch 2 on the CPU (plain versions) against the
    card's.
+6. The training step at full width, the flagship: AnomalyUNet(base 64),
+   bf16 policy, 256², batch 16, Adam (lr 1e-3, L2 1e-4), the default augment
+   (one shear rotation per batch), on seeded textures and masks with a few
+   round defects. 3 warm-up steps, then 20 timed by CUDA events: ms per
+   step, img/s, peak memory allocated and the model-FLOP share of the bf16
+   dense peak (3x the forward's FLOPs from the layer shapes). The loss on a
+   fixed batch (the same draws before the first step and after the last)
+   must fall; the train path must launch neither K1 nor K2. A profiled
+   window of 5 steps gives device time by category and the idle share.
+   Then the augment alone (train_transform, profiled) in each rotation
+   mode, the 'per_sample' and 'per_sample_shear' steps (2 warm-up,
+   10 timed steps each) and the eval step on the trained state: K1 once per
+   batch, outputs finite and of the right shapes.
+7. One f32 SGD train step (base 8, 64 px, batch 4) on the CPU and on the
+   card from the same weights and draws: losses within 1e-5 relative,
+   parameters and BN statistics within the tolerances below.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit
 (nvidia-smi), and as the last line ``{"ok": true, "device": {...}}``; the
@@ -62,6 +78,13 @@ ODD_CONVS = [(1, 10, 20, 32, 16), (2, 70, 70, 64, 64), (1, 5, 3, 3, 16),
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 PEAK_INT8_OPS = 1979e12      # H100 SXM dense int8 tensor-core rate
 PEAK_F32_FLOPS = 67e12       # H100 SXM float32 outside the tensor cores
+PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core rate
+# The train step on the CPU against the card (f32, TF32 off): largest
+# |difference| over a leaf's largest |value|, parameters and BN statistics;
+# about 5x what an H100 run measured (7.8e-6 and 4.8e-7: cuDNN's backward
+# sums in another order than the CPU's).
+TRAIN_PARAM_TOL = 4e-5
+TRAIN_STAT_TOL = 2.5e-6
 OUT_DIR = "chiprun_out"
 
 
@@ -120,7 +143,25 @@ def _category(kernel_name):
     return "PyTorch elementwise / copy / reduce"
 
 
-def device_breakdown(torch, fn, n_calls=5, top=6):
+def _train_category(kernel_name):
+    """Kernel categories of the train step. A transposed conv's forward is a
+    dgrad kernel and its input gradient an fprop one."""
+    name = kernel_name.lower()
+    for keys, cat in ((("fprop",), "cuDNN conv fprop (forward)"),
+                      (("dgrad",), "cuDNN conv dgrad (backward)"),
+                      (("wgrad",), "cuDNN conv wgrad (backward)"),
+                      (("conv",), "cuDNN conv, other"),
+                      (("gemm",), "shear matmuls (cuBLAS)"),
+                      (("adam", "sgd"), "optimizer"),
+                      (("batch_norm", "batchnorm"), "BatchNorm"),
+                      (("elementwise", "reduce", "copy", "cat", "index", "where", "fill",
+                        "max_pool", "pool", "sigmoid", "clamp"), "elementwise / policy glue")):
+        if any(k in name for k in keys):
+            return cat
+    return "other"
+
+
+def device_breakdown(torch, fn, n_calls=5, top=6, category=_category):
     """Profile a window of ``n_calls`` calls of ``fn`` enqueued back to back
     (torch.profiler): device time per call by kernel and by category, the
     window's wall time per call, and the device's idle share over the window,
@@ -141,7 +182,7 @@ def device_breakdown(torch, fn, n_calls=5, top=6):
                   key=lambda r: -r[1])
     cats = {}
     for k, ms, _ in rows:
-        cats[_category(k)] = cats.get(_category(k), 0.0) + ms
+        cats[category(k)] = cats.get(category(k), 0.0) + ms
     busy_ms = sum(r[1] for r in rows)
     return {"n_calls": n_calls, "device_busy_ms": busy_ms, "wall_ms": wall_ms,
             "idle_share": 1 - busy_ms / wall_ms, "by_category_ms": cats,
@@ -456,6 +497,237 @@ def phase_main_path(torch, np, report):
     return launches
 
 
+def forward_flops(base, size, n_channels=3):
+    """Model FLOPs of one AnomalyUNet forward on one image (2 per multiply-add)
+    over its convolutions, transposed convolutions and heads."""
+    def conv(cin, cout, hw, k=3):
+        return 2 * cin * cout * k * k * hw * hw
+    chans = [base * 2 ** i for i in range(5)]
+    total = conv(n_channels, base, size) + conv(base, base, size)
+    for i in range(1, 5):
+        total += conv(chans[i - 1], chans[i], size >> i) + conv(chans[i], chans[i], size >> i)
+    for head in (n_channels, 1):  # the reconstruction and segmentation decoders
+        for i in range(4):
+            cin, cout, hw = chans[4 - i], chans[3 - i], size >> (3 - i)
+            total += 2 * cin * (cin // 2) * hw * hw + conv(cin, cout, hw) + conv(cout, cout, hw)
+        total += 2 * base * head * size * size
+    return total
+
+
+def synth_masks(torch, n, size, seed, device, blobs=3):
+    """Seeded uint8 (n, size, size, 1) masks, each with a few round defects."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    centre = torch.rand(n, blobs, 2, generator=g, device=device) * size
+    radius = 4 + torch.rand(n, blobs, generator=g, device=device) * 16
+    grid = torch.arange(size, device=device, dtype=torch.float32)
+    dy = grid[None, None, :, None] - centre[..., 0, None, None]
+    dx = grid[None, None, None, :] - centre[..., 1, None, None]
+    inside = (dy ** 2 + dx ** 2) < radius[..., None, None] ** 2
+    return inside.any(dim=1)[..., None].to(torch.uint8)
+
+
+def _timed_steps(torch, np, step, state, images, masks, g, warmup, steps):
+    """Run ``warmup`` then ``steps`` train steps, a CUDA event after each (no
+    host read inside the window). Returns the window's mean ms per step, the
+    median step's ms and every step's losses."""
+    losses = [step(state, images, masks, g) for _ in range(warmup)]
+    torch.cuda.synchronize()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(steps + 1)]
+    events[0].record()
+    for ev in events[1:]:
+        losses.append(step(state, images, masks, g))
+        ev.record()
+    torch.cuda.synchronize()
+    per_step = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    totals = {k: torch.stack([ld[k] for ld in losses]).cpu().numpy() for k in losses[0]}
+    return events[0].elapsed_time(events[-1]) / steps, float(np.median(per_step)), totals
+
+
+def phase_train(torch, np, report):
+    """The flagship training step at full width, its profile, the other
+    rotation modes and the eval step; returns the launch counts of the
+    train and eval paths."""
+    from tpu_unet_torch.core.precision import get_policy
+    from tpu_unet_torch.models import build_model
+    from tpu_unet_torch.ops.kernels.int8_conv import conv3x3_int8
+    from tpu_unet_torch.ops.kernels.preprocess import normalize_u8
+    from tpu_unet_torch.train.state import create_train_state, num_params
+    from tpu_unet_torch.train.steps import (AugmentConfig, make_anomaly_eval_step,
+                                            make_anomaly_train_step)
+
+    b, size, base = 16, 256, 64
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.manual_seed(2)
+    state = create_train_state(build_model("anomaly_unet", base_features=base,
+                                           policy=get_policy("bf16")),
+                               "adam", 1e-3, 1e-4, device="cuda")
+    check(num_params(state) == 43_228_228, f"AnomalyUNet has {num_params(state)} params")
+    images = torch.from_numpy(synth_images(torch, b, size, 40, "cuda")).cuda()
+    masks = synth_masks(torch, b, size, 41, "cuda")
+    step = make_anomaly_train_step(aug_cfg=AugmentConfig())
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    # The fixed batch of the loss check: the same images, masks and draws,
+    # before the first step and after the last.
+    probe_draws = step.draws(b, g)
+
+    # --- the train path: counters zeroed just before, read just after --------
+    normalize_u8.launches = conv3x3_int8.launches = 0
+    first = step.with_draws(state, images, masks, probe_draws)
+    step_ms, median_ms, losses = _timed_steps(torch, np, step, state, images, masks, g,
+                                              warmup=3, steps=20)
+    last = step.with_draws(state, images, masks, probe_draws)
+    train_launches = {"normalize_u8": normalize_u8.launches,
+                      "conv3x3_int8": conv3x3_int8.launches}
+    check(train_launches == {"normalize_u8": 0, "conv3x3_int8": 0},
+          f"the train step launched {train_launches} (want no K1 and no K2)")
+    # -------------------------------------------------------------------------
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for k, v in losses.items():
+        check(np.isfinite(v).all(), f"train {k} not finite: {v}")
+    total = losses["total_loss"]
+    probe = (float(first["total_loss"]), float(last["total_loss"]))
+    check(np.isfinite(probe).all() and probe[1] < probe[0],
+          f"the loss on the fixed batch did not fall over 24 steps: {probe}")
+    img_s = b * 1e3 / step_ms
+    flops = 3 * forward_flops(base, size) * b
+    mfu = flops / (step_ms * 1e-3) / PEAK_BF16_FLOPS
+    print(f"[train] AnomalyUNet base {base}, bf16, {size}², b{b}, Adam, per_batch_shear: "
+          f"{step_ms:.3f} ms per step (median step {median_ms:.3f} ms), {img_s:.1f} img/s "
+          f"(20 steps after 3 warm-up); "
+          f"peak memory allocated {peak_gb:.2f} GB; model FLOPs {flops / 1e12:.3f} TFLOP "
+          f"per step (3x {forward_flops(base, size) / 1e9:.1f} GFLOP forward per image), "
+          f"{100 * mfu:.1f}% of the bf16 dense peak; total loss on the fixed batch "
+          f"{probe[0]:.4f} -> {probe[1]:.4f} after 24 steps; last timed step: recon "
+          f"{losses['recon_loss'][-1]:.4f}, seg {losses['seg_loss'][-1]:.4f}", flush=True)
+
+    prof = device_breakdown(torch, lambda: step(state, images, masks, g), n_calls=5,
+                            top=20, category=_train_category)
+    prof["step_ms_in_timed_run"] = step_ms
+    print(f"[profile] train, 5 steps back to back, per step: device busy "
+          f"{prof['device_busy_ms']:.3f} ms of {prof['wall_ms']:.3f} ms wall (profiled), "
+          f"idle share {prof['idle_share']:.4f}; unprofiled timed run {step_ms:.3f} ms "
+          f"per step; by category: "
+          + ", ".join(f"{c} {ms:.3f} ms" for c, ms in
+                      sorted(prof["by_category_ms"].items(), key=lambda kv: -kv[1])),
+          flush=True)
+    for k, ms, n in prof["top_kernels_ms"]:
+        print(f"[profile]   {ms:9.3f} ms  x{n:<4d} {k}")
+
+    # The augment layer alone (train_transform of the batch and its masks),
+    # profiled: its device busy time, and its wall time, which the host's
+    # launches set when nothing else is queued.
+    from tpu_unet_torch.ops.augment import sample_augment_draws, train_transform
+    augment = {}
+    for mode in ("per_batch_shear", "per_sample", "per_sample_shear"):
+        cfg = AugmentConfig(rotation_mode=mode)
+        draws = sample_augment_draws(b, cfg, g)
+        p = device_breakdown(torch, lambda: train_transform(
+            images, masks, draws, **cfg.transform_kwargs()), n_calls=10, top=3,
+            category=_train_category)
+        augment[mode] = {"device_busy_ms": p["device_busy_ms"], "wall_ms": p["wall_ms"],
+                         "top_kernels_ms": p["top_kernels_ms"]}
+    print("[train] augment alone (train_transform, b16 images and masks), per call: "
+          + ", ".join(f"{m} device busy {a['device_busy_ms']:.3f} ms of {a['wall_ms']:.3f} "
+                      f"ms wall" for m, a in augment.items()), flush=True)
+
+    modes = {}
+    for mode in ("per_sample", "per_sample_shear"):
+        ms, med, ls = _timed_steps(torch, np, make_anomaly_train_step(
+            aug_cfg=AugmentConfig(rotation_mode=mode)), state, images, masks, g,
+            warmup=2, steps=10)
+        check(np.isfinite(ls["total_loss"]).all(), f"{mode}: loss not finite")
+        modes[mode] = {"step_ms": ms, "median_step_ms": med, "img_per_s": b * 1e3 / ms}
+        print(f"[train] rotation_mode={mode}: {ms:.3f} ms per step (median step "
+              f"{med:.3f} ms), {b * 1e3 / ms:.1f} img/s (10 steps after 2 warm-up)",
+              flush=True)
+
+    # --- the eval path on the trained state: K1 once per batch ---------------
+    eval_step = make_anomaly_eval_step()
+    batches = [torch.from_numpy(synth_images(torch, b, size, 50 + i, "cuda")).cuda()
+               for i in range(3)]
+    eval_masks = synth_masks(torch, b, size, 60, "cuda")
+    normalize_u8.launches = conv3x3_int8.launches = 0
+    outs = [eval_step(state, x, eval_masks) for x in batches]
+    eval_launches = {"normalize_u8": normalize_u8.launches,
+                     "conv3x3_int8": conv3x3_int8.launches}
+    check(eval_launches == {"normalize_u8": 3, "conv3x3_int8": 0},
+          f"3 eval batches launched {eval_launches} (want K1 3x, K2 0x)")
+    # -------------------------------------------------------------------------
+    shapes = {"score": (b,), "error_map": (b, size, size), "anomaly_map": (b, size, size),
+              "reconstruction": (b, size, size, 3), "image": (b, size, size, 3)}
+    for out in outs:
+        for k, shape in shapes.items():
+            check(tuple(out[k].shape) == shape and bool(torch.isfinite(out[k]).all()),
+                  f"eval {k}: shape {tuple(out[k].shape)} (want {shape}) or not finite")
+        check(all(bool(torch.isfinite(v)) for v in out["losses"].values()),
+              "eval losses not finite")
+    eval_loss = float(outs[0]["losses"]["total_loss"])
+    print(f"[eval] eval step b{b} on the trained state, 3 batches: K1 launched "
+          f"{eval_launches['normalize_u8']}x, K2 {eval_launches['conv3x3_int8']}x; outputs "
+          f"finite, of the right shapes; total loss {eval_loss:.4f}", flush=True)
+    report["train"] = {
+        "config": {"model": "anomaly_unet", "base_features": base, "precision": "bf16",
+                   "image_size": size, "batch": b, "optimizer": "adam", "lr": 1e-3,
+                   "weight_decay": 1e-4, "rotation_mode": "per_batch_shear"},
+        "step_ms": step_ms, "median_step_ms": median_ms, "img_per_s": img_s,
+        "peak_mem_gb": peak_gb,
+        "model_tflop_per_step": flops / 1e12, "model_flop_share_bf16_peak": mfu,
+        "total_loss_by_step": total.tolist(), "fixed_batch_total_loss": probe,
+        "device_breakdown": prof,
+        "rotation_modes": modes, "augment": augment, "eval_total_loss": eval_loss,
+        "launches": {"train_step": train_launches, "eval_step": eval_launches}}
+    del state, outs
+    torch.cuda.empty_cache()
+    return {"train_step": train_launches, "eval_step": eval_launches}
+
+
+def phase_train_cpu_vs_card(torch, np, report):
+    """One small f32 SGD step on the CPU and on the card from the same weights
+    and the same draws (TF32 is off)."""
+    from tpu_unet_torch.models import build_model
+    from tpu_unet_torch.ops.augment import sample_augment_draws
+    from tpu_unet_torch.train.state import create_train_state
+    from tpu_unet_torch.train.steps import AugmentConfig, make_anomaly_train_step
+
+    b, size, base = 4, 64, 8
+    torch.manual_seed(3)
+    cpu_model = build_model("anomaly_unet", base_features=base)
+    gpu_model = build_model("anomaly_unet", base_features=base)
+    gpu_model.load_state_dict(cpu_model.state_dict())
+    cpu = create_train_state(cpu_model, "sgd", 0.05, 1e-4, device="cpu")
+    gpu = create_train_state(gpu_model, "sgd", 0.05, 1e-4, device="cuda")
+    images = synth_images(torch, b, size, 70, "cpu")
+    masks = synth_masks(torch, b, size, 71, "cpu").numpy()
+    cfg = AugmentConfig()
+    draws = sample_augment_draws(b, cfg, torch.Generator().manual_seed(5))
+    step = make_anomaly_train_step(aug_cfg=cfg)
+    l_cpu = step.with_draws(cpu, images, masks, draws)
+    l_gpu = step.with_draws(gpu, images, masks, draws.to("cuda"))
+    loss_rel = max(abs(float(l_gpu[k]) - float(l_cpu[k])) / abs(float(l_cpu[k]))
+                   for k in ("total_loss", "recon_loss", "seg_loss"))
+    sd_cpu, sd_gpu = cpu.model.state_dict(), gpu.model.state_dict()
+    param_err = stat_err = 0.0
+    for k, v in sd_cpu.items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        err = float((sd_gpu[k].cpu() - v).abs().max() / v.abs().max().clamp(min=1e-12))
+        if k.endswith(("running_mean", "running_var")):
+            stat_err = max(stat_err, err)
+        else:
+            param_err = max(param_err, err)
+    print(f"[train-cpu] base {base}, {size}², b{b}, f32, SGD, one step, same weights and "
+          f"draws: losses max rel diff {loss_rel:.3g}; parameters max |diff| / leaf max "
+          f"{param_err:.3g}; BN running stats {stat_err:.3g}", flush=True)
+    check(loss_rel <= 1e-5, f"CPU and card losses differ by {loss_rel:.3g} (rel)")
+    check(param_err <= TRAIN_PARAM_TOL, f"CPU and card parameters differ by {param_err:.3g}")
+    check(stat_err <= TRAIN_STAT_TOL, f"CPU and card BN statistics differ by {stat_err:.3g}")
+    report["train_cpu_vs_card"] = {"loss_max_rel": loss_rel, "param_max_rel_to_leaf": param_err,
+                                   "bn_stat_max_rel_to_leaf": stat_err,
+                                   "param_tol": TRAIN_PARAM_TOL, "stat_tol": TRAIN_STAT_TOL}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -474,6 +746,8 @@ def main():
     phase_k1(torch, report)
     phase_k2(torch, report)
     launches = phase_main_path(torch, np, report)
+    path_launches = {"serve": launches, **phase_train(torch, np, report)}
+    phase_train_cpu_vs_card(torch, np, report)
 
     k1, k2 = report["k1"], report["k2"]
     path_rows = [r for r in k2 if r["relu"]]
@@ -485,11 +759,13 @@ def main():
          "ms": k1["kernel_ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"], "library_ms": None,
          "ms_bf16": k1["kernel_ms_bf16"], "bound_ms_bf16": k1["bound_ms_bf16"],
+         "launches_by_path": {p: c["normalize_u8"] for p, c in path_launches.items()},
          "shape": "(128,256,256,3) u8 -> f32"},
         {"name": "conv3x3_int8", "route": "cuda",
          "source": "tpu_unet_torch/csrc/conv3x3_int8.cu",
          "replaces": "tpu_unet/ops/pallas/int8_conv.py:157",
          "launches": launches["conv3x3_int8"],
+         "launches_by_path": {p: c["conv3x3_int8"] for p, c in path_launches.items()},
          "max_abs_err": max(max(r["max_abs_err"], r.get("max_abs_err_b128", 0))
                             for r in k2),
          "ms": sum(r["kernel_ms_b128"] for r in path_rows),

@@ -143,3 +143,63 @@ def test_unported_variants_raise():
         build_model("unetpp")
     with pytest.raises(ValueError):
         build_model("resnet")
+
+
+def test_train_mode_bn_running_stats_match_flax(anomaly_variables):
+    """Three train-mode passes from the same statistics: the port's running
+    mean and variance follow flax's (biased batch variance, momentum 0.1)."""
+    from tpu_unet_torch.utils.weights import jax_trees_from_state_dict
+
+    jax_model = _JAX_MODELS["anomaly_unet"]()
+    v = anomaly_variables
+    model = port_model("anomaly_unet", v).train()
+    for i in range(3):
+        x = np.array(jax.random.normal(jax.random.key(400 + i), (2, 32, 32, 3)))
+        _, mut = jax_model.apply(v, jnp.asarray(x), train=True, mutable=["batch_stats"])
+        v = {"params": v["params"], "batch_stats": mut["batch_stats"]}
+        with torch.no_grad():
+            model(torch.from_numpy(x).permute(0, 3, 1, 2))
+    _, stats = jax_trees_from_state_dict(model.state_dict())
+    ref = jax.device_get(v["batch_stats"])
+    n = 0
+    for path in ["encoder/inc", "encoder/down4/conv", "decoder_seg/up_seg4/conv"]:
+        for bn in ("bn1", "bn2"):
+            node, want = stats, ref
+            for part in path.split("/") + [bn]:
+                node, want = node[part], want[part]
+            for k in ("mean", "var"):
+                np.testing.assert_allclose(node[k], np.asarray(want[k]), rtol=1e-5,
+                                           atol=1e-7, err_msg=f"{path}/{bn}/{k}")
+                n += 1
+    assert n == 12
+    assert int(model.inc.double_conv[1].num_batches_tracked) == 3
+
+
+def test_bn_differs_from_torch_only_in_the_running_variance(anomaly_variables):
+    """Against nn.BatchNorm2d on the same state: eval forward bit for bit, train
+    forward bit for bit, running mean equal, running variance biased (torch
+    keeps the unbiased one: n/(n-1) times larger)."""
+    import copy
+
+    from tpu_unet_torch.models.blocks import BatchNorm2d
+
+    ours = port_model("anomaly_unet", anomaly_variables)
+    plain = copy.deepcopy(ours)
+    for m in plain.modules():
+        if isinstance(m, BatchNorm2d):
+            m.__class__ = torch.nn.BatchNorm2d
+    x = torch.randn(2, 3, 32, 32, generator=torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        for a, b in zip(ours.eval()(x), plain.eval()(x)):
+            assert torch.equal(a, b)
+        for a, b in zip(ours.train()(x), plain.train()(x)):
+            assert torch.equal(a, b)
+    bn_ours, bn_plain = ours.inc.double_conv[1], plain.inc.double_conv[1]
+    assert torch.equal(bn_ours.running_mean, bn_plain.running_mean)
+    n = 2 * 32 * 32  # values per channel in the batch
+    before = torch.from_numpy(np.array(
+        anomaly_variables["batch_stats"]["encoder"]["inc"]["bn1"]["var"]))
+    batch_var_ours = (bn_ours.running_var - 0.9 * before) / 0.1
+    batch_var_plain = (bn_plain.running_var - 0.9 * before) / 0.1
+    np.testing.assert_allclose(batch_var_plain.numpy(),
+                               (batch_var_ours * n / (n - 1)).numpy(), rtol=1e-4)

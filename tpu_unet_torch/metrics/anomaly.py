@@ -4,25 +4,26 @@
 - ``anomaly_score``: one scalar per image, the mean error over (H, W, C);
 - ``anomaly_error_map``: the per-pixel (N, H, W) channel-mean error.
 
-Methods 'mse' and 'l1'. 'ssim' needs ``ops/ssim.py``, not ported yet.
+Methods 'mse', 'l1' and 'ssim'. Under 'ssim' the score is 1 - SSIM per
+image, and the error map stays the MSE map (the reference stubs its 'ssim'
+map to MSE).
 """
 
 from __future__ import annotations
 
 import torch
 
+from tpu_unet_torch.ops.ssim import ssim
+
 
 def _per_pixel_error(reconstruction: torch.Tensor, original: torch.Tensor,
                      method: str = "mse") -> torch.Tensor:
     r = reconstruction.to(torch.float32)
     o = original.to(torch.float32)
-    if method == "mse":
+    if method in ("mse", "ssim"):
         return torch.mean((r - o) ** 2, dim=-1)
     if method == "l1":
         return torch.mean(torch.abs(r - o), dim=-1)
-    if method == "ssim":
-        raise NotImplementedError("the 'ssim' method needs ops/ssim.py, "
-                                  "which is not ported yet")
     raise ValueError(f"Unknown method: {method!r}")
 
 
@@ -35,4 +36,7 @@ def anomaly_error_map(reconstruction: torch.Tensor, original: torch.Tensor,
 def anomaly_score(reconstruction: torch.Tensor, original: torch.Tensor,
                   method: str = "mse") -> torch.Tensor:
     """Scalar anomaly score per image (N,)."""
+    if method == "ssim":
+        return 1.0 - ssim(reconstruction.to(torch.float32),
+                          original.to(torch.float32), size_average=False)
     return torch.mean(_per_pixel_error(reconstruction, original, method), dim=(1, 2))

@@ -11,6 +11,12 @@ compute dtype with float32 parameters cast at use; the BN affine (or, once
 ``ops/fold_bn.py`` has folded it, the conv bias) and ReLU run in float32, and
 the result is cast back to the compute dtype. The transposed conv and the
 1x1 head add their bias in the compute dtype; heads return float32.
+
+BatchNorm follows flax's, as the JAX blocks configure it: eps 1e-5; in train
+mode it normalizes by the batch's biased variance and moves the running
+statistics by 0.1 (torch's convention; flax ``momentum=0.9``) towards the
+batch mean and the *biased* batch variance, where ``nn.BatchNorm2d`` would
+take the unbiased one. Eval mode is ``nn.BatchNorm2d``'s own forward.
 """
 
 from __future__ import annotations
@@ -24,6 +30,27 @@ import torch.nn.functional as F
 from tpu_unet_torch.core.precision import DEFAULT_POLICY, Policy
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose train mode updates ``running_var`` with the
+    biased batch variance, as flax does. Statistics are float32 (the
+    policy's ``norm_dtype``); parameter and buffer names are unchanged."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        out, mean, invstd = torch.native_batch_norm(
+            x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+        with torch.no_grad():
+            self.num_batches_tracked.add_(1)
+            f = (1.0 / float(self.num_batches_tracked) if self.momentum is None
+                 else self.momentum)
+            # The kernel saved 1 / sqrt(var + eps); var is recovered from it.
+            var = invstd.double().pow(-2).sub(self.eps).clamp(min=0).float()
+            self.running_mean.mul_(1.0 - f).add_(mean, alpha=f)
+            self.running_var.mul_(1.0 - f).add_(var, alpha=f)
+        return out
+
+
 class DoubleConv(nn.Module):
     """(Conv3x3 no-bias -> BN -> ReLU) twice, optionally with a narrower mid width."""
 
@@ -35,10 +62,10 @@ class DoubleConv(nn.Module):
         self.policy = policy
         self.double_conv = nn.Sequential(
             nn.Conv2d(in_channels, mid, 3, padding=1, bias=False),
-            nn.BatchNorm2d(mid),
+            BatchNorm2d(mid),
             nn.ReLU(inplace=True),
             nn.Conv2d(mid, out_channels, 3, padding=1, bias=False),
-            nn.BatchNorm2d(out_channels),
+            BatchNorm2d(out_channels),
             nn.ReLU(inplace=True),
         )
 

@@ -1,13 +1,17 @@
 """The UNet model family as PyTorch modules (counterpart of
-``tpu_unet/models/unet.py``), transposed-conv decoders, eval mode.
+``tpu_unet/models/unet.py``), transposed-conv decoders.
 
 - ``UNet(n_channels=3, n_classes=1)``: encoder 64/128/256/512/1024, 4 skip
   decoder stages, 1x1 head; 31,037,633 params at n_classes=1.
 - ``SegmentationUNet``: UNet with channel dropout on the bottleneck, which is
-  the identity in eval mode (the only mode of this slice); 31,037,828 params
-  at 4 classes.
+  the identity in eval mode; it runs in eval mode only (its train mode comes
+  with the segmentation training step); 31,037,828 params at 4 classes.
 - ``AnomalyUNet``: shared encoder, two decoders (reconstruction -> 3-channel
   sigmoid, segmentation -> 1-channel sigmoid); 43,228,228 params.
+
+``UNet`` and ``AnomalyUNet`` run in train mode (``model.train()``): BatchNorm
+then normalizes by batch statistics and updates its running statistics as
+flax does (``models/blocks.py``).
 
 Inputs and outputs are NCHW. Attribute names are the reference state_dict's
 (``inc``, ``down1``..``down4``, ``up1``..``up4`` or ``up1_recon``/``up1_seg``..,

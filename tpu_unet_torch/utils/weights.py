@@ -10,6 +10,8 @@ JAX, so callers hand it ``jax.device_get``-ed trees or ``.npz``/``.pth`` data.
   axes, so the k2s2 kernels are flipped here. ``export_state_dict`` does not
   flip them, so a ``.pth`` it writes runs, in PyTorch and in this port, a
   model whose transposed convs differ from the JAX model's.
+- :func:`jax_trees_from_state_dict`: its inverse, for a state_dict or for
+  the parameters' gradients, leaf by leaf.
 - :func:`qparams_from_numpy` / :func:`qparams_to_numpy`: a JAX int8 qparams
   tree (HWIO int8 kernels) <-> the port's tensors in K2's weight layout.
 - :func:`load_reference_checkpoint`: a reference-layout ``.pth``
@@ -93,6 +95,51 @@ def state_dict_from_jax(params, batch_stats, model: str = "anomaly_unet",
         else:
             conv(p, prefix, (3, 2, 0, 1))
     return sd
+
+
+def jax_trees_from_state_dict(tensors: Dict[str, torch.Tensor],
+                              model: str = "anomaly_unet") -> Tuple[Dict, Dict]:
+    """Inverse of :func:`state_dict_from_jax`: the port's tensors -> the JAX
+    ``(params, batch_stats)`` trees with numpy float32 leaves, transposed-conv
+    kernels flipped back. ``tensors`` is a state_dict, or any map from the
+    same names to tensors of the same shapes (the parameters' gradients, for
+    instance); ``batch_stats`` is filled where the running statistics are
+    present."""
+    params: Dict = {}
+    stats: Dict = {}
+
+    def put(tree, path, leaf):
+        node = tree
+        for part in path.split("/"):
+            node = node.setdefault(part, {})
+        node.update(leaf)
+
+    def arr(name):
+        return tensors[name].detach().cpu().to(torch.float32).numpy()
+
+    def conv(prefix, axes, flip=False):
+        k = np.transpose(arr(f"{prefix}.weight"), axes)
+        leaf = {"kernel": np.ascontiguousarray(k[::-1, ::-1] if flip else k)}
+        if f"{prefix}.bias" in tensors:
+            leaf["bias"] = arr(f"{prefix}.bias")
+        return leaf
+
+    for path, prefix, kind in ladder_layout(model):
+        if kind == "double":
+            for i, (ci, bi) in enumerate(((0, 1), (3, 4)), start=1):
+                bp = f"{prefix}.double_conv.{bi}"
+                put(params, f"{path}/conv{i}",
+                    conv(f"{prefix}.double_conv.{ci}", (2, 3, 1, 0)))
+                put(params, f"{path}/bn{i}", {"scale": arr(f"{bp}.weight"),
+                                              "bias": arr(f"{bp}.bias")})
+                if f"{bp}.running_mean" in tensors:
+                    put(stats, f"{path}/bn{i}", {"mean": arr(f"{bp}.running_mean"),
+                                                 "var": arr(f"{bp}.running_var")})
+        elif kind == "up":  # flax ConvTranspose == torch's with a flipped kernel
+            put(params, path, conv(prefix, (2, 3, 0, 1), flip=True))
+        else:
+            put(params, path, conv(prefix, (2, 3, 1, 0)))
+    return params, stats
 
 
 def _map_layers(node, fn):
