@@ -47,6 +47,28 @@
 7. One f32 SGD train step (base 8, 64 px, batch 4) on the CPU and on the
    card from the same weights and draws: losses within 1e-5 relative,
    parameters and BN statistics within the tolerances below.
+8. The MVTec main path at full width, through the CLIs' own functions
+   (train_mvtec.train, which is train_mvtec.main without the flag checks,
+   the dataset index and the loss plot; test_mvtec.make_test_loader,
+   load_model, test_model, evaluate_results and save_results, which is
+   test_mvtec.main without its plots: matplotlib is not installed on the
+   card's machine), with flags parsed by the CLIs' parsers. A synthetic
+   category of MVTec bottle's counts and size (209 train, 20 good and 63
+   defective test PNGs of 900² with their masks) is written under TMPDIR
+   and read by MVTecDataset; 3 epochs of AnomalyUNet base 64, bf16, 256²,
+   b16, Adam with the loader in the loop, validation every epoch, async
+   checkpoints (best and every 2nd epoch), epoch 1 profiled by
+   --profile_dir: per epoch train img/s (epoch 0 decodes cold), validation
+   seconds, the idle share of the profiled epoch, checkpoint MB and write
+   seconds. Then the test path on best_model.pth in bf16, f32 --fold_bn and
+   --quantize int8 --calib_samples 64: AUROC, AUPRC, threshold, pixel F1,
+   and the bf16 and int8 scores against f32. --resume
+   checkpoint_epoch_0.pth --epochs 2 must continue the epoch and Adam step
+   counts. Launch counts per leg: K1 once per validation and test batch
+   (and calibration chunk), K2 26 times per int8 test batch, neither in the
+   train steps. Last, base 8 at 64 px in f32: a .pth written on the card
+   loads on the CPU (strict, Adam state equal) and back, and the test path
+   gives the same scores (1e-5), threshold and image metrics on both.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit
 (nvidia-smi), and as the last line ``{"ok": true, "device": {...}}``; the
@@ -56,6 +78,7 @@ non-zero. Without a CUDA GPU it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -85,6 +108,13 @@ PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core rate
 # sums in another order than the CPU's).
 TRAIN_PARAM_TOL = 4e-5
 TRAIN_STAT_TOL = 2.5e-6
+# Phase 8's test scores (the trained synthetic bottle) in int8 and bf16
+# against f32 with folded BN: correlation above, median relative difference
+# below. About 5x what H100 runs measured: 1 - corr 6e-7 (int8; bf16 2e-7),
+# median rel 7.5e-4 (int8), 5.1e-4 (bf16).
+MVTEC_MIN_CORR = 1 - 3e-6
+MVTEC_INT8_REL = 4e-3
+MVTEC_BF16_REL = 2.5e-3
 OUT_DIR = "chiprun_out"
 
 
@@ -728,6 +758,385 @@ def phase_train_cpu_vs_card(torch, np, report):
                                    "param_tol": TRAIN_PARAM_TOL, "stat_tol": TRAIN_STAT_TOL}
 
 
+# MVTec bottle's split sizes: train/good, test/good and its three defect types.
+BOTTLE_TRAIN_GOOD, BOTTLE_TEST_GOOD = 209, 20
+BOTTLE_DEFECTS = {"broken_large": 20, "broken_small": 22, "contamination": 21}
+BOTTLE_SIZE = 900  # MVTec bottle's images are 900 x 900
+
+
+def write_bottle(torch, np, root):
+    """Write a seeded category ``bottle`` of MVTec bottle's counts and size
+    under ``root`` in the MVTec AD layout: textures with round defects
+    painted where the ``ground_truth`` masks mark them. Returns the bytes
+    written."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from PIL import Image
+
+    def save(arr, path):
+        Image.fromarray(arr).save(path, format="PNG", compress_level=1)
+        return os.path.getsize(path)
+
+    groups = [("train", "good", BOTTLE_TRAIN_GOOD), ("test", "good", BOTTLE_TEST_GOOD)]
+    groups += [("test", t, n) for t, n in sorted(BOTTLE_DEFECTS.items())]
+    cat = os.path.join(root, "bottle")
+    jobs = []
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        for gi, (split, atype, n) in enumerate(groups):
+            img_dir, gt_dir = (os.path.join(cat, split, atype),
+                               os.path.join(cat, "ground_truth", atype))
+            os.makedirs(img_dir)
+            if atype != "good":
+                os.makedirs(gt_dir)
+            for lo in range(0, n, 16):
+                k = min(16, n - lo)
+                seed = 1000 + 100 * gi + lo
+                imgs = synth_images(torch, k, BOTTLE_SIZE, seed, "cuda")
+                masks = None
+                if atype != "good":  # defects drawn at 256 px, scaled
+                    m = synth_masks(torch, k, 256, seed + 1, "cuda").permute(0, 3, 1, 2)
+                    m = torch.nn.functional.interpolate(m.float(), size=BOTTLE_SIZE)
+                    masks = m[:, 0].to(torch.bool).cpu().numpy()
+                    imgs[masks] = (imgs[masks] * 0.3).astype(np.uint8) + np.uint8(40)
+                for i in range(k):
+                    name = f"{lo + i:03d}"
+                    jobs.append(pool.submit(save, imgs[i], os.path.join(img_dir, name + ".png")))
+                    if masks is not None:
+                        jobs.append(pool.submit(save, (masks[i] * 255).astype(np.uint8),
+                                                os.path.join(gt_dir, name + "_mask.png")))
+        return sum(j.result() for j in jobs)
+
+
+class _Spans:
+    """``train_mvtec.train``'s ``span`` hook: each epoch's train and validate
+    pass timed between device syncs, with the kernels' launch counters zeroed
+    at its start and read at its end."""
+
+    def __init__(self, torch, kernels):
+        self.torch, self.kernels, self.rows = torch, kernels, {}
+
+    @contextlib.contextmanager
+    def __call__(self, name, epoch):
+        for k in self.kernels:
+            k.launches = 0
+        self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        yield
+        self.torch.cuda.synchronize()
+        self.rows[name, epoch] = {"seconds": time.perf_counter() - t0,
+                                  **{k.__name__: k.launches for k in self.kernels}}
+
+    def total(self, name):
+        rows = [r for (n, _), r in self.rows.items() if n == name]
+        return {k.__name__: sum(r[k.__name__] for r in rows) for k in self.kernels}
+
+
+def _trace_device_ms(path):
+    """Device busy ms in a torch.profiler chrome trace (kernels, copies, sets)
+    and the ms from the trace's first event to its first kernel."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    gpu = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    busy = sum(e.get("dur", 0) for e in gpu) / 1e3
+    first = (min(e["ts"] for e in gpu) - min(e["ts"] for e in events)) / 1e3
+    return busy, first
+
+
+def _adam_step(torch, path):
+    blob = torch.load(path, map_location="cpu", weights_only=True, mmap=True)
+    return int(blob["optimizer_state_dict"]["state"][0]["step"])
+
+
+def phase_mvtec(torch, np, report):
+    """Phase 8: the MVTec main path at full width through the train and test
+    CLIs' own functions (``train_mvtec.train``; ``test_mvtec``'s
+    ``make_test_loader``, ``load_model``, ``test_model``, ``evaluate_results``,
+    ``save_results``) on a synthetic category written as PNG files and read
+    by ``MVTecDataset``. Only the CLIs' ``main``s are not called: their plots
+    need matplotlib, which the card's machine does not have. Returns the
+    launch counts of each leg."""
+    import shutil
+    import tempfile
+
+    from tpu_unet_torch.cli import test_mvtec, train_mvtec
+    from tpu_unet_torch.data.mvtec import MVTecDataset
+    from tpu_unet_torch.ops.kernels.int8_conv import conv3x3_int8
+    from tpu_unet_torch.ops.kernels.preprocess import normalize_u8
+
+    kernels = (normalize_u8, conv3x3_int8)
+
+    def zero():
+        normalize_u8.launches = conv3x3_int8.launches = 0
+
+    def counts():
+        return {"normalize_u8": normalize_u8.launches, "conv3x3_int8": conv3x3_int8.launches}
+
+    print("[mvtec] through the CLIs' functions: train_mvtec.train; test_mvtec.make_test_loader, "
+          "load_model, test_model, evaluate_results, save_results; MVTecDataset on PNG files "
+          "(the CLIs' plots are skipped: matplotlib is not installed on this machine)",
+          flush=True)
+    b, epochs = 16, 3
+    dev = torch.device("cuda")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mvtec_")
+    data_root = os.path.join(tmp, "data")
+    common = ["--data_root", data_root, "--category", "bottle", "--model", "anomaly_unet",
+              "--base_features", "64", "--image_size", "256", "--batch_size", str(b),
+              "--num_workers", "4", "--device", "cuda"]
+    train_flags = common + ["--precision", "bf16", "--optimizer", "adam", "--epochs",
+                            str(epochs), "--val_freq", "1", "--save_freq", "2",
+                            "--save_dir", os.path.join(tmp, "runs")]
+    out = {"mode": "cli functions", "config": {
+        "category": "synthetic bottle", "image_px": BOTTLE_SIZE, "train_good": BOTTLE_TRAIN_GOOD,
+        "test_good": BOTTLE_TEST_GOOD, "defects": BOTTLE_DEFECTS, "train_flags": train_flags}}
+    legs = {}
+    try:
+        t0 = time.perf_counter()
+        n_bytes = write_bottle(torch, np, data_root)
+        out["synth_s"] = time.perf_counter() - t0
+        train_ds = MVTecDataset(data_root, "bottle", "train", 256, is_train=True)
+        test_ds = MVTecDataset(data_root, "bottle", "test", 256, is_train=False)
+        check((len(train_ds), len(test_ds))
+              == (BOTTLE_TRAIN_GOOD, BOTTLE_TEST_GOOD + sum(BOTTLE_DEFECTS.values())),
+              f"dataset sizes {len(train_ds)}, {len(test_ds)}")
+        print(f"[mvtec] synthetic bottle: {len(train_ds)} train, {len(test_ds)} test PNGs of "
+              f"{BOTTLE_SIZE}² and their masks ({n_bytes / 1e6:.0f} MB) written in "
+              f"{out['synth_s']:.1f} s", flush=True)
+
+        # --- 3 epochs, validation each, the 2nd epoch profiled ------------------
+        args = train_mvtec.parse_args(train_flags + ["--profile_dir", os.path.join(tmp, "prof")])
+        exp = os.path.join(tmp, "runs", "bottle")
+        spans = _Spans(torch, kernels)
+        results = train_mvtec.train(args, train_ds, test_ds, dev, exp, span=spans)
+        with open(os.path.join(exp, "results", "history.jsonl")) as f:
+            hist = [json.loads(line) for line in f]
+        check([h["epoch"] for h in hist] == list(range(epochs)), f"history {hist}")
+        n_steps = BOTTLE_TRAIN_GOOD // b
+        n_val = -(-len(test_ds) // b)
+        busy, first_kernel = _trace_device_ms(os.path.join(tmp, "prof", "trace.json"))
+        rows = []
+        for h in hist:
+            e = h["epoch"]
+            tr, va = spans.rows["train", e], spans.rows["validate", e]
+            check(tr["normalize_u8"] == tr["conv3x3_int8"] == 0,
+                  f"epoch {e}'s train steps launched {tr} (want no kernel)")
+            check(va["normalize_u8"] == n_val and va["conv3x3_int8"] == 0,
+                  f"validation launched {va} for {n_val} batches (want K1 once per batch, no K2)")
+            check(all(np.isfinite(h[k]) for k in ("total_loss", "val_loss", "val_auroc")),
+                  f"epoch {e}: {h}")
+            row = {"epoch": e, "train_s": tr["seconds"],
+                   "train_img_per_s": n_steps * b / tr["seconds"],
+                   "decode": "cold" if e == 0 else "cached", "profiled": e == 1,
+                   "val_s": va["seconds"], "val_batches": n_val, **h}
+            rows.append(row)
+        prof_wall = 1e3 * rows[1]["train_s"]
+        idle = {"device_busy_ms": busy, "first_kernel_ms": first_kernel,
+                "idle_share_profiled": 1 - busy / prof_wall,
+                "idle_share_vs_epoch2_wall": 1 - busy / (1e3 * rows[2]["train_s"])}
+        for r in rows:
+            print(f"[mvtec] epoch {r['epoch']} ({r['decode']} decode"
+                  f"{', profiled' if r['profiled'] else ''}): train {r['train_s']:.3f} s, "
+                  f"{r['train_img_per_s']:.1f} img/s with the loader (phase 6, device-resident "
+                  f"batches: {report['train']['img_per_s']:.1f}); validation {r['val_s']:.3f} s "
+                  f"({n_val} batches, K1 {n_val}x, K2 0x); loss {r['total_loss']:.4f}, val loss "
+                  f"{r['val_loss']:.4f}, val AUROC {r['val_auroc']:.4f}", flush=True)
+        print(f"[mvtec] epoch 1 profiled (--profile_dir): device busy {busy:.1f} ms of "
+              f"{prof_wall:.1f} ms, idle share {idle['idle_share_profiled']:.4f}; against epoch "
+              f"2's unprofiled {1e3 * rows[2]['train_s']:.1f} ms: "
+              f"{idle['idle_share_vs_epoch2_wall']:.4f}; first kernel {first_kernel:.1f} ms "
+              f"into the trace", flush=True)
+        for w in results["checkpoint_writes"]:
+            print(f"[mvtec] checkpoint {os.path.basename(w['path'])}: {w['bytes'] / 1e6:.1f} MB, "
+                  f"async write {w['seconds']:.3f} s", flush=True)
+        ckpt = os.path.join(exp, "checkpoints")
+        check(sorted(os.listdir(ckpt)) == ["best_model.pth", "checkpoint_epoch_0.pth",
+                                           "checkpoint_epoch_2.pth"],
+              f"checkpoints {sorted(os.listdir(ckpt))}")
+        step_after = _adam_step(torch, os.path.join(ckpt, "checkpoint_epoch_2.pth"))
+        check(step_after == epochs * n_steps, f"Adam step {step_after}")
+        for name in os.listdir(ckpt):
+            blob = torch.load(os.path.join(ckpt, name), map_location="cpu", weights_only=True,
+                              mmap=True)
+            check(set(blob) == {"epoch", "model_state_dict", "optimizer_state_dict", "loss"},
+                  f"{name} keys {sorted(blob)}")
+        for name in ("args.json", "results/training_results.json"):
+            with open(os.path.join(exp, name)) as f:
+                json.load(f)
+        out.update(epochs=rows, idle=idle, checkpoint_writes=results["checkpoint_writes"])
+        legs["mvtec_train"] = spans.total("train")
+        legs["mvtec_validate"] = spans.total("validate")
+        torch.cuda.empty_cache()
+
+        # --- the test path on best_model.pth in three modes ---------------------
+        best = os.path.join(ckpt, "best_model.pth")
+        tests = {}
+        for mode, flags in (("bf16", ["--precision", "bf16"]),
+                            ("f32_fold_bn", ["--precision", "f32", "--fold_bn"]),
+                            ("int8", ["--precision", "bf16", "--quantize", "int8",
+                                      "--calib_samples", "64"])):
+            targs = test_mvtec.parse_args(common + flags + [
+                "--checkpoint", best, "--output_dir", os.path.join(tmp, "test", mode)])
+            zero()
+            t0 = time.perf_counter()
+            loader = test_mvtec.make_test_loader(targs, test_ds, dev)
+            state, step = test_mvtec.load_model(targs, dev,
+                                                train_ds if mode == "int8" else None)
+            torch.cuda.synchronize()
+            t1, calib_k1 = time.perf_counter(), normalize_u8.launches
+            res = test_mvtec.test_model(step, state, loader)
+            t2 = time.perf_counter()
+            ev = test_mvtec.evaluate_results(res, targs.pixel_thresholds, targs.threshold)
+            t3 = time.perf_counter()
+            c = counts()
+            legs[f"mvtec_test_{mode}"] = c
+            chunks = 64 // 16 if mode == "int8" else 0  # calibration batches
+            want = {"normalize_u8": n_val + chunks,
+                    "conv3x3_int8": 26 * n_val if mode == "int8" else 0}
+            check(c == want and calib_k1 == chunks,
+                  f"test {mode} launched {c} (calibration K1 {calib_k1}x), want {want}")
+            out_dir = os.path.join(targs.output_dir, "bottle_test_results")
+            test_mvtec.save_results(res, ev, out_dir, targs)
+            for name in ("test_metrics.json", "detailed_results.json"):
+                with open(os.path.join(out_dir, name)) as f:
+                    json.load(f)
+            metrics = {**ev["image_metrics"],
+                       **{f"pixel_f1_{k}": v["f1_score"] for k, v in ev["pixel_metrics"].items()}}
+            check(all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in metrics.values()),
+                  f"test {mode} metrics not finite in [0, 1]: {metrics}")
+            check(res["anomaly_scores"].shape == (len(test_ds),)
+                  and np.isfinite(res["anomaly_scores"]).all(), f"test {mode} scores")
+            tests[mode] = {"seconds": t3 - t0, "img_per_s": len(test_ds) / (t3 - t0),
+                           "launches": c, "load_model_s": t1 - t0, "test_model_s": t2 - t1,
+                           "evaluate_results_s": t3 - t2, "threshold": res["threshold"],
+                           "metrics": metrics, "scores": res["anomaly_scores"]}
+            print(f"[mvtec] test {mode}: {t3 - t0:.3f} s, {len(test_ds) / (t3 - t0):.1f} img/s "
+                  f"(cached decode): load_model {t1 - t0:.3f} s"
+                  f"{' (calibration on 64 images included)' if mode == 'int8' else ''}, "
+                  f"test_model {t2 - t1:.3f} s, evaluate_results {t3 - t2:.3f} s; "
+                  f"K1 {c['normalize_u8']}x, K2 {c['conv3x3_int8']}x for {n_val} batches; "
+                  f"AUROC {metrics['auroc']:.4f}, AUPRC {metrics['auprc']:.4f}, threshold "
+                  f"{res['threshold']:.5f}, pixel F1 @0.3/0.5/0.7 "
+                  + "/".join(f"{metrics[f'pixel_f1_threshold_{t}']:.4f}" for t in (0.3, 0.5, 0.7)),
+                  flush=True)
+            del state, step
+            torch.cuda.empty_cache()
+        ref = tests["f32_fold_bn"]["scores"]
+        for mode in ("bf16", "int8"):
+            s = tests[mode]["scores"]
+            tests[mode]["corr_vs_f32"] = float(np.corrcoef(s, ref)[0, 1])
+            tests[mode]["median_rel_vs_f32"] = float(np.median(np.abs(s - ref) / np.abs(ref)))
+            print(f"[mvtec] test {mode} scores vs f32 --fold_bn: 1 - corr "
+                  f"{1 - tests[mode]['corr_vs_f32']:.2e}, median rel diff "
+                  f"{tests[mode]['median_rel_vs_f32']:.3e}", flush=True)
+        check(tests["int8"]["corr_vs_f32"] > MVTEC_MIN_CORR
+              and tests["int8"]["median_rel_vs_f32"] < MVTEC_INT8_REL,
+              "int8 test scores do not track f32")
+        check(tests["bf16"]["corr_vs_f32"] > MVTEC_MIN_CORR
+              and tests["bf16"]["median_rel_vs_f32"] < MVTEC_BF16_REL,
+              "bf16 test scores do not track f32")
+        for t in tests.values():
+            t["scores"] = t["scores"].tolist()
+        out["test"] = tests
+
+        # --- --resume checkpoint_epoch_0.pth --epochs 2 ---------------------------
+        ck0 = os.path.join(ckpt, "checkpoint_epoch_0.pth")
+        rargs = train_mvtec.parse_args(train_flags + ["--epochs", "2", "--resume", ck0])
+        rexp = os.path.join(tmp, "runs", "bottle_resume")
+        rspans = _Spans(torch, kernels)
+        train_mvtec.train(rargs, train_ds, test_ds, dev, rexp, span=rspans)
+        with open(os.path.join(rexp, "results", "history.jsonl")) as f:
+            rhist = [json.loads(line) for line in f]
+        steps = (_adam_step(torch, ck0),
+                 _adam_step(torch, os.path.join(rexp, "checkpoints", "checkpoint_epoch_1.pth")))
+        legs["mvtec_resume"] = {k: rspans.total("train")[k] + rspans.total("validate")[k]
+                                for k in ("normalize_u8", "conv3x3_int8")}
+        check([h["epoch"] for h in rhist] == [1], f"resumed history {rhist}")
+        check(steps == (n_steps, 2 * n_steps),
+              f"Adam step {steps[0]} -> {steps[1]} (want {n_steps} -> {2 * n_steps})")
+        check(rspans.total("train") == {"normalize_u8": 0, "conv3x3_int8": 0}
+              and rspans.total("validate") == {"normalize_u8": n_val, "conv3x3_int8": 0},
+              f"resume launched {rspans.rows}")
+        rel = abs(rhist[0]["total_loss"] - hist[1]["total_loss"]) / hist[1]["total_loss"]
+        print(f"[mvtec] --resume checkpoint_epoch_0.pth --epochs 2: epochs "
+              f"{[h['epoch'] for h in rhist]}, Adam step {steps[0]} -> {steps[1]}; epoch 1 loss "
+              f"{rhist[0]['total_loss']:.5f} (cosine LR over 2 epochs) against the 3-epoch "
+              f"run's {hist[1]['total_loss']:.5f} (rel diff {rel:.2e})", flush=True)
+        out["resume"] = {"history": rhist, "adam_step": list(steps),
+                         "epoch1_loss_rel_diff_vs_3_epoch_run": rel}
+        shutil.rmtree(os.path.join(tmp, "runs"))  # 3.6 GB of checkpoints
+        torch.cuda.empty_cache()
+
+        out["cpu_vs_card"] = _mvtec_cpu_vs_card(torch, np, data_root, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    report["main_path"]["mvtec"] = out
+    return legs
+
+
+def _mvtec_cpu_vs_card(torch, np, data_root, tmp):
+    """Base 8, 64 px, f32: one epoch of ``train_mvtec.train`` on the card, its
+    .pth loaded on the CPU (strict, optimizer included) and back on the card;
+    the test path on both."""
+    from tpu_unet_torch.cli import test_mvtec, train_mvtec
+    from tpu_unet_torch.data.mvtec import MVTecDataset
+    from tpu_unet_torch.models import build_model
+    from tpu_unet_torch.train.checkpoint import load_checkpoint, save_checkpoint
+    from tpu_unet_torch.train.state import create_train_state
+
+    small = ["--data_root", data_root, "--category", "bottle", "--base_features", "8",
+             "--image_size", "64", "--batch_size", "16", "--num_workers", "4",
+             "--precision", "f32"]
+    train_ds = MVTecDataset(data_root, "bottle", "train", 64, is_train=True)
+    test_ds = MVTecDataset(data_root, "bottle", "test", 64, is_train=False)
+    exp = os.path.join(tmp, "small")
+    train_mvtec.train(train_mvtec.parse_args(small + ["--epochs", "1", "--device", "cuda"]),
+                      train_ds, test_ds, torch.device("cuda"), exp)
+    path = os.path.join(exp, "checkpoints", "checkpoint_epoch_0.pth")
+    written = torch.load(path, map_location="cpu", weights_only=True)["optimizer_state_dict"]
+
+    def state_on(device):
+        return create_train_state(build_model("anomaly_unet", base_features=8),
+                                  "adam", 1e-3, 1e-4, device=device)
+
+    def same_adam(opt):
+        got = opt.state_dict()["state"]
+        return all(torch.equal(got[i][k].cpu(), v) for i, s in written["state"].items()
+                   for k, v in s.items())
+
+    cpu = state_on("cpu")
+    load_checkpoint(cpu, path)  # strict=True, optimizer included
+    check(same_adam(cpu.optimizer), "Adam state differs after the card -> CPU load")
+    back = os.path.join(tmp, "small_cpu.pth")
+    save_checkpoint(cpu, 0, 0.0, back)
+    card = state_on("cuda")
+    load_checkpoint(card, back)
+    check(same_adam(card.optimizer), "Adam state differs after the card -> CPU -> card trip")
+    check(card.optimizer.param_groups[0].get("fused") is True
+          and not cpu.optimizer.param_groups[0].get("fused"),
+          "a load changed the optimizer's implementation")
+    results = {}
+    for name in ("cpu", "cuda"):
+        targs = test_mvtec.parse_args(small + ["--checkpoint", path, "--device", name])
+        dev = torch.device(name)
+        state, step = test_mvtec.load_model(targs, dev)
+        res = test_mvtec.test_model(step, state, test_mvtec.make_test_loader(targs, test_ds, dev))
+        results[name] = (res, test_mvtec.evaluate_results(res, targs.pixel_thresholds))
+    (rc, ec), (rg, eg) = results["cpu"], results["cuda"]
+    rel = float(np.max(np.abs(rg["anomaly_scores"] - rc["anomaly_scores"])
+                       / np.abs(rc["anomaly_scores"])))
+    thr_rel = abs(rg["threshold"] - rc["threshold"]) / abs(rc["threshold"])
+    print(f"[mvtec-cpu] base 8, 64², f32: a .pth written by train_mvtec.train on the card "
+          f"loads on the CPU (strict, Adam state equal, and back); test path scores max rel "
+          f"diff {rel:.3g}, threshold rel diff {thr_rel:.3g}, image metrics "
+          f"{'equal' if ec['image_metrics'] == eg['image_metrics'] else 'DIFFER'} "
+          f"(AUROC {ec['image_metrics']['auroc']:.4f})", flush=True)
+    check(rel <= 1e-5, f"CPU and card test scores differ by {rel:.3g} (rel)")
+    check(thr_rel <= 1e-5, f"CPU and card thresholds differ by {thr_rel:.3g} (rel)")
+    check(ec["image_metrics"] == eg["image_metrics"],
+          f"image metrics differ: {ec['image_metrics']} vs {eg['image_metrics']}")
+    return {"scores_max_rel": rel, "threshold_rel": thr_rel,
+            "image_metrics_cpu": ec["image_metrics"], "image_metrics_card": eg["image_metrics"]}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -748,6 +1157,7 @@ def main():
     launches = phase_main_path(torch, np, report)
     path_launches = {"serve": launches, **phase_train(torch, np, report)}
     phase_train_cpu_vs_card(torch, np, report)
+    path_launches.update(phase_mvtec(torch, np, report))
 
     k1, k2 = report["k1"], report["k2"]
     path_rows = [r for r in k2 if r["relu"]]

@@ -5,6 +5,7 @@ draws go through both packages, and make seeded batches."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from tpu_unet_torch.ops.augment import AugmentDraws
@@ -50,3 +51,15 @@ def u8_batch(seed, n=4, hw=32, mask_dtype=np.float32):
     mask = (rng.uniform(size=(n, hw, hw, 1)) > 0.8).astype(mask_dtype)
     return img, mask
 
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run a module's tests with one torch CPU thread, then restore the
+    count. The suite runs in several worker processes at once, and PyTorch's
+    thread pool, sized to every core in each of them, spends more time
+    waiting on oversubscribed cores than computing these small shapes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

@@ -5,8 +5,10 @@ of JAX or of ``tpu_unet``. Module paths mirror ``tpu_unet``'s so each
 counterpart is easy to find. Its TPU kernels are CUDA kernels written by hand
 for ``sm_90a`` (``csrc/``), built at first use (``ops/kernels/build.py``).
 
-Slice 1 covers anomaly serving (``serve.AnomalyScorer``, ``cli.serve_mvtec``)
-in f32, bf16 and int8. Public functions keep the JAX package's layout: NHWC
+It covers MVTec anomaly serving (``serve.AnomalyScorer``, ``cli.serve_mvtec``)
+in f32, bf16 and int8, and training and testing (``train``, ``data``,
+``cli.train_mvtec``, ``cli.test_mvtec``, ``cli.sweep_mvtec``). Public
+functions keep the JAX package's layout: NHWC
 uint8 images in, ``(N,)`` float32 scores out. Entry points run on ``cuda``
 unless the caller passes ``device="cpu"``, and raise when ``cuda`` is asked
 for and there is no GPU.

@@ -35,6 +35,8 @@ Usage:
     qparams = quantize_model(arch, fparams, absmax)
     fwd     = make_quantized_forward(arch)
     outputs = fwd(qparams, images_u8)                       # NHWC uint8 tensor
+    step    = make_quantized_anomaly_eval_step()            # the eval step's outputs
+    out     = step(qparams, images_u8, masks)
 """
 
 from __future__ import annotations
@@ -497,6 +499,50 @@ def quantize_from_train_state(arch: str, state_dict: Dict[str, torch.Tensor],
     absmax = calibrate_absmax(arch, fparams, calib_batches,
                               max_batches=max_batches, percentile=percentile)
     return quantize_model(arch, fparams, absmax)
+
+
+def make_quantized_anomaly_eval_step(loss_cfg=None):
+    """int8 drop-in for ``train/steps.py::make_anomaly_eval_step``.
+
+    Returns ``step(qparams, images_u8, masks, valid=None)`` with the float
+    eval step's output keys, so the epoch drivers and the test CLI run
+    unchanged on int8 inference. The full two-decoder plan runs (26 K2
+    launches per batch for AnomalyUNet), on the device the qparams lie on.
+    One executor is built per step and kept while the same qparams come
+    back, so each layer's constants are made once (as the scorer does).
+    ``eval_transform`` runs once per batch: its output is the int8 forward's
+    input and the loss's and score's reference.
+    """
+    from tpu_unet_torch.losses.anomaly import combined_anomaly_loss
+    from tpu_unet_torch.metrics.anomaly import anomaly_error_map, anomaly_score
+    from tpu_unet_torch.train.steps import AnomalyLossConfig, _as_tensor
+
+    cfg = loss_cfg if loss_cfg is not None else AnomalyLossConfig()
+    plan = build_plan("anomaly_unet")
+    cache: Dict[str, Any] = {}
+
+    @torch.no_grad()
+    def step(qparams, images_u8, masks, valid=None):
+        if cache.get("layers") is not qparams["layers"]:
+            cache["layers"], cache["exec"] = qparams["layers"], _QuantExec(qparams)
+        device = _tree_device(qparams["layers"])
+        img = eval_transform(_as_tensor(images_u8, device))
+        recon, amap = _run(cache["exec"], img, plan)
+        m = _as_tensor(masks, device).to(torch.float32)
+        if valid is not None:
+            valid = _as_tensor(valid, device)
+        losses = combined_anomaly_loss(recon, amap, img, m, sample_weight=valid,
+                                       **cfg.kwargs())
+        return {
+            "losses": losses,
+            "score": anomaly_score(recon, img),
+            "error_map": anomaly_error_map(recon, img),
+            "anomaly_map": amap[..., 0],
+            "reconstruction": recon,
+            "image": img,
+        }
+
+    return step
 
 
 def save_qparams(qparams: Dict[str, Any], path: str) -> None:

@@ -8,6 +8,11 @@ NHWC views of the outputs, the backward pass and one optimizer update. It
 updates the :class:`TrainState` in place and returns the loss scalars as
 device tensors, so the host waits for nothing inside a run of steps.
 
+The epoch drivers (``train/loop.py``) hand the steps the loader's batches,
+tensors already on the state's device, copied from pinned memory by the
+loader's ``data/loader.py::to_device`` transform.
+The steps also take numpy arrays, at the cost described in :func:`_as_tensor`.
+
 The JAX step draws its augmentation from a key. Here
 ``step(state, images_u8, masks, generator)`` makes the draws from a
 ``torch.Generator`` on the state's device, and
@@ -80,6 +85,9 @@ class SegLossConfig:
 
 
 def _as_tensor(x, device: torch.device) -> torch.Tensor:
+    """``x`` (a tensor or a numpy array) on ``device``. A numpy array is
+    copied from pageable memory, and on CUDA such a copy first waits for the
+    stream to drain; a tensor already on ``device`` costs nothing."""
     return torch.as_tensor(x).to(device)
 
 
