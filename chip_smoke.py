@@ -69,6 +69,27 @@
    train steps. Last, base 8 at 64 px in f32: a .pth written on the card
    loads on the CPU (strict, Adam state equal) and back, and the test path
    gives the same scores (1e-5), threshold and image metrics on both.
+9. The segmentation path at full width, through the seg CLIs' own functions
+   (_seg_common.train_seg; make_eval_loader, load_seg_model,
+   validate_seg_epoch and save_seg_results, which is run_seg_evaluation
+   without its plots) with flags from the CLIs' parsers, on synthetic trees
+   written under TMPDIR and read by the port's datasets. KolektorSDD at the
+   dataset's counts and size (399 grayscale JPEG parts of 1260 x 500 in 50
+   kos folders, 52 with a thin defect streak of class 1 or 2): 3 epochs of
+   train_kolektorsdd's defaults (SegmentationUNet base 64, bf16, 1024 x 512,
+   b8, Adam, class weights 1/50/50, CE + Dice, 5 degree shear, 4 loader
+   threads), validation and checkpoints each epoch, epoch 1 profiled (idle
+   share); the test path on the last checkpoint in bf16, f32 --fold_bn and
+   --quantize int8 (32 calibration images): load_model, the device pass and
+   the host metrics timed apart, K1 once per batch (and calibration chunk),
+   K2 18 times per int8 batch, each confusion matrix counting every test
+   pixel once, int8 and bf16 predictions against f32's; a 1-epoch --resume;
+   base 8 at 64 x 32 on the CPU against the card (f32) and int8 against the
+   plain K1/K2 forward. Gear (4 classes, 64/16/16 JPEGs of 512² with
+   overlapping polygons; sizes chosen): 1 epoch of train_gear's defaults,
+   then test_gear in bf16 and int8. K1 and K2 are held bit for bit at the
+   seg shapes in phases 2 and 3 (K1 at (8,1024,512,3) and (8,512,512,3), K2
+   at SegmentationUNet's 18 convs at 1024 x 512 and 512², b8).
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit
 (nvidia-smi), and as the last line ``{"ok": true, "device": {...}}``; the
@@ -94,10 +115,26 @@ SCORE_PATH_CONVS = [
     (32, 1024, 512), (32, 512, 512), (64, 512, 256), (64, 256, 256),
     (128, 256, 128), (128, 128, 128), (256, 128, 64), (256, 64, 64),
 ]
-# (N, H, W, Cin, Cout) off the main path, checked bit for bit.
+# (N, H, W, Cin, Cout) off the main path, checked bit for bit; the last three
+# have a Cout the wrapper pads to 16.
 ODD_CONVS = [(1, 10, 20, 32, 16), (2, 70, 70, 64, 64), (1, 5, 3, 3, 16),
              (1, 9, 130, 3, 80), (1, 3, 3, 32, 128), (2, 17, 33, 96, 144),
-             (1, 6, 7, 2, 32)]
+             (1, 6, 7, 2, 32), (1, 16, 24, 32, 8), (2, 20, 12, 8, 24), (1, 17, 9, 3, 12)]
+# The seg eval batch (the JAX CLIs' --batch_size 8), and the input shapes of
+# K1 there: KolektorSDD at 1024 x 512, Gear at 512 x 512.
+SEG_BATCH = 8
+SEG_K1_SHAPES = [(SEG_BATCH, 1024, 512, 3), (SEG_BATCH, 512, 512, 3)]
+# (H, W, Cin, Cout) of SegmentationUNet's 18 3x3 convs at base 64, in order:
+# encoder inc, down1..down4, then the one decoder up1..up4; at KolektorSDD's
+# 1024 x 512 and at Gear's 512 x 512.
+_SEG_CHANNELS = [(3, 64), (64, 64), (64, 128), (128, 128), (128, 256), (256, 256),
+                 (256, 512), (512, 512), (512, 1024), (1024, 1024),
+                 (1024, 512), (512, 512), (512, 256), (256, 256), (256, 128), (128, 128),
+                 (128, 64), (64, 64)]
+_SEG_LEVELS = [0, 0, 1, 1, 2, 2, 3, 3, 4, 4, 3, 3, 2, 2, 1, 1, 0, 0]
+SEG_CONVS = {name: [(h >> lv, w >> lv, cin, cout)
+                    for lv, (cin, cout) in zip(_SEG_LEVELS, _SEG_CHANNELS)]
+             for name, (h, w) in (("kolektorsdd", (1024, 512)), ("gear", (512, 512)))}
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 PEAK_INT8_OPS = 1979e12      # H100 SXM dense int8 tensor-core rate
 PEAK_F32_FLOPS = 67e12       # H100 SXM float32 outside the tensor cores
@@ -295,7 +332,29 @@ def phase_k1(torch, report):
           f"CPU", flush=True)
     report["k1"] = {"shape": [128, 256, 256, 3], "kernel_ms": k_ms, "plain_ms": p_ms,
                     "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
-                    "kernel_ms_bf16": k16_ms, "bound_ms_bf16": b16_ms}
+                    "kernel_ms_bf16": k16_ms, "bound_ms_bf16": b16_ms, "seg": []}
+    del x, out, ref, out16, ref16
+    # The seg eval batches (KolektorSDD, Gear): bit for bit in f32 and bf16.
+    for i, shape in enumerate(SEG_K1_SHAPES):
+        x = torch.randint(0, 256, shape, generator=g, device="cuda", dtype=torch.uint8)
+        k_ms, out = cuda_ms(torch, lambda: normalize_u8(x), iters=100, warmup=10)
+        p_ms, ref = cuda_ms(torch, lambda: normalize_u8_plain(x), iters=3, warmup=1)
+        check(torch.equal(out.view(torch.int32), ref.view(torch.int32)),
+              f"K1 f32 differs from its plain version at {shape}")
+        k16_ms, out16 = cuda_ms(torch, lambda: normalize_u8(x, out_dtype=torch.bfloat16),
+                                iters=100, warmup=10)
+        check(torch.equal(out16.view(torch.int16),
+                          normalize_u8_plain(x, out_dtype=torch.bfloat16).view(torch.int16)),
+              f"K1 bf16 differs from its plain version at {shape}")
+        n = x.numel()
+        sb_ms, sb_by = bound_ms(n * (1 + 4), 3 * n, PEAK_F32_FLOPS)
+        report["k1"]["seg"].append({"shape": list(shape), "kernel_ms": k_ms, "plain_ms": p_ms,
+                                    "bound_ms": sb_ms, "bound_by": sb_by,
+                                    "kernel_ms_bf16": k16_ms, "max_abs_err": 0.0})
+        print(f"[K1] seg {shape} u8->f32: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+              f"{sb_ms:.4f} ms ({sb_by}), {100 * sb_ms / k_ms:.1f}% of bound; bf16 {k16_ms:.4f} "
+              f"ms; bit-exact f32 and bf16", flush=True)
+        del x, out, ref, out16
 
 
 def _k2_case(torch, n, hw, cin, cout, seed, width=None):
@@ -396,6 +455,51 @@ def phase_k2(torch, report):
           f"{100 * bound / total:.1f}% of bound; bf16 cuDNN yardstick "
           f"{sum(r['bf16_cudnn_ms_b128'] for r in path):.3f} ms", flush=True)
     report["k2"] = rows
+    report["k2_seg"] = {name: _k2_seg(torch, name, convs) for name, convs in SEG_CONVS.items()}
+
+
+def _k2_seg(torch, name, convs):
+    """K2 at SegmentationUNet's 18 convs at the seg eval batch (b8): bit for
+    bit against the plain version with natural weights, then timed with the
+    weights packed ahead, beside its bound and a bf16 cuDNN yardstick."""
+    import torch.nn.functional as F
+    from tpu_unet_torch.ops.kernels.int8_conv import (conv3x3_int8, conv3x3_int8_plain,
+                                                      pack_weights)
+    rows = []
+    for i, (h, w_, cin, cout) in enumerate(convs):
+        n = SEG_BATCH
+        x, w, scale, bias, s_out = _k2_case(torch, n, h, cin, cout, seed=400 + i, width=w_)
+        out = conv3x3_int8(x, w, scale, bias, s_out, True)
+        p_ms, ref = cuda_ms(torch, lambda: conv3x3_int8_plain(x, w, scale, bias, s_out, True),
+                            iters=1, warmup=0)
+        diff = int((out.int() - ref.int()).abs().max())
+        check(diff == 0, f"K2 differs from its plain version at {name} {(n, h, w_, cin, cout)} "
+                         f"(max |diff| {diff}, {int((out != ref).sum())} values)")
+        del out, ref
+        wp = pack_weights(w, cin)
+        k_ms, _ = cuda_ms(torch, lambda: conv3x3_int8(x, wp, scale, bias, s_out, True),
+                          iters=10, warmup=3)
+        n_pix = n * h * w_
+        b_ms, b_by = bound_ms(n_pix * (cin + cout) + 9 * cin * cout + 8 * cout,
+                              2 * n_pix * 9 * cin * cout, PEAK_INT8_OPS)
+        xf = x.to(torch.bfloat16).permute(0, 3, 1, 2)
+        wf = torch.randn(cout, cin, 3, 3, device="cuda", dtype=torch.bfloat16).to(
+            memory_format=torch.channels_last)
+        c_ms, _ = cuda_ms(torch, lambda: F.conv2d(xf, wf, padding=1), iters=10, warmup=2)
+        del x, w, wp, xf, wf
+        rows.append({"n": n, "h": h, "w": w_, "cin": cin, "cout": cout, "kernel_ms": k_ms,
+                     "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                     "bf16_cudnn_ms": c_ms, "max_abs_err": diff})
+        print(f"[K2] seg {name} b{n} {h}x{w_} {cin:4d}->{cout:4d}: kernel {k_ms:.4f} ms, plain "
+              f"{p_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}), {100 * b_ms / k_ms:.1f}% of bound, "
+              f"bf16 cuDNN {c_ms:.4f} ms, bit-exact", flush=True)
+    total = {k: sum(r[k] for r in rows) for k in ("kernel_ms", "plain_ms", "bound_ms",
+                                                  "bf16_cudnn_ms")}
+    print(f"[K2] seg {name} b{SEG_BATCH}, the 18 convs: kernel {total['kernel_ms']:.3f} ms, "
+          f"bound {total['bound_ms']:.3f} ms, {100 * total['bound_ms'] / total['kernel_ms']:.1f}% "
+          f"of bound; plain {total['plain_ms']:.1f} ms; bf16 cuDNN yardstick "
+          f"{total['bf16_cudnn_ms']:.3f} ms", flush=True)
+    return {"rows": rows, **total, "bound_by": _dominant_bound(rows)}
 
 
 def phase_main_path(torch, np, report):
@@ -527,21 +631,31 @@ def phase_main_path(torch, np, report):
     return launches
 
 
-def forward_flops(base, size, n_channels=3):
-    """Model FLOPs of one AnomalyUNet forward on one image (2 per multiply-add)
-    over its convolutions, transposed convolutions and heads."""
-    def conv(cin, cout, hw, k=3):
-        return 2 * cin * cout * k * k * hw * hw
+def _unet_flops(base, h, w, n_channels, heads):
+    """Model FLOPs of one ladder-UNet forward on one h x w image (2 per
+    multiply-add) over its convolutions, transposed convolutions and heads:
+    the shared encoder, then one decoder per entry of ``heads`` (its head's
+    output channels)."""
+    def conv(cin, cout, hh, ww, k=3):
+        return 2 * cin * cout * k * k * hh * ww
     chans = [base * 2 ** i for i in range(5)]
-    total = conv(n_channels, base, size) + conv(base, base, size)
+    total = conv(n_channels, base, h, w) + conv(base, base, h, w)
     for i in range(1, 5):
-        total += conv(chans[i - 1], chans[i], size >> i) + conv(chans[i], chans[i], size >> i)
-    for head in (n_channels, 1):  # the reconstruction and segmentation decoders
+        total += (conv(chans[i - 1], chans[i], h >> i, w >> i)
+                  + conv(chans[i], chans[i], h >> i, w >> i))
+    for head in heads:
         for i in range(4):
-            cin, cout, hw = chans[4 - i], chans[3 - i], size >> (3 - i)
-            total += 2 * cin * (cin // 2) * hw * hw + conv(cin, cout, hw) + conv(cout, cout, hw)
-        total += 2 * base * head * size * size
+            cin, cout, hh, ww = chans[4 - i], chans[3 - i], h >> (3 - i), w >> (3 - i)
+            total += (2 * cin * (cin // 2) * hh * ww + conv(cin, cout, hh, ww)
+                      + conv(cout, cout, hh, ww))
+        total += 2 * base * head * h * w
     return total
+
+
+def forward_flops(base, size, n_channels=3):
+    """Model FLOPs of one AnomalyUNet forward (the reconstruction and
+    segmentation decoders) on one size x size image."""
+    return _unet_flops(base, size, size, n_channels, (n_channels, 1))
 
 
 def synth_masks(torch, n, size, seed, device, blobs=3):
@@ -1137,6 +1251,492 @@ def _mvtec_cpu_vs_card(torch, np, data_root, tmp):
             "image_metrics_cpu": ec["image_metrics"], "image_metrics_card": eg["image_metrics"]}
 
 
+# KolektorSDD's counts and size (SURVEY.md §2.5): 399 parts of about 500 x
+# 1240-1280 px in 50 kos folders, split 279/60/60, about 99.95% background.
+KSDD_PARTS, KSDD_FOLDERS, KSDD_HW, KSDD_DEFECTIVE = 399, 50, (1260, 500), 52
+# Gear's counts and image size are not in the repo: these are chosen.
+GEAR_SPLITS, GEAR_SIZE = {"train": 64, "val": 16, "test": 16}, 512
+# Share of KolektorSDD test pixels whose int8 or bf16 prediction may differ
+# from f32 --fold_bn's: about 5x what an H100 run measured (5.2e-6 int8,
+# 4.2e-7 bf16; PERF.md, section 6).
+SEG_MAX_DISAGREE = {"int8": 2.6e-5, "bf16": 2e-6}
+# CPU against card, f32: a pixel whose top two logits lie closer than this
+# may take either class.
+SEG_TIE_GAP = 1e-5
+
+
+def _save_all(jobs):
+    """Run (fn, args) jobs on 8 threads (PIL's encoders release the GIL);
+    returns the bytes written."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        return sum(f.result() for f in [pool.submit(fn, *a) for fn, a in jobs])
+
+
+def _save_image(arr, path, fmt):
+    from PIL import Image
+    Image.fromarray(arr).save(path, format=fmt)
+    return os.path.getsize(path)
+
+
+def write_kolektorsdd(np, root):
+    """A seeded KolektorSDD tree of the dataset's counts and size: grayscale
+    JPEG parts of 1260 x 500 (a brushed-metal texture) and their
+    ``_label.bmp`` masks in 50 ``kosNN`` folders. 52 parts carry a thin dark
+    streak marked 1 or 2 in the mask; the rest are all background."""
+    rng = np.random.default_rng(7)
+    h, w = KSDD_HW
+    defective = set(rng.choice(KSDD_PARTS, KSDD_DEFECTIVE, replace=False).tolist())
+    yy, xx = np.mgrid[:h, :w]
+    jobs = []
+    for k in range(KSDD_PARTS):
+        folder = os.path.join(root, f"kos{k // 8 + 1:02d}")
+        os.makedirs(folder, exist_ok=True)
+        img = (110 + 40 * np.sin(xx / rng.uniform(3, 9)) * rng.uniform(0.2, 1.0)
+               + rng.normal(0, 12, (h, w)))
+        mask = np.zeros((h, w), np.uint8)
+        if k in defective:  # a streak 4-8 px wide, 200-500 px long, slanted
+            y0, x0 = rng.integers(100, h - 600), rng.integers(60, w - 60)
+            length, width = rng.integers(200, 500), rng.integers(4, 9)
+            slope = rng.uniform(-0.3, 0.3)
+            on = ((yy >= y0) & (yy < y0 + length)
+                  & (np.abs(xx - x0 - slope * (yy - y0)) < width / 2))
+            mask[on] = 1 + k % 2
+            img[on] *= 0.35
+        name = f"Part{k % 8}"
+        jobs.append((_save_image, (np.clip(img, 0, 255).astype(np.uint8),
+                                   os.path.join(folder, name + ".jpg"), "JPEG")))
+        jobs.append((_save_image, (mask, os.path.join(folder, name + "_label.bmp"), "BMP")))
+    return _save_all(jobs)
+
+
+def write_gear(np, root):
+    """A seeded Gear tree: 512² RGB JPEGs with painted pitting, spalling and
+    scrape polygons that overlap, and their LabelMe label files."""
+    from PIL import Image, ImageDraw
+    rng = np.random.default_rng(8)
+    colours = {0: (200, 60, 40), 1: (40, 160, 60), 2: (60, 60, 200)}
+    jobs = []
+    for split, n in GEAR_SPLITS.items():
+        img_dir, lbl_dir = (os.path.join(root, "images", split),
+                            os.path.join(root, "labels", split))
+        os.makedirs(img_dir)
+        os.makedirs(lbl_dir)
+        for i in range(n):
+            base = rng.integers(60, 140, 3)
+            arr = (base + rng.normal(0, 14, (GEAR_SIZE, GEAR_SIZE, 3))).clip(0, 255)
+            im = Image.fromarray(arr.astype(np.uint8))
+            draw = ImageDraw.Draw(im)
+            lines = []
+            cx, cy = rng.uniform(0.3, 0.7, 2)
+            for cls in (2, 0, 1):  # drawn in raster priority: scrape, pitting, spalling
+                r = rng.uniform(0.08, 0.2)
+                angles = np.sort(rng.uniform(0, 2 * np.pi, 6))
+                pts = [(float(np.clip(cx + r * np.cos(a) + rng.uniform(-0.1, 0.1), 0, 1)),
+                        float(np.clip(cy + r * np.sin(a) + rng.uniform(-0.1, 0.1), 0, 1)))
+                       for a in angles]
+                draw.polygon([(x * GEAR_SIZE, y * GEAR_SIZE) for x, y in pts],
+                             fill=colours[cls])
+                lines.append(f"{cls} " + " ".join(f"{x:.4f} {y:.4f}" for x, y in pts))
+            with open(os.path.join(lbl_dir, f"gear_{i:03d}.txt"), "w") as f:
+                f.write("\n".join(lines) + "\n")
+            jobs.append((_save_image, (np.asarray(im), os.path.join(img_dir, f"gear_{i:03d}.jpg"),
+                                       "JPEG")))
+    return _save_all(jobs)
+
+
+def seg_forward_flops(base, h, w, n_classes, n_channels=3):
+    """Model FLOPs of one SegmentationUNet forward on one h x w image."""
+    return _unet_flops(base, h, w, n_channels, (n_classes,))
+
+
+class _SegSpans(_Spans):
+    """``train_seg``'s ``span`` hook: :class:`_Spans`, plus each train pass's
+    peak memory and, for one epoch, a torch.profiler window (device busy
+    time by category)."""
+
+    def __init__(self, torch, kernels, profile_epoch=None):
+        super().__init__(torch, kernels)
+        self.profile_epoch, self.profile = profile_epoch, None
+
+    @contextlib.contextmanager
+    def __call__(self, name, epoch):
+        from torch.profiler import ProfilerActivity, profile
+        torch = self.torch
+        torch.cuda.reset_peak_memory_stats()
+        prof = None
+        if name == "train" and epoch == self.profile_epoch:
+            prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        with super().__call__(name, epoch):
+            if prof is not None:
+                prof.start()
+            try:
+                yield
+            finally:
+                if prof is not None:
+                    torch.cuda.synchronize()
+                    prof.stop()
+        self.rows[name, epoch]["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        if prof is not None:
+            cats, busy = {}, 0.0
+            for e in prof.key_averages():
+                if e.device_type == torch.autograd.DeviceType.CUDA:
+                    ms = e.self_device_time_total / 1e3
+                    busy += ms
+                    cats[_train_category(e.key)] = cats.get(_train_category(e.key), 0.0) + ms
+            self.profile = {"epoch": epoch, "device_busy_ms": busy, "by_category_ms": cats}
+
+
+class _KeepPreds:
+    """An eval step that also keeps each batch's predictions (uint8, on the
+    device)."""
+
+    def __init__(self, torch, step):
+        self.torch, self.step, self.preds = torch, step, []
+
+    def __call__(self, state, images, labels, valid=None):
+        losses, preds, cm = self.step(state, images, labels, valid)
+        self.preds.append(preds.to(self.torch.uint8))
+        return losses, preds, cm
+
+    def all(self, n):
+        """The first ``n`` rows (the padded ones dropped)."""
+        return self.torch.cat(self.preds)[:n]
+
+
+def _seg_dataset(torch, np, report_out, legs, name, train_mod, test_mod, data_root, tmp,
+                 epochs, test_modes):
+    """One dataset's seg path through the CLIs' functions: ``train_seg``
+    for ``epochs`` epochs with validation each (epoch 1 profiled when there
+    are 3), then the test path per mode. Returns the experiment directory,
+    the flags common to training and testing, and the datasets."""
+    from tpu_unet_torch.cli import _seg_common as seg
+    from tpu_unet_torch.ops.kernels.int8_conv import conv3x3_int8
+    from tpu_unet_torch.ops.kernels.preprocess import normalize_u8
+    from tpu_unet_torch.train.loop import validate_seg_epoch
+
+    kernels = (normalize_u8, conv3x3_int8)
+    dev = torch.device("cuda")
+    common = ["--data_root", data_root, "--batch_size", str(SEG_BATCH), "--num_workers", "4",
+              "--device", "cuda"]
+    train_flags = common + ["--epochs", str(epochs), "--val_freq", "1", "--save_freq", "1",
+                            "--save_dir", os.path.join(tmp, "runs")]
+    args = train_mod.parse_args(train_flags)
+    workload = train_mod.make_workload()
+    h, w = workload.image_size_hw(args)
+    train_ds, val_ds, test_ds, n_classes, class_names = workload.make_datasets(args)
+    out = {"config": {"train_flags": train_flags, "image_hw": [h, w], "classes": n_classes,
+                      "train": len(train_ds), "val": len(val_ds), "test": len(test_ds),
+                      "augment": workload.augment.kwargs()}}
+    n_steps = len(train_ds) // SEG_BATCH
+    n_val = -(-len(val_ds) // SEG_BATCH)
+    n_test = -(-len(test_ds) // SEG_BATCH)
+
+    exp = os.path.join(tmp, "runs", name)
+    spans = _SegSpans(torch, kernels, profile_epoch=1 if epochs == 3 else None)
+    results = seg.train_seg(args, workload, train_ds, val_ds, n_classes, dev, exp, span=spans)
+    with open(os.path.join(exp, "results", "history.jsonl")) as f:
+        hist = [json.loads(line) for line in f]
+    check([h_["epoch"] for h_ in hist] == list(range(epochs)), f"{name} history {hist}")
+    flops = 3 * seg_forward_flops(args.base_features, h, w, n_classes) * SEG_BATCH
+    rows = []
+    for e, hrow in enumerate(hist):
+        tr, va = spans.rows["train", e], spans.rows["validate", e]
+        check(tr["normalize_u8"] == tr["conv3x3_int8"] == 0,
+              f"{name} epoch {e}'s train steps launched {tr} (want no kernel)")
+        check(va["normalize_u8"] == n_val and va["conv3x3_int8"] == 0,
+              f"{name} validation launched {va} for {n_val} batches (want K1 once per batch)")
+        for k in ("total_loss", "ce_loss", "dice_loss", "val_loss"):
+            check(np.isfinite(hrow[k]), f"{name} epoch {e} {k} = {hrow[k]}")
+        for k in ("train_miou", "val_miou", "val_dice", "val_pixel_accuracy"):
+            check(0.0 <= hrow[k] <= 1.0, f"{name} epoch {e} {k} = {hrow[k]} not in [0, 1]")
+        step_ms = 1e3 * tr["seconds"] / n_steps
+        rows.append({"epoch": e, "train_s": tr["seconds"], "ms_per_step": step_ms,
+                     "train_img_per_s": n_steps * SEG_BATCH / tr["seconds"],
+                     "peak_mem_gb": tr["peak_mem_gb"],
+                     "model_flop_share_bf16_peak": flops / (step_ms * 1e-3) / PEAK_BF16_FLOPS,
+                     "decode": "cold" if e == 0 else "cached", "profiled": e == spans.profile_epoch,
+                     "val_s": va["seconds"], "val_batches": n_val, **hrow})
+        r = rows[-1]
+        print(f"[seg] {name} epoch {e} ({r['decode']} decode{', profiled' if r['profiled'] else ''}"
+              f"): {r['train_s']:.3f} s, {step_ms:.1f} ms per step, {r['train_img_per_s']:.1f} "
+              f"img/s with the loader, peak {r['peak_mem_gb']:.2f} GB, model FLOPs "
+              f"{100 * r['model_flop_share_bf16_peak']:.1f}% of the bf16 dense peak; validation "
+              f"{r['val_s']:.3f} s ({n_val} batches, K1 {va['normalize_u8']}x); loss "
+              f"{r['total_loss']:.4f}, train mIoU {r['train_miou']:.4f}, val loss "
+              f"{r['val_loss']:.4f}, val mIoU {r['val_miou']:.4f}", flush=True)
+    if epochs == 3:
+        check(rows[2]["total_loss"] < rows[0]["total_loss"],
+              f"{name}: epoch 2's train loss {rows[2]['total_loss']} is not below epoch 0's "
+              f"{rows[0]['total_loss']}")
+        p = spans.profile
+        prof_wall = 1e3 * rows[1]["train_s"]
+        out["idle"] = {"device_busy_ms": p["device_busy_ms"], "by_category_ms": p["by_category_ms"],
+                       "idle_share_profiled": 1 - p["device_busy_ms"] / prof_wall,
+                       "idle_share_vs_epoch2_wall": 1 - p["device_busy_ms"] / (1e3 * rows[2]["train_s"])}
+        print(f"[seg] {name} epoch 1 profiled: device busy {p['device_busy_ms']:.1f} ms of "
+              f"{prof_wall:.1f} ms, idle share {out['idle']['idle_share_profiled']:.4f}; against "
+              f"epoch 2's unprofiled {1e3 * rows[2]['train_s']:.1f} ms: "
+              f"{out['idle']['idle_share_vs_epoch2_wall']:.4f}; by category: "
+              + ", ".join(f"{c} {ms:.1f} ms" for c, ms in
+                          sorted(p["by_category_ms"].items(), key=lambda kv: -kv[1])), flush=True)
+    for wr in results["checkpoint_writes"]:
+        print(f"[seg] {name} checkpoint {os.path.basename(wr['path'])}: {wr['bytes'] / 1e6:.1f} MB, "
+              f"async write {wr['seconds']:.3f} s", flush=True)
+    ckpt = os.path.join(exp, "checkpoints")
+    want_ckpts = {f"checkpoint_epoch_{e}.pth" for e in range(epochs)}
+    check(want_ckpts <= set(os.listdir(ckpt)), f"{name} checkpoints {sorted(os.listdir(ckpt))}")
+    with open(os.path.join(exp, "results", "training_results.json")) as f:
+        tres = json.load(f)
+    check(set(tres) == {"train_losses", "val_losses", "best_val_miou", "total_epochs",
+                        "total_params", "num_classes", "interrupted", "args"},
+          f"{name} training_results.json keys {sorted(tres)}")
+    out.update(epochs=rows, checkpoint_writes=results["checkpoint_writes"])
+    legs[f"seg_{name}_train"] = spans.total("train")
+    legs[f"seg_{name}_validate"] = spans.total("validate")
+    torch.cuda.empty_cache()
+
+    # --- the test path on the last epoch's checkpoint ------------------------
+    last = os.path.join(ckpt, f"checkpoint_epoch_{epochs - 1}.pth")
+    tests, preds = {}, {}
+    for mode, flags in test_modes:
+        targs = test_mod.parse_args(common + flags + [
+            "--checkpoint", last, "--output_dir", os.path.join(tmp, "test", name, mode)])
+        seg.check_eval_flags(targs)
+        normalize_u8.launches = conv3x3_int8.launches = 0
+        t0 = time.perf_counter()
+        loader = seg.make_eval_loader(targs, test_ds, dev)
+        state, step, loss_cfg = seg.load_seg_model(targs, n_classes, dev,
+                                                   train_ds if mode == "int8" else None)
+        torch.cuda.synchronize()
+        t1, calib_k1 = time.perf_counter(), normalize_u8.launches
+        keep = _KeepPreds(torch, step)
+        losses, cm = validate_seg_epoch(state, keep, loader, n_classes,
+                                        ignore_index=loss_cfg.ignore_index)
+        t2 = time.perf_counter()
+        summary = seg.save_seg_results(targs, losses, cm, class_names)
+        t3 = time.perf_counter()
+        c = {"normalize_u8": normalize_u8.launches, "conv3x3_int8": conv3x3_int8.launches}
+        legs[f"seg_{name}_test_{mode}"] = c
+        chunks = -(-min(len(train_ds), targs.calib_samples) // 8) if mode == "int8" else 0
+        want = {"normalize_u8": n_test + chunks,
+                "conv3x3_int8": 18 * n_test if mode == "int8" else 0}
+        check(c == want and calib_k1 == chunks,
+              f"{name} test {mode} launched {c} (calibration K1 {calib_k1}x), want {want}")
+        total = int(np.asarray(summary["confusion_matrix"]).sum())
+        check(total == len(test_ds) * h * w,
+              f"{name} test {mode}: the confusion matrix counts {total} pixels, want "
+              f"{len(test_ds)} x {h} x {w}")
+        with open(os.path.join(targs.output_dir, "evaluation_results.json")) as f:
+            check(set(json.load(f)) == {"evaluation_args", "overall_metrics",
+                                        "per_class_metrics", "confusion_matrix", "loss"},
+                  f"{name} test {mode}: evaluation_results.json keys")
+        om = summary["overall_metrics"]
+        check(all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in om.values()),
+              f"{name} test {mode} metrics not finite in [0, 1]: {om}")
+        check(all(np.isfinite(v) for v in losses.values()), f"{name} test {mode} losses {losses}")
+        preds[mode] = keep.all(len(test_ds))
+        tests[mode] = {"seconds": t3 - t0, "img_per_s": len(test_ds) / (t3 - t0),
+                       "load_model_s": t1 - t0, "device_pass_s": t2 - t1,
+                       "host_metrics_s": t3 - t2, "launches": c, "overall": om,
+                       "loss": losses, "confusion_matrix": summary["confusion_matrix"]}
+        print(f"[seg] {name} test {mode}: {t3 - t0:.3f} s, {len(test_ds) / (t3 - t0):.1f} img/s "
+              f"(load_model {t1 - t0:.3f} s"
+              f"{f' with calibration on {targs.calib_samples} images' if mode == 'int8' else ''}"
+              f", device pass {t2 - t1:.3f} s, host metrics {t3 - t2:.3f} s); K1 "
+              f"{c['normalize_u8']}x, K2 {c['conv3x3_int8']}x for {n_test} batches; mIoU "
+              f"{om['mean_iou']:.4f}, mean Dice {om['mean_dice']:.4f}, pixel accuracy "
+              f"{om['pixel_accuracy']:.4f}, loss {losses['total_loss']:.4f}", flush=True)
+        del state, step, keep
+        torch.cuda.empty_cache()
+    ref = "f32_fold_bn" if "f32_fold_bn" in preds else None
+    for mode in (m for m in preds if ref and m != ref):
+        differ = int((preds[mode] != preds[ref]).sum())
+        share = differ / preds[ref].numel()
+        tests[mode]["pixel_agreement_vs_f32_fold_bn"] = 1 - share
+        print(f"[seg] {name} test {mode} against f32 --fold_bn: {differ} of "
+              f"{preds[ref].numel()} pixels differ ({share:.3g}, limit "
+              f"{SEG_MAX_DISAGREE[mode]})", flush=True)
+        check(share <= SEG_MAX_DISAGREE[mode], f"{name} {mode} predictions differ from f32's "
+                                               f"on {share:.3g} of pixels")
+    out["test"] = tests
+    report_out[name] = out
+    return exp, common, (train_ds, val_ds, test_ds, n_classes, workload)
+
+
+def _seg_resume(torch, np, out, legs, exp, train_mod, common, data, tmp):
+    """``--resume checkpoint_epoch_0.pth --epochs 2``: the epoch and the
+    Adam step continue, and epoch 1 repeats the first run's (the seg
+    trainer has no LR schedule, and the draws and order are the same)."""
+    from tpu_unet_torch.cli import _seg_common as seg
+    from tpu_unet_torch.ops.kernels.int8_conv import conv3x3_int8
+    from tpu_unet_torch.ops.kernels.preprocess import normalize_u8
+
+    train_ds, val_ds, _, n_classes, workload = data
+    n_steps, n_val = len(train_ds) // SEG_BATCH, -(-len(val_ds) // SEG_BATCH)
+    ck0 = os.path.join(exp, "checkpoints", "checkpoint_epoch_0.pth")
+    rargs = train_mod.parse_args(common + ["--epochs", "2", "--val_freq", "1", "--save_freq",
+                                           "1", "--save_dir", os.path.join(tmp, "runs"),
+                                           "--resume", ck0])
+    rexp = os.path.join(tmp, "runs", "kolektorsdd_resume")
+    spans = _Spans(torch, (normalize_u8, conv3x3_int8))
+    seg.train_seg(rargs, workload, train_ds, val_ds, n_classes, torch.device("cuda"), rexp,
+                  span=spans)
+    with open(os.path.join(rexp, "results", "history.jsonl")) as f:
+        rhist = [json.loads(line) for line in f]
+    steps = (_adam_step(torch, ck0),
+             _adam_step(torch, os.path.join(rexp, "checkpoints", "checkpoint_epoch_1.pth")))
+    check([h["epoch"] for h in rhist] == [1], f"resumed history {rhist}")
+    check(steps == (n_steps, 2 * n_steps),
+          f"Adam step {steps[0]} -> {steps[1]} (want {n_steps} -> {2 * n_steps})")
+    check(spans.total("train") == {"normalize_u8": 0, "conv3x3_int8": 0}
+          and spans.total("validate") == {"normalize_u8": n_val, "conv3x3_int8": 0},
+          f"resume launched {spans.rows}")
+    first = out["kolektorsdd"]["epochs"][1]["total_loss"]
+    rel = abs(rhist[0]["total_loss"] - first) / first
+    tr = spans.rows["train", 1]
+    legs["seg_kolektorsdd_resume"] = {k: spans.total("train")[k] + spans.total("validate")[k]
+                                      for k in ("normalize_u8", "conv3x3_int8")}
+    print(f"[seg] kolektorsdd --resume checkpoint_epoch_0.pth --epochs 2: epochs "
+          f"{[h['epoch'] for h in rhist]}, Adam step {steps[0]} -> {steps[1]}; its epoch 1 "
+          f"{tr['seconds']:.3f} s, {n_steps * SEG_BATCH / tr['seconds']:.1f} img/s; loss "
+          f"{rhist[0]['total_loss']:.5f} against the first run's {first:.5f} (rel diff "
+          f"{rel:.2e})", flush=True)
+    out["kolektorsdd"]["resume"] = {"history": rhist, "adam_step": list(steps),
+                                    "epoch1_loss_rel_diff": rel,
+                                    "epoch1_train_s": tr["seconds"]}
+
+
+def _seg_cpu_vs_card(torch, np, data_root, tmp):
+    """KolektorSDD at base 8, 64 x 32: one f32 epoch of ``train_seg`` on the
+    card, then its checkpoint's test path on the CPU and on the card in f32
+    (the predictions equal except at near-ties of the top two logits), and
+    in int8 on the card against the same int8 forward with K1's and K2's
+    plain versions on the card (bit for bit; base 8 has Cout 8 layers, which
+    K2's wrapper pads to 16)."""
+    from tpu_unet_torch.cli import _seg_common as seg
+    from tpu_unet_torch.cli import test_kolektorsdd, train_kolektorsdd
+    from tpu_unet_torch.ops import quantize as tq
+    from tpu_unet_torch.ops.augment import eval_transform
+    from tpu_unet_torch.ops.kernels.int8_conv import conv3x3_int8_plain
+    from tpu_unet_torch.ops.kernels.preprocess import normalize_u8, normalize_u8_plain
+    from tpu_unet_torch.ops.seg_head import sliced_argmax
+    from tpu_unet_torch.train.loop import validate_seg_epoch
+
+    small = ["--data_root", data_root, "--image_height", "64", "--image_width", "32",
+             "--base_features", "8", "--batch_size", str(SEG_BATCH), "--num_workers", "4",
+             "--precision", "f32"]
+    args = train_kolektorsdd.parse_args(small + ["--epochs", "1", "--device", "cuda",
+                                                 "--save_dir", os.path.join(tmp, "small")])
+    workload = train_kolektorsdd.make_workload()
+    train_ds, val_ds, test_ds, n_classes, _ = workload.make_datasets(args)
+    exp = os.path.join(tmp, "small", "ksdd_base8")
+    seg.train_seg(args, workload, train_ds, val_ds, n_classes, torch.device("cuda"), exp)
+    path = os.path.join(exp, "checkpoints", "checkpoint_epoch_0.pth")
+    n = len(test_ds)
+    images = torch.from_numpy(np.stack([test_ds.load(i)["image"] for i in range(n)]))
+
+    def test_path(device, extra=()):
+        targs = test_kolektorsdd.parse_args(small + ["--checkpoint", path, "--device", device,
+                                                     "--output_dir", os.path.join(tmp, "o"),
+                                                     *extra])
+        dev = torch.device(device)
+        state, step, _ = seg.load_seg_model(targs, n_classes, dev, train_ds)
+        keep = _KeepPreds(torch, step)
+        losses, cm = validate_seg_epoch(state, keep, seg.make_eval_loader(targs, test_ds, dev),
+                                        n_classes)
+        return state, step, keep.all(n).cpu(), losses, cm.confusion_matrix
+
+    cpu_state, _, p_cpu, l_cpu, cm_cpu = test_path("cpu")
+    _, _, p_card, l_card, cm_card = test_path("cuda")
+    differ = p_cpu != p_card
+    n_diff, max_gap = int(differ.sum()), 0.0
+    if n_diff:  # each differing pixel must be a near-tie of the CPU's logits
+        with torch.no_grad():
+            cpu_state.model.eval()
+            logits = cpu_state.model(eval_transform(images).permute(0, 3, 1, 2))
+        top2 = logits.permute(0, 2, 3, 1).topk(2, dim=-1).values
+        max_gap = float((top2[..., 0] - top2[..., 1])[differ].max())
+    loss_rel = max(abs(l_card[k] - l_cpu[k]) / abs(l_cpu[k]) for k in l_cpu)
+    print(f"[seg-cpu] base 8, 64x32, f32: the test path's predictions differ in {n_diff} of "
+          f"{differ.numel()} pixels (largest top-two logit gap there {max_gap:.3g}, limit "
+          f"{SEG_TIE_GAP}); confusion matrices {'equal' if (cm_cpu == cm_card).all() else 'differ'}"
+          f"; losses max rel diff {loss_rel:.3g}", flush=True)
+    check(max_gap < SEG_TIE_GAP, f"CPU and card predictions differ away from ties ({max_gap})")
+    check(n_diff or (cm_cpu == cm_card).all(), "CPU and card confusion matrices differ")
+    check(loss_rel <= 1e-5, f"CPU and card test losses differ by {loss_rel:.3g} (rel)")
+
+    # int8 at base 8 on the card, against the plain K1/K2 forward on the card
+    _, step, p_int8, _, cm_int8 = test_path("cuda", ("--quantize", "int8"))
+
+    class PlainK2Exec(tq._QuantExec):
+        conv3x3 = staticmethod(conv3x3_int8_plain)
+
+    plan = tq.build_plan("seg_unet")
+    with torch.no_grad():
+        x = images.cuda()
+        card = tq._run(tq._QuantExec(step.qparams), normalize_u8(x), plan)
+        plain = tq._run(PlainK2Exec(step.qparams), normalize_u8_plain(x), plan)
+    same_logits = torch.equal(card.view(torch.int32), plain.view(torch.int32))
+    same_preds = torch.equal(p_int8, sliced_argmax(plain).to(torch.uint8).cpu())
+    print(f"[seg-cpu] base 8, 64x32, int8 (Cout 8 layers padded to 16 for K2): the test path's "
+          f"predictions {'equal' if same_preds else 'DIFFER FROM'} those of the same forward "
+          f"with plain K1/K2 on the card; logits bit for bit "
+          f"{'equal' if same_logits else 'DIFFER'}", flush=True)
+    check(same_logits and same_preds, "int8 base 8 on the card differs from the plain forward")
+    return {"f32_pixels_differ": n_diff, "f32_max_tie_gap": max_gap,
+            "f32_loss_max_rel": loss_rel, "f32_cm_equal": bool((cm_cpu == cm_card).all()),
+            "int8_base8_equal_plain": True}
+
+
+def phase_seg(torch, np, report):
+    """Phase 9: the segmentation path at full width through the seg CLIs'
+    own functions (``_seg_common.train_seg``; ``make_eval_loader``,
+    ``load_seg_model``, ``train/loop.py::validate_seg_epoch`` and
+    ``save_seg_results``, which is ``run_seg_evaluation`` without its plots)
+    with flags from the CLIs' parsers, on synthetic KolektorSDD and Gear
+    trees written under TMPDIR and read by the port's datasets. Returns the
+    launch counts of each leg."""
+    import shutil
+    import tempfile
+
+    from tpu_unet_torch.cli import (test_gear, test_kolektorsdd, train_gear,
+                                    train_kolektorsdd)
+
+    print("[seg] through the CLIs' functions: _seg_common.train_seg; make_eval_loader, "
+          "load_seg_model, validate_seg_epoch, save_seg_results (the test CLIs' plots are "
+          "skipped: matplotlib is not installed on this machine)", flush=True)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_seg_")
+    legs, out = {}, {}
+    try:
+        t0 = time.perf_counter()
+        ksdd_root, gear_root = os.path.join(tmp, "ksdd"), os.path.join(tmp, "gear")
+        n_ksdd = write_kolektorsdd(np, ksdd_root)
+        n_gear = write_gear(np, gear_root)
+        out["synth_s"] = time.perf_counter() - t0
+        print(f"[seg] synthetic KolektorSDD: {KSDD_PARTS} parts of {KSDD_HW[1]}x{KSDD_HW[0]} in "
+              f"{KSDD_FOLDERS} folders, {KSDD_DEFECTIVE} defective ({n_ksdd / 1e6:.0f} MB); "
+              f"synthetic Gear: {sum(GEAR_SPLITS.values())} JPGs of {GEAR_SIZE}² "
+              f"({n_gear / 1e6:.0f} MB); written in {out['synth_s']:.1f} s", flush=True)
+
+        modes = (("bf16", ["--precision", "bf16"]),
+                 ("f32_fold_bn", ["--precision", "f32", "--fold_bn"]),
+                 ("int8", ["--precision", "bf16", "--quantize", "int8", "--calib_samples", "32"]))
+        exp, common, data = _seg_dataset(
+            torch, np, out, legs, "kolektorsdd", train_kolektorsdd, test_kolektorsdd,
+            ksdd_root, tmp, epochs=3, test_modes=modes)
+        _seg_resume(torch, np, out, legs, exp, train_kolektorsdd, common, data, tmp)
+        shutil.rmtree(os.path.join(tmp, "runs"))
+        out["kolektorsdd"]["cpu_vs_card"] = _seg_cpu_vs_card(torch, np, ksdd_root, tmp)
+
+        _seg_dataset(torch, np, out, legs, "gear", train_gear, test_gear, gear_root, tmp,
+                     epochs=1, test_modes=(modes[0], modes[2]))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    report["main_path"]["seg"] = out
+    return legs
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1158,6 +1758,7 @@ def main():
     path_launches = {"serve": launches, **phase_train(torch, np, report)}
     phase_train_cpu_vs_card(torch, np, report)
     path_launches.update(phase_mvtec(torch, np, report))
+    path_launches.update(phase_seg(torch, np, report))
 
     k1, k2 = report["k1"], report["k2"]
     path_rows = [r for r in k2 if r["relu"]]
@@ -1170,7 +1771,9 @@ def main():
          "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"], "library_ms": None,
          "ms_bf16": k1["kernel_ms_bf16"], "bound_ms_bf16": k1["bound_ms_bf16"],
          "launches_by_path": {p: c["normalize_u8"] for p, c in path_launches.items()},
-         "shape": "(128,256,256,3) u8 -> f32"},
+         "shape": "(128,256,256,3) u8 -> f32",
+         "seg": [{k: r[k] for k in ("shape", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                                    "kernel_ms_bf16")} for r in k1["seg"]]},
         {"name": "conv3x3_int8", "route": "cuda",
          "source": "tpu_unet_torch/csrc/conv3x3_int8.cu",
          "replaces": "tpu_unet/ops/pallas/int8_conv.py:157",
@@ -1187,7 +1790,11 @@ def main():
          "bf16_cudnn_ms": sum(r["bf16_cudnn_ms_b128"] for r in path_rows),
          "ms_b8": sum(r["kernel_ms"] for r in path_rows),
          "bound_ms_b8": sum(r["bound_ms"] for r in path_rows),
-         "shape": "the 18 score-path convs at batch 128, summed"},
+         "shape": "the 18 score-path convs at batch 128, summed",
+         "seg": {name: {k: v for k, v in t.items() if k != "rows"} | {
+             "shape": f"the 18 SegmentationUNet convs at b{SEG_BATCH}, "
+                      f"{t['rows'][0]['h']}x{t['rows'][0]['w']}, summed"}
+             for name, t in report["k2_seg"].items()}},
     ]
     report["kernels"] = kernels
     smi = nvidia_smi_line()

@@ -52,6 +52,39 @@ def u8_batch(seed, n=4, hw=32, mask_dtype=np.float32):
     return img, mask
 
 
+def seg_batch(seed, n=4, h=64, w=32, num_classes=3):
+    """Seeded uint8 images and uint8 (N, H, W) class-id labels: a background
+    with a rectangle of each defect class per image, overlapping."""
+    rng = np.random.default_rng(seed)
+    img = rng.integers(0, 256, (n, h, w, 3), dtype=np.uint8)
+    labels = np.zeros((n, h, w), np.uint8)
+    for i in range(n):
+        for c in range(1, num_classes):
+            y, x = rng.integers(0, h - h // 3), rng.integers(0, w - w // 3)
+            labels[i, y:y + h // 3, x:x + w // 3] = c
+    return img, labels
+
+
+def jax_dropout_keep(apply_fn, variables, shape, k_drop):
+    """The bottleneck dropout's (N, C5) keep mask that a JAX train-mode apply
+    of SegmentationUNet draws from dropout key ``k_drop`` for an input of
+    ``shape`` (N, H, W, 3), as a bool tensor.
+
+    flax derives the mask from the key, the module path and the shape, not
+    from the values, so it is read from one apply (``capture_intermediates``)
+    instead of drawn again: on zeros, with the bias of the encoder's last
+    BatchNorm raised so that every x5 value is positive, a channel is kept
+    exactly where ``bottleneck_dropout``'s output is nonzero."""
+    params = jax.tree_util.tree_map(lambda x: x, variables["params"])
+    bn = params["encoder"]["down4"]["conv"]["bn2"]
+    params["encoder"]["down4"]["conv"]["bn2"] = {**bn, "bias": bn["bias"] + 1e3}
+    _, mut = apply_fn({**variables, "params": params}, jnp.zeros(shape), train=True,
+                      rngs={"dropout": k_drop}, mutable=["batch_stats", "intermediates"],
+                      capture_intermediates=True)
+    dropped = np.asarray(mut["intermediates"]["bottleneck_dropout"]["__call__"][0])
+    return torch.from_numpy((dropped != 0).any(axis=(1, 2)))
+
+
 
 @pytest.fixture(autouse=True, scope="module")
 def one_torch_thread():

@@ -10,7 +10,7 @@ import torch
 from tpu_unet.ops.pallas.int8_conv import conv3x3_int8_fused, conv3x3_int8_reference
 from tpu_unet_torch.ops.kernels.int8_conv import (conv3x3_int8, conv3x3_int8_plain,
                                                   pack_first_layer, pack_weights,
-                                                  pad_channels)
+                                                  pad_channels, pad_cout)
 
 
 def _case(shape, seed, lo=-127):
@@ -189,3 +189,25 @@ def test_check_rejects_wrongly_packed_weights(cin, bad_shape):
     w = torch.zeros(bad_shape, dtype=torch.int8)
     with pytest.raises(ValueError):
         conv3x3_int8(x, w, torch.ones(8), torch.zeros(8), torch.tensor(1.0))
+
+
+@pytest.mark.parametrize("cin,cout", [(3, 8), (3, 12), (8, 24), (40, 8), (64, 12)])
+@pytest.mark.parametrize("relu", [True, False])
+def test_cout_padded_to_16_is_exact(cin, cout, relu):
+    """What the wrapper does on CUDA for Cout % 16 != 0, run through the
+    plain version: weights, scale and bias zero-padded to 16 output channels
+    (natural or packed), the extra channels all zero and the rest equal to
+    the unpadded conv bit for bit."""
+    x, k, scale, bias, s_out = _case((2, 7, 9, cin, cout), seed=cin + cout)
+    w = torch.from_numpy(np.ascontiguousarray(k.transpose(3, 0, 1, 2)))
+    xs, sc, bi, so = (torch.from_numpy(x), torch.from_numpy(scale), torch.from_numpy(bias),
+                      torch.tensor(s_out))
+    want = conv3x3_int8_plain(xs, w, sc, bi, so, relu)
+    wp, scp, bip = pad_cout(w), pad_cout(sc), pad_cout(bi)
+    assert wp.shape[0] == scp.shape[0] == bip.shape[0] == 16 * -(-cout // 16)
+    for weights in (wp, pack_weights(wp, cin)):
+        got = conv3x3_int8(xs, weights, scp, bip, so, relu)
+        assert torch.equal(got[..., :cout], want)
+        assert not got[..., cout:].any()
+    t16 = torch.zeros(16)
+    assert pad_cout(t16) is t16  # a multiple of 16 is left as it is

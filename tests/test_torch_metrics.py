@@ -76,8 +76,7 @@ def test_auc_directions():
 
 
 def test_exports():
-    assert set(tm.__all__) == set(jm.__all__) - {
-        "SegmentationMetrics", "compute_metrics_from_predictions", "confusion_matrix_batch"}
+    assert set(tm.__all__) == set(jm.__all__)
 
 
 def test_pixel_scale_ranks_match_jax():

@@ -204,3 +204,48 @@ def test_chunk_calibration_and_unported_archs():
         tq.build_plan("unetpp")
     with pytest.raises(ValueError):
         tq.build_plan("resnet")
+
+
+class _UnpaddedExec(tq._QuantExec):
+    """The int8 forward with every layer at its own width: natural 3x3
+    weights (the plain K2 takes any Cout) and unpadded matmul operands."""
+
+    def _leaf(self, path, s_in, kind):
+        leaf = tq._get(self.layers, path)
+        k, scale, bias = leaf["kernel"], s_in * leaf["w_scale"], leaf["bias"]
+        cout = k.shape[0] if kind == "conv" else k.shape[-1]
+        if kind == "up":
+            k, scale, bias = k.reshape(k.shape[0], -1), scale.repeat(4), bias.repeat(4)
+        return {"kernel": k, "scale": scale, "bias": bias, "cout": cout}
+
+
+@pytest.mark.parametrize("base,n,hw", [(8, 2, 32), (12, 1, 32)])
+def test_padded_widths_equal_the_unpadded_path(base, n, hw, monkeypatch):
+    """The widths CUDA needs, padded with zeros on every device: K2's Cout to
+    16 (weights, scale, bias), torch._int_mm's inner dim to 8 and rows to
+    17. At base 8 and 12 (Cout 8, 12, 24; a 12-channel head; 4 rows at the
+    bottleneck of one 32² image) every int8 activation and the logits equal
+    the unpadded path's bit for bit."""
+    torch.manual_seed(base)
+    from tpu_unet_torch.models import build_model
+    model = build_model("seg_unet", n_classes=3, base_features=base).eval()
+    fparams = tq.full_fold(model.state_dict(), "seg_unet")
+    calib = [u8_images(60 + base, (4, hw, hw, 3))]
+    qp = tq.quantize_model("seg_unet", fparams, tq.calibrate_absmax("seg_unet", fparams, calib))
+    from tpu_unet_torch.ops.augment import eval_transform
+    x = eval_transform(torch.from_numpy(u8_images(70 + base, (n, hw, hw, 3))))
+    plan = tq.build_plan("seg_unet")
+    padded = tq._QuantExec(qp)
+    got = _run_recording(padded, x, plan)
+    assert padded._consts["encoder/inc/conv1"]["kernel"].shape == (16, 32)  # Cout 8/12 -> 16
+    assert padded._consts["outc/conv"]["kernel"].shape[0] % 8 == 0
+    monkeypatch.setattr(tq, "_int_matmul", lambda x2d, k, n_out: (
+        x2d.to(torch.int64) @ k.to(torch.int64)).to(torch.int32)[:, :n_out])
+    want = _run_recording(_UnpaddedExec(qp), x, plan)
+    assert set(got) == set(want)
+    for key, w in want.items():
+        if key.startswith("out/"):
+            assert torch.equal(got[key], w), key
+            continue
+        assert got[key][0].shape == w[0].shape and got[key][0].is_contiguous(), key
+        assert torch.equal(got[key][0], w[0]), key

@@ -1,9 +1,65 @@
-"""Helpers shared by the CLIs (counterpart of ``tpu_unet/cli/_seg_common.py``;
-the segmentation driver itself is not ported yet)."""
+"""The shared driver of the two segmentation workloads, Gear and KolektorSDD
+(counterpart of ``tpu_unet/cli/_seg_common.py``), and helpers shared by the
+CLIs.
+
+One driver serves both datasets through a :class:`Workload`. It keeps the
+JAX package's behaviour and files: the best checkpoint chosen by validation
+mIoU, ``args.json``, ``results/history.jsonl``,
+``results/training_results.json`` and ``evaluation_results.json`` with the
+same keys, periodic checkpoints, and exit code 75 after SIGTERM.
+Checkpoints are the reference's ``.pth`` files (``train/checkpoint.py``).
+
+Each entry point is split as ``cli/train_mvtec.py`` is:
+:func:`run_seg_training` and :func:`run_seg_evaluation` check the flags, pick
+the device, index the datasets and draw the plots (matplotlib); the work
+runs in functions that take the datasets and a device: :func:`train_seg`
+for training; :func:`make_eval_loader`, :func:`load_seg_model`,
+``train/loop.py::validate_seg_epoch`` and :func:`save_seg_results` for
+evaluation. Entry points run on ``cuda`` unless ``--device cpu``.
+"""
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import json
+import os
+import time
+from typing import Callable, ContextManager, Optional, Tuple
+
 import numpy as np
+import torch
+
+from tpu_unet_torch.core.device import resolve_device
+from tpu_unet_torch.core.precision import get_policy
+from tpu_unet_torch.data.loader import DataLoader, to_device
+from tpu_unet_torch.models import build_model
+from tpu_unet_torch.train.checkpoint import CheckpointWriter, load_checkpoint, load_params
+from tpu_unet_torch.train.interrupt import (INTERRUPT_EXIT_CODE, GracefulInterrupt,
+                                            interrupt_checkpoint_path)
+from tpu_unet_torch.train.loop import train_seg_epoch, validate_seg_epoch
+from tpu_unet_torch.train.state import create_train_state, num_params
+from tpu_unet_torch.train.steps import (AugmentConfig, SegLossConfig, make_seg_eval_step,
+                                        make_seg_train_step)
+from tpu_unet_torch.utils.io import append_jsonl, create_output_dirs, save_json
+from tpu_unet_torch.utils.logging import setup_logging
+
+
+@dataclasses.dataclass
+class Workload:
+    name: str                      # experiment prefix: 'gear_seg' or 'kolektorsdd'
+    make_datasets: Callable        # (args) -> (train, val, test, num_classes, class_names)
+    image_size_hw: Callable        # (args) -> (H, W)
+    augment: AugmentConfig
+
+
+def parse_class_weights(s: Optional[str], num_classes: int) -> Optional[Tuple[float, ...]]:
+    if not s:
+        return None
+    weights = tuple(float(x) for x in s.split(","))
+    if len(weights) != num_classes:
+        raise ValueError(f"Got {len(weights)} class weights for {num_classes} classes")
+    return weights
 
 
 class _Subset:
@@ -20,3 +76,372 @@ class _Subset:
 
     def load(self, i):
         return self.dataset.load(int(self.indices[i]))
+
+
+def cli_device(name: str) -> torch.device:
+    """``--device``: 'auto' means cuda; raises when cuda has no GPU."""
+    return resolve_device("cuda" if name == "auto" else name)
+
+
+def _check_not_ported(args, multi_device_flags) -> None:
+    """NotImplementedError for the paths that are not ported: multi-device
+    runs, bilinear decoders and UNet++'s deep supervision."""
+    used = [flag for flag, on in multi_device_flags.items() if on]
+    if used:
+        raise NotImplementedError(f"{', '.join(used)}: multi-device runs are not "
+                                  "ported yet; the port runs on one device")
+    if args.bilinear:
+        raise NotImplementedError("--bilinear: bilinear decoders are not ported yet")
+    if args.deep_supervision or getattr(args, "heads", 4) != 4:
+        raise NotImplementedError("--deep_supervision and --heads are UNet++'s, which is "
+                                  "not ported yet")
+
+
+def check_train_flags(args) -> None:
+    if args.grad_accum < 1 or args.batch_size % args.grad_accum != 0:
+        raise SystemExit(f"--batch_size {args.batch_size} must be a positive "
+                         f"multiple of --grad_accum {args.grad_accum}")
+    _check_not_ported(args, {
+        "--n_devices": (args.n_devices or 1) > 1, "--n_space": args.n_space > 1,
+        "--fsdp": args.fsdp, "--n_model": args.n_model > 1, "--multihost": args.multihost,
+        "--coordinator_address": args.coordinator_address is not None,
+        "--num_processes": args.num_processes is not None,
+        "--process_id": args.process_id is not None})
+
+
+def check_eval_flags(args) -> None:
+    _check_not_ported(args, {"--n_devices": (args.n_devices or 1) > 1,
+                             "--n_space": args.n_space > 1})
+
+
+def _device_line(device: torch.device) -> str:
+    return f"Device: {device}" + (f" ({torch.cuda.get_device_name(device)})"
+                                  if device.type == "cuda" else "")
+
+
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+
+def run_seg_training(args, workload: Workload):
+    """The trainer: flag checks, device, datasets, then :func:`train_seg`.
+    Returns the experiment directory; exits with code 75 after SIGTERM."""
+    check_train_flags(args)
+    device = cli_device(args.device)
+    if args.debug_nans:
+        torch.autograd.set_detect_anomaly(True)
+    print(_device_line(device))
+    train_ds, val_ds, _, num_classes, _ = workload.make_datasets(args)
+    if args.debug:
+        print(f"DEBUG MODE: Limiting dataset to {args.debug_samples} samples")
+        train_ds = _Subset(train_ds, args.debug_samples, args.seed)
+        val_ds = _Subset(val_ds, args.debug_samples, args.seed + 1)
+    experiment_name = f"{workload.name}_{args.model}_{time.strftime('%Y%m%d_%H%M%S')}"
+    experiment_dir = os.path.join(args.save_dir, experiment_name)
+    results = train_seg(args, workload, train_ds, val_ds, num_classes, device, experiment_dir)
+    if results["interrupted"]:
+        raise SystemExit(INTERRUPT_EXIT_CODE)  # EX_TEMPFAIL: requeue me
+    return experiment_dir
+
+
+def train_seg(args, workload: Workload, train_ds, val_ds, num_classes: int,
+              device: torch.device, experiment_dir: str,
+              span: Optional[Callable[[str, int], ContextManager]] = None) -> dict:
+    """The trainer's body, from the experiment directory to the results.
+
+    Creates ``experiment_dir`` (its subdirectories, the log file and
+    ``args.json``), trains on ``train_ds`` and validates on ``val_ds``
+    (anything with ``__len__`` and ``load(idx)`` giving uint8 images and
+    masks), writes ``best_model.pth`` (best validation mIoU) and
+    ``checkpoint_epoch_{N}.pth``, ``results/history.jsonl`` and
+    ``results/training_results.json``, and returns that file's dict plus
+    ``checkpoint_writes`` (each write's path, bytes and seconds).
+    ``span(name, epoch)``, if given, returns a context manager entered
+    around each epoch's ``"train"`` and ``"validate"`` passes.
+    """
+    span = span or (lambda name, epoch: contextlib.nullcontext())
+    output_dirs = create_output_dirs(experiment_dir)
+    logger = setup_logging(output_dirs["logs"], os.path.basename(experiment_dir))
+    logger.info(f"Experiment directory: {experiment_dir}")
+    with open(os.path.join(experiment_dir, "args.json"), "w") as f:
+        json.dump(vars(args), f, indent=2)
+    logger.info(f"Train samples: {len(train_ds)}, Val samples: {len(val_ds)}, "
+                f"classes: {num_classes}")
+
+    # Masks ship as uint8 (class ids <= 3): 4x less to copy than int32.
+    to_dev = lambda b: to_device(b, device)  # noqa: E731
+    train_loader = DataLoader(train_ds, args.batch_size, shuffle=True, seed=args.seed,
+                              drop_last=len(train_ds) >= args.batch_size,
+                              num_workers=args.num_workers, transform=to_dev)
+    val_loader = DataLoader(val_ds, args.batch_size, pad_last=True,
+                            num_workers=args.num_workers, transform=to_dev)
+
+    torch.manual_seed(args.seed)  # the same initial weights on the CPU and the card
+    model = build_model(args.model, n_channels=3, n_classes=num_classes,
+                        dropout=args.dropout, policy=get_policy(args.precision),
+                        base_features=args.base_features)
+    state = create_train_state(model, args.optimizer, args.learning_rate,
+                               args.weight_decay, device=device)
+    total_params = num_params(state)
+    logger.info(f"Total parameters: {total_params:,}")
+
+    class_weights = parse_class_weights(args.class_weights, num_classes)
+    loss_cfg = SegLossConfig(ce_weight=args.ce_weight, dice_weight=args.dice_weight,
+                             focal_weight=args.focal_weight, class_weights=class_weights)
+    augment = dataclasses.replace(workload.augment, rotation_mode=args.rotation_mode,
+                                  color_jitter_random_order=args.color_jitter_random_order)
+    train_step = make_seg_train_step(num_classes, loss_cfg, augment,
+                                     grad_accum=args.grad_accum)
+    eval_step = make_seg_eval_step(num_classes, loss_cfg)
+
+    start_epoch = 0
+    if args.resume:
+        state, last_epoch, _ = load_checkpoint(state, args.resume)
+        start_epoch = last_epoch + 1
+        # The loader's shuffle-epoch counter: a resumed run sees the same
+        # per-epoch sample order as an uninterrupted one.
+        train_loader.epoch = start_epoch
+
+    logger.info("Starting training...")
+    train_losses, val_losses = [], []
+    best_val_miou = 0.0
+    history_path = os.path.join(output_dirs["results"], "history.jsonl")
+    ckpt_dir = output_dirs["checkpoints"]
+    interrupted_at = None  # the epoch SIGTERM cut short
+
+    ckpt_writer = CheckpointWriter()  # async: file writes overlap training
+    intr = GracefulInterrupt().install()  # SIGTERM -> checkpoint, not death
+    try:
+        for epoch in range(start_epoch, args.epochs):
+            t0 = time.time()
+            with span("train", epoch):
+                train_metrics, train_cm = train_seg_epoch(
+                    state, train_step, train_loader, args.seed, epoch, num_classes,
+                    progress_fn=logger.info, progress_every=args.progress_every,
+                    should_stop=intr.step_poll())
+            if intr.poll_global():
+                # SIGTERM: this epoch may be partial, so the checkpoint names
+                # epoch - 1 as the last completed one and --resume replays
+                # the interrupted epoch from its start.
+                ipath = interrupt_checkpoint_path(ckpt_dir)
+                ckpt_writer.save(state, epoch - 1, train_metrics.get("total_loss", 0.0), ipath)
+                ckpt_writer.wait()
+                interrupted_at = epoch
+                logger.info(f"SIGTERM received: training interrupted during "
+                            f"epoch {epoch}; resume with --resume {ipath}")
+                break
+            train_losses.append(train_metrics.get("total_loss", 0.0))
+            train_miou = float(np.nanmean(train_cm.compute_iou()))
+            history = {"epoch": epoch, "train_miou": train_miou, **train_metrics}
+
+            val_results = None
+            if epoch % args.val_freq == 0 or epoch == args.epochs - 1:
+                with span("validate", epoch):
+                    val_metrics, val_cm = validate_seg_epoch(
+                        state, eval_step, val_loader, num_classes,
+                        ignore_index=loss_cfg.ignore_index)
+                val_losses.append(val_metrics.get("total_loss", 0.0))
+                val_all = val_cm.compute_all_metrics()
+                val_results = (val_metrics, val_all)
+                history.update({
+                    "val_loss": val_metrics.get("total_loss", 0.0),
+                    "val_miou": float(val_all["mean_iou"]),
+                    "val_dice": float(val_all["mean_dice"]),
+                    "val_pixel_accuracy": float(val_all["pixel_accuracy"]),
+                })
+                if val_all["mean_iou"] > best_val_miou:
+                    best_val_miou = val_all["mean_iou"]
+                    ckpt_writer.save(state, epoch, val_metrics.get("total_loss", 0.0),
+                                     os.path.join(ckpt_dir, "best_model.pth"))
+                    logger.info(f"New best model saved with mIoU: {best_val_miou:.4f}")
+
+            msg = (f"Epoch {epoch}/{args.epochs - 1}: "
+                   f"train loss {train_metrics.get('total_loss', 0):.4f} "
+                   f"mIoU {train_miou:.4f}")
+            if val_results:
+                msg += (f" | val loss {val_results[0].get('total_loss', 0):.4f} "
+                        f"mIoU {val_results[1]['mean_iou']:.4f} "
+                        f"dice {val_results[1]['mean_dice']:.4f}")
+            dt = time.time() - t0
+            logger.info(msg + f" ({dt:.1f}s)")
+            history["epoch_seconds"] = round(dt, 3)
+            append_jsonl(history, history_path)  # live, crash-surviving record
+
+            if epoch % args.save_freq == 0 or epoch == args.epochs - 1:
+                ckpt_writer.save(state, epoch, train_metrics.get("total_loss", 0.0),
+                                 os.path.join(ckpt_dir, f"checkpoint_epoch_{epoch}.pth"))
+    finally:
+        ckpt_writer.close()  # flush the write in flight, even on error
+        intr.uninstall()
+    results = {
+        "train_losses": train_losses,
+        "val_losses": val_losses,
+        "best_val_miou": best_val_miou,
+        "total_epochs": args.epochs,
+        "total_params": total_params,
+        "num_classes": num_classes,
+        "interrupted": interrupted_at is not None,
+        "args": vars(args),
+    }
+    save_json(results, os.path.join(output_dirs["results"], "training_results.json"))
+    if interrupted_at is not None:
+        logger.info(f"Training interrupted (SIGTERM) during epoch "
+                    f"{interrupted_at}; partial results saved to: {experiment_dir}")
+    else:
+        logger.info("Training completed!")
+        logger.info(f"Best validation mIoU: {best_val_miou:.4f}")
+        logger.info(f"Results saved to: {experiment_dir}")
+    return {**results, "checkpoint_writes": ckpt_writer.writes}
+
+
+# ---------------------------------------------------------------------------
+# Evaluation
+# ---------------------------------------------------------------------------
+
+def run_seg_evaluation(args, workload: Workload, split: str = "test"):
+    """The evaluator: flag checks, device, datasets, the evaluation
+    (:func:`make_eval_loader`, :func:`load_seg_model`, ``validate_seg_epoch``,
+    :func:`save_seg_results`), then the confusion-matrix PNG and, with
+    ``--save_predictions``, the prediction panels. Returns the summary."""
+    check_eval_flags(args)
+    device = cli_device(args.device)
+    print(_device_line(device))
+    train_ds, val_ds, test_ds, num_classes, class_names = workload.make_datasets(args)
+    ds = {"train": train_ds, "val": val_ds, "test": test_ds}[split]
+    if args.debug:
+        ds = _Subset(ds, args.debug_samples, 0)
+    print(f"Eval samples ({split}): {len(ds)}")
+
+    loader = make_eval_loader(args, ds, device)
+    state, eval_step, loss_cfg = load_seg_model(args, num_classes, device, train_ds)
+    losses, cm = validate_seg_epoch(state, eval_step, loader, num_classes,
+                                    ignore_index=loss_cfg.ignore_index)
+    summary = save_seg_results(args, losses, cm, class_names)
+    cm.plot_confusion_matrix(class_names,
+                             os.path.join(args.output_dir, "confusion_matrix.png"))
+    if args.save_predictions:
+        _save_prediction_panels(state, eval_step, loader, class_names, args.output_dir)
+    return summary
+
+
+def make_eval_loader(args, ds, device: torch.device) -> DataLoader:
+    """The evaluated split's loader: padded last batch, batches on ``device``."""
+    return DataLoader(ds, args.batch_size, pad_last=True, num_workers=args.num_workers,
+                      transform=lambda b: to_device(b, device))
+
+
+def load_seg_model(args, num_classes: int, device: torch.device, calib_ds=None):
+    """``(state, eval_step, loss_cfg)`` for ``--checkpoint`` on ``device``:
+    BN folded with ``--fold_bn``; with ``--quantize int8`` the step is the
+    int8 one (K2 for every 3x3 conv), calibrated on the first
+    ``--calib_samples`` images of ``calib_ds`` in chunks of 8."""
+    model = build_model(args.model, n_channels=3, n_classes=num_classes,
+                        dropout=args.dropout, policy=get_policy(args.precision),
+                        base_features=args.base_features)
+    state = create_train_state(model, "adam", 1e-3, 0.0, device=device)
+    print(f"Loading checkpoint: {args.checkpoint}")
+    state = load_params(state, args.checkpoint)
+    if args.fold_bn:
+        from tpu_unet_torch.ops.fold_bn import fold_batchnorm
+        fold_batchnorm(state.model)
+        print("BatchNorm folded into conv weights for inference")
+
+    loss_cfg = SegLossConfig(class_weights=parse_class_weights(args.class_weights,
+                                                               num_classes))
+    if args.quantize != "int8":
+        return state, make_seg_eval_step(num_classes, loss_cfg), loss_cfg
+    if args.model not in ("seg_unet", "segmentation_unet"):
+        raise SystemExit("--quantize int8 supports seg_unet (the attention UNet and "
+                         "UNet++ are not ported yet)")
+    from tpu_unet_torch.ops.quantize import (chunk_calibration, make_quantized_seg_eval_step,
+                                             quantize_from_train_state)
+    n_calib = min(len(calib_ds), args.calib_samples)
+    calib_imgs = np.stack([calib_ds.load(i)["image"] for i in range(n_calib)])
+    qparams = quantize_from_train_state("seg_unet", state.model.state_dict(),
+                                        chunk_calibration(calib_imgs, 8),
+                                        percentile=args.calib_percentile, device=device)
+    print(f"int8 quantized inference (calibrated on {n_calib} train images)")
+    return (state, QuantizedEvalStep(make_quantized_seg_eval_step(num_classes, loss_cfg),
+                                     qparams), loss_cfg)
+
+
+class QuantizedEvalStep:
+    """An int8 seg eval step over its ``qparams``, with the float step's
+    signature (the state is not read)."""
+
+    def __init__(self, qstep, qparams):
+        self.qstep, self.qparams = qstep, qparams
+
+    def __call__(self, _state, images, labels, valid=None):
+        return self.qstep(self.qparams, images, labels, valid)
+
+
+def save_seg_results(args, losses: dict, cm, class_names) -> dict:
+    """Print the metrics of ``cm`` (a SegmentationMetrics) and write
+    ``<output_dir>/evaluation_results.json``, the JAX package's keys;
+    returns its dict."""
+    metrics = cm.compute_all_metrics()
+    cm.print_metrics(class_names)
+    summary = {
+        "evaluation_args": vars(args),
+        "overall_metrics": {
+            "pixel_accuracy": float(metrics["pixel_accuracy"]),
+            "mean_accuracy": float(metrics["mean_accuracy"]),
+            "mean_iou": float(metrics["mean_iou"]),
+            "mean_dice": float(metrics["mean_dice"]),
+            "mean_precision": float(metrics["mean_precision"]),
+            "mean_recall": float(metrics["mean_recall"]),
+            "mean_f1": float(metrics["mean_f1"]),
+        },
+        "per_class_metrics": {
+            "iou": metrics["iou_per_class"].tolist(),
+            "dice": metrics["dice_per_class"].tolist(),
+            "precision": metrics["precision_per_class"].tolist(),
+            "recall": metrics["recall_per_class"].tolist(),
+            "f1": metrics["f1_per_class"].tolist(),
+        },
+        "confusion_matrix": metrics["confusion_matrix"].tolist(),
+        "loss": losses,
+    }
+    os.makedirs(args.output_dir, exist_ok=True)
+    path = os.path.join(args.output_dir, "evaluation_results.json")
+    save_json(summary, path)
+    print(f"Results summary saved to: {path}")
+    return summary
+
+
+def _save_prediction_panels(state, eval_step, loader, class_names, output_dir,
+                            max_batches: int = 5, per_batch: int = 4):
+    """Up to 4 panels (image, ground truth, prediction) for each of the first
+    5 batches (matplotlib)."""
+    from tpu_unet_torch.ops.augment import eval_transform
+    from tpu_unet_torch.utils.viz import _plt, denormalize_image
+
+    plt = _plt()
+    for batch_idx, batch in enumerate(loader):
+        if batch_idx >= max_batches:
+            break
+        _, preds, _ = eval_step(state, batch["image"], batch["mask"])
+        preds = preds.cpu().numpy()
+        images = eval_transform(batch["image"]).cpu().numpy()
+        masks = batch["mask"].cpu().numpy()
+        valid = batch["valid"].cpu().numpy() if "valid" in batch else None
+        for i in range(min(per_batch, images.shape[0])):
+            if valid is not None and not valid[i]:
+                continue
+            fig, axes = plt.subplots(1, 3, figsize=(15, 5))
+            axes[0].imshow(denormalize_image(images[i]))
+            axes[0].set_title("Original Image")
+            axes[0].axis("off")
+            axes[1].imshow(masks[i], cmap="tab10", vmin=0, vmax=len(class_names) - 1)
+            axes[1].set_title("Ground Truth")
+            axes[1].axis("off")
+            axes[2].imshow(preds[i], cmap="tab10", vmin=0, vmax=len(class_names) - 1)
+            axes[2].set_title("Prediction")
+            axes[2].axis("off")
+            fig.tight_layout()
+            stem = os.path.basename(batch["image_path"][i]).split(".")[0]
+            fig.savefig(os.path.join(output_dir,
+                                     f"prediction_batch{batch_idx}_img{i}_{stem}.png"),
+                        dpi=150, bbox_inches="tight")
+            plt.close(fig)

@@ -33,8 +33,7 @@ from typing import Callable, ContextManager, Optional
 import numpy as np
 import torch
 
-from tpu_unet_torch.cli._seg_common import _Subset  # test_mvtec imports it from here
-from tpu_unet_torch.core.device import resolve_device
+from tpu_unet_torch.cli._seg_common import _Subset, cli_device  # test_mvtec imports them from here
 from tpu_unet_torch.core.precision import get_policy
 from tpu_unet_torch.data.loader import DataLoader, to_device
 from tpu_unet_torch.data.mvtec import MVTecDataset, get_available_categories
@@ -169,11 +168,6 @@ def check_not_ported(args) -> None:
                                   "ported yet; the port trains on one device")
     if args.bilinear:
         raise NotImplementedError("--bilinear: bilinear decoders are not ported yet")
-
-
-def cli_device(name: str) -> torch.device:
-    """``--device``: 'auto' means cuda; raises when cuda has no GPU."""
-    return resolve_device("cuda" if name == "auto" else name)
 
 
 def main(argv=None):

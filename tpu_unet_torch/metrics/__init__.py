@@ -1,5 +1,10 @@
 from tpu_unet_torch.metrics.anomaly import anomaly_error_map, anomaly_score
 from tpu_unet_torch.metrics.binary import calculate_metrics, calculate_pixel_metrics
+from tpu_unet_torch.metrics.confusion import (
+    SegmentationMetrics,
+    compute_metrics_from_predictions,
+    confusion_matrix_batch,
+)
 from tpu_unet_torch.metrics.curves import (
     auc,
     auprc,
@@ -13,6 +18,9 @@ __all__ = [
     "anomaly_score",
     "calculate_metrics",
     "calculate_pixel_metrics",
+    "SegmentationMetrics",
+    "compute_metrics_from_predictions",
+    "confusion_matrix_batch",
     "auc",
     "auprc",
     "auroc",

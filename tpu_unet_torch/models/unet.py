@@ -4,14 +4,13 @@
 - ``UNet(n_channels=3, n_classes=1)``: encoder 64/128/256/512/1024, 4 skip
   decoder stages, 1x1 head; 31,037,633 params at n_classes=1.
 - ``SegmentationUNet``: UNet with channel dropout on the bottleneck, which is
-  the identity in eval mode; it runs in eval mode only (its train mode comes
-  with the segmentation training step); 31,037,828 params at 4 classes.
+  the identity in eval mode and takes its mask as an argument in train mode;
+  31,037,828 params at 4 classes.
 - ``AnomalyUNet``: shared encoder, two decoders (reconstruction -> 3-channel
   sigmoid, segmentation -> 1-channel sigmoid); 43,228,228 params.
 
-``UNet`` and ``AnomalyUNet`` run in train mode (``model.train()``): BatchNorm
-then normalizes by batch statistics and updates its running statistics as
-flax does (``models/blocks.py``).
+In train mode (``model.train()``) BatchNorm normalizes by batch statistics
+and updates its running statistics as flax does (``models/blocks.py``).
 
 Inputs and outputs are NCHW. Attribute names are the reference state_dict's
 (``inc``, ``down1``..``down4``, ``up1``..``up4`` or ``up1_recon``/``up1_seg``..,
@@ -20,7 +19,7 @@ Inputs and outputs are NCHW. Attribute names are the reference state_dict's
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -83,9 +82,15 @@ class UNet(_Ladder):
 
 
 class SegmentationUNet(UNet):
-    """UNet for multi-class segmentation. Its bottleneck Dropout2d (reference
-    model.py:130,146) holds no parameters and is the identity in eval mode,
-    the only mode this port runs it in."""
+    """UNet for multi-class segmentation, with channel dropout (Dropout2d,
+    reference model.py:130,146) on the bottleneck x5 only.
+
+    The dropout holds no parameters and is the identity in eval mode. In
+    train mode with ``dropout > 0`` the forward takes its draw as an
+    argument, as the augment does: ``keep``, an (N, C5) bool mask of the
+    bottleneck channels that survive (:meth:`sample_dropout`), and each
+    kept channel is divided by 1 - rate (flax's ``Dropout``).
+    """
 
     def __init__(self, n_channels: int = 3, n_classes: int = 4,
                  bilinear: bool = False, dropout: float = 0.1,
@@ -93,10 +98,33 @@ class SegmentationUNet(UNet):
         super().__init__(n_channels, n_classes, bilinear, policy, base_features)
         self.dropout = dropout
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError("SegmentationUNet runs in eval mode only")
-        return super().forward(x)
+    @property
+    def bottleneck_channels(self) -> int:
+        return self.down4.maxpool_conv[1].double_conv[0].out_channels
+
+    def sample_dropout(self, n: int, generator: torch.Generator) -> Optional[torch.Tensor]:
+        """A keep mask for a batch of ``n`` on the generator's device: each
+        channel survives with probability 1 - rate. None without dropout."""
+        if self.dropout <= 0:
+            return None
+        u = torch.rand((n, self.bottleneck_channels), generator=generator,
+                       device=generator.device)
+        return u < 1.0 - self.dropout
+
+    def forward(self, x: torch.Tensor, keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        skips = self._encode(x)
+        if self.training and self.dropout > 0:
+            if keep is None:
+                raise ValueError("SegmentationUNet in train mode takes its dropout draw: "
+                                 "forward(x, keep=model.sample_dropout(n, generator))")
+            x5 = skips[4]
+            if tuple(keep.shape) != tuple(x5.shape[:2]):
+                raise ValueError(f"dropout keep mask {tuple(keep.shape)} for a bottleneck "
+                                 f"of {tuple(x5.shape[:2])}")
+            keep = keep.to(x5.device)[:, :, None, None]
+            x5 = torch.where(keep, x5 / (1.0 - self.dropout), torch.zeros_like(x5))
+            skips = (*skips[:4], x5)
+        return self.outc(self._decode(skips, ""))
 
 
 class AnomalyUNet(_Ladder):

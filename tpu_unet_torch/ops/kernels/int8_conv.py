@@ -20,6 +20,13 @@ Weights come in one of two forms, both int8:
 ``scale`` (= s_in * w_scale) and ``bias`` are ``(Cout,)`` float32 and
 ``out_scale`` a one-element float32 tensor, all on the input's device.
 
+The kernel writes 16 output channels at a time. On CUDA the wrapper takes
+any Cout: natural weights, scale and bias are zero-padded to a multiple of 16
+(:func:`pad_cout`) and the extra channels, all zero, are sliced off the
+output. Weights that serve many calls are padded once with the same function
+before :func:`pack_weights` (``ops/quantize.py::_QuantExec``): a zero channel
+has a zero scale and bias, so padding is exact.
+
 :func:`conv3x3_int8_plain` is the same function in plain PyTorch and is exact:
 it accumulates in float64, where every partial sum of int8 products is an
 integer below 2**53 (float32 stops being exact once 9 * Cin * 127**2 >= 2**24,
@@ -36,11 +43,21 @@ import torch.nn.functional as F
 from tpu_unet_torch.ops.kernels import build
 
 _CIN_MULTIPLE = 32  # the kernel's k-step (one wgmma k32)
+_COUT_MULTIPLE = 16  # the kernel's output channels per store
 _FIRST_LAYER_CIN = 3  # RGB: 9 taps x 3 channels fit one k-step
 
 
 def _padded(cin: int) -> int:
     return cin + -cin % _CIN_MULTIPLE
+
+
+def pad_cout(t: torch.Tensor) -> torch.Tensor:
+    """Zero-pad the first (output-channel) dim up to the kernel's Cout
+    multiple: natural (Cout, 3, 3, Cin) weights, or a (Cout,) scale or bias."""
+    pad = -t.shape[0] % _COUT_MULTIPLE
+    if not pad:
+        return t
+    return torch.cat([t, t.new_zeros((pad,) + tuple(t.shape[1:]))])
 
 
 def pad_channels(t: torch.Tensor) -> torch.Tensor:
@@ -146,7 +163,9 @@ def conv3x3_int8(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     with :func:`pack_weights` where they serve many calls). Cin = 3 goes to
     the first-layer kernel, which reads the input as it is; any other Cin
     that is not a multiple of 32 is zero-padded here (one extra pass over x).
-    Cout must be a multiple of 16.
+    Natural weights with Cout not a multiple of 16 are zero-padded here with
+    their scale and bias, and the output sliced back (an extra copy); packed
+    weights must come padded (:func:`pad_cout` before :func:`pack_weights`).
     """
     _check(x, w, scale, bias, out_scale)
     if x.device.type == "cpu":
@@ -155,8 +174,13 @@ def conv3x3_int8(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
         raise ValueError(f"conv3x3_int8 runs on cpu or cuda, not {x.device}")
     n, h, wd, cin = x.shape
     cout = _cout(w, cin)
-    if cout % 16:
-        raise ValueError(f"conv3x3_int8 on CUDA needs Cout % 16 == 0, got {cout}")
+    if cout % _COUT_MULTIPLE:
+        if not _is_natural(w, cin):
+            raise ValueError(f"conv3x3_int8 on CUDA takes packed weights with Cout % 16 "
+                             f"== 0 (pad_cout before pack_weights), got {cout}")
+        out = conv3x3_int8(x, pad_cout(w), pad_cout(scale), pad_cout(bias), out_scale,
+                           relu)
+        return out[..., :cout].contiguous()
     if _is_natural(w, cin):
         w = pack_weights(w, cin)
     first = cin == _FIRST_LAYER_CIN

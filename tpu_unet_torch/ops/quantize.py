@@ -37,6 +37,7 @@ Usage:
     outputs = fwd(qparams, images_u8)                       # NHWC uint8 tensor
     step    = make_quantized_anomaly_eval_step()            # the eval step's outputs
     out     = step(qparams, images_u8, masks)
+    seg     = make_quantized_seg_eval_step(num_classes)     # (losses, preds, cm)
 """
 
 from __future__ import annotations
@@ -50,7 +51,7 @@ import torch.nn.functional as F
 
 from tpu_unet_torch.core.device import resolve_device
 from tpu_unet_torch.ops.augment import eval_transform
-from tpu_unet_torch.ops.kernels.int8_conv import conv3x3_int8, pack_weights
+from tpu_unet_torch.ops.kernels.int8_conv import conv3x3_int8, pack_weights, pad_cout
 from tpu_unet_torch.utils.weights import (ladder_layout, qparams_from_numpy,
                                           qparams_to_numpy)
 
@@ -65,9 +66,11 @@ _ARCH_HEADS = {
     ),
 }
 
-# Heads and transposed convs pad their int8 matmul's width to a multiple of
-# this (CUDA's torch._int_mm needs it).
+# Heads and transposed convs pad their int8 matmul's inner dim and width to a
+# multiple of this, and its rows to at least _MM_MIN_ROWS (CUDA's
+# torch._int_mm needs more than 16 rows and both dims a multiple of 8).
 _MM_MULTIPLE = 8
+_MM_MIN_ROWS = 17
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -216,15 +219,22 @@ class _CalibExec:
         return torch.sigmoid(y) if activation == "sigmoid" else y
 
 
-def _pad_cols(k: torch.Tensor) -> torch.Tensor:
-    """Zero-pad an int8 (C, K) matrix's K to CUDA's torch._int_mm multiple."""
-    pad = -k.shape[1] % _MM_MULTIPLE
-    return F.pad(k, (0, pad)) if pad else k
+def _pad_matrix(k: torch.Tensor) -> torch.Tensor:
+    """Zero-pad an int8 (C, K) matrix's C and K to CUDA's torch._int_mm multiple."""
+    return F.pad(k, (0, -k.shape[1] % _MM_MULTIPLE, 0, -k.shape[0] % _MM_MULTIPLE))
 
 
 def _int_matmul(x2d: torch.Tensor, k: torch.Tensor, n_out: int) -> torch.Tensor:
-    """Exact int8 (M, C) x (C, K) -> int32 (M, n_out), K >= n_out (padded columns)."""
-    return torch._int_mm(x2d, k)[:, :n_out]
+    """Exact int8 (M, C) x (Cp, K) -> int32 (M, n_out), for ``k`` padded by
+    :func:`_pad_matrix` (Cp >= C, K >= n_out). CUDA's ``torch._int_mm`` also
+    wants more than 16 rows and an inner dim that is a multiple of 8: ``x2d``
+    is zero-padded to both here when it falls short, and zero rows and
+    columns change no sum. Every device takes the same path."""
+    m, c = x2d.shape
+    pad_rows = max(0, _MM_MIN_ROWS - m)
+    if pad_rows or c != k.shape[0]:
+        x2d = F.pad(x2d, (0, k.shape[0] - c, 0, pad_rows))
+    return torch._int_mm(x2d, k)[:m, :n_out]
 
 
 class _QuantExec:
@@ -242,20 +252,25 @@ class _QuantExec:
         """A layer's kernel, combined scale ``s_in * w_scale`` and bias in the
         form its op takes, made on the layer's first call and kept: a layer's
         input scale is the same on every call. 3x3 kernels come packed in
-        K2's layout (``pack_weights``); the transposed conv's (Cin, 2, 2, Cout) kernel
-        comes as a (Cin, 4 * Cout) matrix, its scale and bias repeated to match;
-        matrices come with their columns padded for ``_int_matmul``."""
+        K2's layout (``pack_weights``), their Cout zero-padded to K2's
+        multiple of 16 with the scale and bias (``pad_cout``); ``cout`` is the
+        unpadded count. The transposed conv's (Cin, 2, 2, Cout) kernel comes
+        as a (Cin, 4 * Cout) matrix, its scale and bias repeated to match;
+        matrices come padded for ``_int_matmul``."""
         c = self._consts.get(path)
         if c is None:
             leaf = _get(self.layers, path)
             k, scale, bias = leaf["kernel"], s_in * leaf["w_scale"], leaf["bias"]
+            cout = k.shape[0] if kind == "conv" else k.shape[-1]
             if kind == "conv":
-                k = pack_weights(k, k.shape[3])
+                k = pack_weights(pad_cout(k), k.shape[3])
+                scale, bias = pad_cout(scale), pad_cout(bias)
             elif kind == "up":
                 k, scale, bias = k.reshape(k.shape[0], -1), scale.repeat(4), bias.repeat(4)
             if kind != "conv":
-                k = _pad_cols(k)
-            c = self._consts[path] = {"kernel": k, "scale": scale, "bias": bias}
+                k = _pad_matrix(k)
+            c = self._consts[path] = {"kernel": k, "scale": scale, "bias": bias,
+                                      "cout": cout}
         return c
 
     @staticmethod
@@ -272,6 +287,8 @@ class _QuantExec:
             c = self._leaf(f"{path}/conv{i}", s_in, "conv")
             s_out = self.scales[f"{path}/relu{i}"]
             x = self.conv3x3(x, c["kernel"], c["scale"], c["bias"], s_out, relu=True)
+            if x.shape[3] != c["cout"]:  # K2's padded channels are zeros
+                x = x[..., :c["cout"]].contiguous()
             s_in = s_out
         return x, s_in
 
@@ -290,7 +307,7 @@ class _QuantExec:
         skip, s_skip = skips
         c = self._leaf(f"{path}/up", s_in, "up")
         n, h, w, cin = x.shape
-        cout = c["bias"].numel() // 4
+        cout = c["cout"]
         acc = _int_matmul(x.reshape(-1, cin), c["kernel"], 4 * cout)
         y = acc.to(torch.float32) * c["scale"]
         y = y + c["bias"]
@@ -308,7 +325,7 @@ class _QuantExec:
         x, s_in = xs
         c = self._leaf(f"{path}/conv", s_in, "head")
         n, h, w, cin = x.shape
-        acc = _int_matmul(x.reshape(-1, cin), c["kernel"], c["bias"].numel())
+        acc = _int_matmul(x.reshape(-1, cin), c["kernel"], c["cout"])
         y = acc.to(torch.float32) * c["scale"] + c["bias"]
         y = y.reshape(n, h, w, -1)
         return torch.sigmoid(y) if activation == "sigmoid" else y
@@ -541,6 +558,41 @@ def make_quantized_anomaly_eval_step(loss_cfg=None):
             "reconstruction": recon,
             "image": img,
         }
+
+    return step
+
+
+def make_quantized_seg_eval_step(num_classes: int, loss_cfg=None, arch: str = "seg_unet",
+                                 deep_supervision: bool = False, heads: int = 4):
+    """int8 drop-in for ``train/steps.py::make_seg_eval_step``.
+
+    Returns ``step(qparams, images_u8, labels, valid=None) -> (losses, preds,
+    cm)``, the float step's contract, so ``validate_seg_epoch`` and the seg
+    test CLIs run unchanged on int8 inference, on the device the qparams lie
+    on. ``eval_transform`` (K1) runs once per batch and every 3x3 conv
+    through K2: 18 launches per batch for SegmentationUNet. One executor is
+    kept while the same qparams come back. ``arch`` 'seg_unet' or 'unet';
+    UNet++ (``deep_supervision``, ``heads``) is not ported.
+    """
+    from tpu_unet_torch.train.steps import SegLossConfig, _as_tensor, seg_eval_outputs
+
+    if deep_supervision or heads != 4:
+        raise NotImplementedError("deep supervision and --heads are UNet++'s, which is "
+                                  "not ported yet")
+    cfg = loss_cfg if loss_cfg is not None else SegLossConfig()
+    plan = build_plan(arch)
+    cache: Dict[str, Any] = {}
+
+    @torch.no_grad()
+    def step(qparams, images_u8, labels, valid=None):
+        if cache.get("layers") is not qparams["layers"]:
+            cache["layers"], cache["exec"] = qparams["layers"], _QuantExec(qparams)
+        device = _tree_device(qparams["layers"])
+        logits = _run(cache["exec"], eval_transform(_as_tensor(images_u8, device)), plan)
+        lbl = _as_tensor(labels, device).to(torch.int64)
+        if valid is not None:
+            valid = _as_tensor(valid, device)
+        return seg_eval_outputs(logits, lbl, num_classes, cfg, valid)
 
     return step
 

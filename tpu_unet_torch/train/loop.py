@@ -1,5 +1,6 @@
-"""Epoch drivers of the MVTec anomaly task: thin host loops around the steps
-(counterpart of the anomaly half of ``tpu_unet/train/loop.py``, one process).
+"""Epoch drivers of the MVTec anomaly task and of the segmentation task: thin
+host loops around the steps (counterpart of ``tpu_unet/train/loop.py``, one
+process).
 
 - Batches arrive as tensors on the state's device: the loader's transform
   is ``data/loader.py::to_device`` (pinned, non-blocking copies), so no step
@@ -7,6 +8,9 @@
 - The per-step loss scalars stay on the device until the epoch ends; then one
   host copy fetches them all (:func:`_fetch_scalars`). Progress lines read a
   lagged step's loss from pinned memory after that step's event (:class:`_Progress`).
+- The seg steps' confusion matrices are summed on the device; the sum comes
+  to the host once per epoch, and a progress line's running mIoU reads the
+  lagged step's running sum as it reads its loss.
 - Draws: each epoch gets one ``torch.Generator`` on the state's device,
   seeded from ``(seed, epoch)``, and the steps draw from it in order, so a
   resumed run draws what an uninterrupted one would.
@@ -25,6 +29,7 @@ import numpy as np
 import torch
 
 from tpu_unet_torch.metrics.binary import calculate_metrics
+from tpu_unet_torch.metrics.confusion import SegmentationMetrics
 
 _LOSS_NAMES = ("total_loss", "recon_loss", "seg_loss")
 
@@ -44,6 +49,13 @@ def _fetch_scalars(per_batch: List[Dict[str, torch.Tensor]]) -> Dict[str, np.nda
     return {n: host[:, i] for i, n in enumerate(names)}
 
 
+def _weighted_losses(per_batch: List[Dict[str, torch.Tensor]], counts) -> Dict[str, float]:
+    """Each loss's mean over the batches, weighted by ``counts`` (one host fetch)."""
+    weights = np.asarray(counts, np.float64)
+    return {name: float((vals * weights).sum() / weights.sum())
+            for name, vals in _fetch_scalars(per_batch).items()}
+
+
 class _Progress:
     """Intra-epoch progress lines every ``every`` steps.
 
@@ -60,26 +72,28 @@ class _Progress:
         self.fn = fn if every and every > 0 else None  # every <= 0 disables
         self.every, self.n_total = max(int(every), 1), n_total
         self.t0 = time.perf_counter()
-        self._losses: dict = {}  # step -> (host scalar tensor, event or None)
+        self._losses: dict = {}  # step -> ([loss, running cm] on the host, event or None)
 
     def _lagged(self, i: int) -> int:
         """The step whose loss the line after step ``i`` reads: one behind
         even with every=1."""
         return min(i + 1 - self.every, i - 1)
 
-    def record(self, i: int, loss: torch.Tensor) -> None:
-        """Keep step ``i``'s loss if a line reads it: ``_lagged`` of a line's
-        step is a multiple of ``every``."""
+    def record(self, i: int, loss: torch.Tensor,
+               running_cm: Optional[torch.Tensor] = None) -> None:
+        """Keep step ``i``'s loss (and ``running_cm``, the confusion matrix
+        summed over steps 0..i, for a running mIoU) if a line reads it:
+        ``_lagged`` of a line's step is a multiple of ``every``."""
         if self.fn is None or i % self.every != 0:
             return
+        kept = [t.detach() for t in (loss, running_cm) if t is not None]
+        done = None
         if loss.is_cuda:
-            host = torch.empty((), dtype=loss.dtype, pin_memory=True)
-            host.copy_(loss.detach(), non_blocking=True)
+            kept = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True).copy_(
+                t, non_blocking=True) for t in kept]
             done = torch.cuda.Event()
             done.record()
-            self._losses[i] = (host, done)
-        else:
-            self._losses[i] = (loss.detach(), None)
+        self._losses[i] = (kept, done)
 
     def tick(self, i: int, counts, extra: str = "") -> None:
         if self.fn is None or (i + 1) % self.every != 0:
@@ -87,10 +101,15 @@ class _Progress:
         j = self._lagged(i)
         if j < 0:
             return
-        host, done = self._losses.pop(j)
+        kept, done = self._losses.pop(j)
         if done is not None:
             done.synchronize()  # step j only, not the steps queued after it
-        loss = float(host)
+        loss = float(kept[0])
+        if len(kept) > 1 and int(kept[1].sum()) > 0:
+            # 0 for a class not seen yet, as the epoch's compute_iou gives.
+            running = SegmentationMetrics(kept[1].shape[0])
+            running.confusion_matrix = kept[1].numpy().astype(np.int64)
+            extra = f", mIoU {float(np.nanmean(running.compute_iou())):.4f}{extra}"
         imgs_done = float(np.sum(counts[: j + 1]))
         dt = max(time.perf_counter() - self.t0, 1e-9)
         total = f"/{self.n_total}" if self.n_total is not None else ""
@@ -130,9 +149,7 @@ def train_anomaly_epoch(state, step_fn, loader, seed: int, epoch: int,
         prog.tick(i, counts)
     if not per_batch:
         return {name: 0.0 for name in _LOSS_NAMES}
-    weights = np.asarray(counts, np.float64)
-    out = {name: float((vals * weights).sum() / weights.sum())
-           for name, vals in _fetch_scalars(per_batch).items()}
+    out = _weighted_losses(per_batch, counts)
     if log_fn:
         log_fn(f"Epoch {epoch}: loss {out['total_loss']:.4f} "
                f"(recon {out['recon_loss']:.4f}, seg {out['seg_loss']:.4f})")
@@ -220,3 +237,75 @@ def validate_anomaly_epoch(state, eval_fn, loader) -> Dict:
             "masks_pred": masks_pred,
         },
     }
+
+
+# ---------------------------------------------------------------------------
+# Segmentation (Gear / KolektorSDD)
+# ---------------------------------------------------------------------------
+
+def train_seg_epoch(state, step_fn, loader, seed: int, epoch: int, num_classes: int,
+                    progress_fn: Optional[Callable[[str], None]] = None,
+                    progress_every: int = 10,
+                    should_stop: Optional[Callable[[], bool]] = None):
+    """One segmentation training epoch, updating ``state`` in place; returns
+    ``(losses, metrics)``: each loss the mean over the steps weighted by
+    their batch sizes ({} when no step ran), and a
+    :class:`SegmentationMetrics` holding the epoch's confusion matrix.
+
+    ``step_fn(state, images, labels, generator) -> (losses, cm)`` is called
+    once per batch with the loader's batch fields (tensors on the state's
+    device) and this epoch's generator. The steps' matrices are summed on
+    the device; the losses and the sum come to the host once, at the end.
+    ``progress_fn`` receives a line every ``progress_every`` steps with a
+    lagged step's loss and running mIoU. ``should_stop`` is polled between
+    steps; True ends the epoch early (the trainer's SIGTERM latch).
+    """
+    generator = epoch_generator(seed, epoch, state.device)
+    metrics = SegmentationMetrics(num_classes)
+    per_batch, counts = [], []
+    running = None
+    prog = _Progress(progress_fn, progress_every,
+                     len(loader) if hasattr(loader, "__len__") else None)
+    for i, batch in enumerate(loader):
+        if should_stop is not None and should_stop():
+            break
+        losses, cm = step_fn(state, batch["image"], batch["mask"], generator)
+        per_batch.append(losses)
+        counts.append(batch["image"].shape[0])
+        if cm is not None:
+            running = cm if running is None else running + cm
+        prog.record(i, losses["total_loss"], running)
+        prog.tick(i, counts)
+    if running is not None:
+        metrics.confusion_matrix = running.cpu().numpy().astype(np.int64)
+    return (_weighted_losses(per_batch, counts) if per_batch else {}), metrics
+
+
+def validate_seg_epoch(state, eval_fn, loader, num_classes: int,
+                       ignore_index: Optional[int] = None):
+    """Validation pass; returns ``(losses, metrics)``.
+
+    ``eval_fn(state, images, labels, valid) -> (losses, preds, cm)`` runs
+    once per batch on the loader's batches (tensors on the state's device).
+    The steps' matrices leave padded rows out (``valid``) and are summed on
+    the device; the sum, the losses and the valid counts come to the host
+    once the loader is drained. Each batch's losses weigh by its valid rows.
+    ``ignore_index`` must be the eval step's: the matrices exclude it.
+    """
+    device = state.device
+    metrics = SegmentationMetrics(num_classes, ignore_index)
+    per_batch, valids = [], []
+    total = None
+    for batch in loader:
+        v = batch.get("valid")
+        losses, _, cm = eval_fn(state, batch["image"], batch["mask"], v)
+        per_batch.append(losses)
+        n = batch["image"].shape[0]
+        valids.append(v.to(torch.bool) if v is not None
+                      else torch.ones(n, dtype=torch.bool, device=device))
+        total = cm if total is None else total + cm
+    if not per_batch:
+        return {}, metrics
+    metrics.confusion_matrix = total.cpu().numpy().astype(np.int64)
+    counts = torch.stack([v.sum() for v in valids]).cpu().numpy()
+    return _weighted_losses(per_batch, counts), metrics

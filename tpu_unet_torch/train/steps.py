@@ -1,5 +1,5 @@
-"""Train and eval steps of the MVTec anomaly task (counterpart of the anomaly
-half of ``tpu_unet/train/steps.py``).
+"""Train and eval steps of the MVTec anomaly task and of the segmentation
+task (counterpart of ``tpu_unet/train/steps.py``).
 
 A train step takes a uint8 NHWC batch and its masks, runs the device
 augment (``ops/augment.py::train_transform``), the model in train mode on
@@ -13,10 +13,11 @@ tensors already on the state's device, copied from pinned memory by the
 loader's ``data/loader.py::to_device`` transform.
 The steps also take numpy arrays, at the cost described in :func:`_as_tensor`.
 
-The JAX step draws its augmentation from a key. Here
-``step(state, images_u8, masks, generator)`` makes the draws from a
-``torch.Generator`` on the state's device, and
-``step.with_draws(state, images_u8, masks, draws)`` takes them as given.
+The JAX step draws its augmentation (and the seg model's dropout) from a
+key. Here ``step(state, images_u8, masks, generator)`` makes the draws from
+a ``torch.Generator`` on the state's device, and
+``step.with_draws(state, images_u8, masks, draws[, dropout])`` takes them as
+given.
 """
 
 from __future__ import annotations
@@ -27,9 +28,12 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import torch
 
 from tpu_unet_torch.losses.anomaly import combined_anomaly_loss
+from tpu_unet_torch.losses.segmentation import combined_segmentation_loss
 from tpu_unet_torch.metrics.anomaly import anomaly_error_map, anomaly_score
+from tpu_unet_torch.metrics.confusion import confusion_matrix_batch
 from tpu_unet_torch.ops.augment import (AugmentDraws, eval_transform,
                                         sample_augment_draws, train_transform)
+from tpu_unet_torch.ops.seg_head import sliced_argmax
 from tpu_unet_torch.train.state import TrainState
 
 
@@ -185,6 +189,11 @@ def make_anomaly_train_step(loss_cfg: AnomalyLossConfig = AnomalyLossConfig(),
     backward (``torch.utils.checkpoint``) would update the BN running
     statistics twice.
     """
+    _check_step_flags(grad_accum, remat)
+    return AnomalyTrainStep(loss_cfg, aug_cfg, dual_decoder, grad_accum)
+
+
+def _check_step_flags(grad_accum: int, remat: str) -> None:
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     if remat in ("full_res", "full"):
@@ -192,7 +201,6 @@ def make_anomaly_train_step(loss_cfg: AnomalyLossConfig = AnomalyLossConfig(),
                                   "forward would update the BN running statistics twice")
     if remat != "none":
         raise ValueError(f"remat must be 'none'|'full_res'|'full', got {remat!r}")
-    return AnomalyTrainStep(loss_cfg, aug_cfg, dual_decoder, grad_accum)
 
 
 def make_anomaly_eval_step(loss_cfg: AnomalyLossConfig = AnomalyLossConfig(),
@@ -229,6 +237,169 @@ def make_anomaly_eval_step(loss_cfg: AnomalyLossConfig = AnomalyLossConfig(),
                     "reconstruction": recon,
                     "image": img,
                 }
+        finally:
+            model.train(was_training)
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# Semantic segmentation (SegmentationUNet on Gear / KolektorSDD)
+# ---------------------------------------------------------------------------
+
+def _seg_logits(model, img: torch.Tensor, keep: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+    """Model on NHWC ``img`` -> NHWC logits (a view of the NCHW output).
+    ``keep`` is SegmentationUNet's dropout draw; other models take none."""
+    x = img.permute(0, 3, 1, 2)
+    return (model(x) if keep is None else model(x, keep=keep)).permute(0, 2, 3, 1)
+
+
+def seg_eval_outputs(logits: torch.Tensor, labels: torch.Tensor, num_classes: int,
+                     loss_cfg: SegLossConfig, valid=None):
+    """``(losses, preds, cm)`` of an eval batch from its NHWC logits: the
+    loss over the ``valid`` rows, ``sliced_argmax`` predictions and the
+    batch's confusion matrix, all left on the device. The matrix, too,
+    counts the ``valid`` rows only; the JAX package drops a padded batch's
+    rows on the host instead, with the same counts."""
+    losses = combined_segmentation_loss(logits, labels, sample_weight=valid,
+                                        **loss_cfg.kwargs())
+    preds = sliced_argmax(logits)
+    cm = confusion_matrix_batch(preds, labels, num_classes, loss_cfg.ignore_index,
+                                valid=valid)
+    return losses, preds, cm
+
+
+class SegTrainStep:
+    """``step(state, images_u8, labels, generator) -> (losses, cm)`` and
+    ``step.with_draws(state, images_u8, labels, draws, dropout=None)``;
+    built by :func:`make_seg_train_step`."""
+
+    def __init__(self, num_classes: int, loss_cfg: SegLossConfig,
+                 aug_cfg: AugmentConfig, with_confusion: bool, grad_accum: int):
+        self.num_classes = num_classes
+        self.loss_cfg = loss_cfg
+        self.aug_cfg = aug_cfg
+        self.with_confusion = with_confusion
+        self.grad_accum = grad_accum
+
+    def _check_batch(self, n: int) -> None:
+        if n % self.grad_accum:
+            raise ValueError(f"seg train step: batch size {n} is not divisible "
+                             f"by grad_accum={self.grad_accum}")
+
+    def draws(self, model, n: int, generator: torch.Generator
+              ) -> Tuple[List[AugmentDraws], List[Optional[torch.Tensor]]]:
+        """The augment draws and dropout keep masks of each microbatch of a
+        batch of ``n``, drawn in that order, microbatch by microbatch."""
+        self._check_batch(n)
+        m = n // self.grad_accum
+        sample_dropout = getattr(model, "sample_dropout", None)
+        augment, dropout = [], []
+        for _ in range(self.grad_accum):
+            augment.append(sample_augment_draws(m, self.aug_cfg, generator))
+            dropout.append(sample_dropout(m, generator) if sample_dropout else None)
+        return augment, dropout
+
+    def __call__(self, state: TrainState, images_u8, labels, generator: torch.Generator):
+        augment, dropout = self.draws(state.model, len(images_u8), generator)
+        return self.with_draws(state, images_u8, labels, augment, dropout)
+
+    def with_draws(self, state: TrainState, images_u8, labels,
+                   draws: Union[AugmentDraws, List[AugmentDraws]],
+                   dropout: Union[None, torch.Tensor, List[Optional[torch.Tensor]]] = None):
+        """One optimizer update from the batch under the given draws: one
+        :class:`AugmentDraws` and one (N, C5) dropout keep mask, or a list of
+        ``grad_accum`` of each. ``dropout=None`` is only for a model without
+        dropout. Returns the loss scalars (the mean over microbatches) and
+        the batch's (C, C) confusion matrix (None without ``with_confusion``),
+        all on the device."""
+        device = state.device
+        images_u8, labels = _as_tensor(images_u8, device), _as_tensor(labels, device)
+        g = self.grad_accum
+        self._check_batch(len(images_u8))
+        draws = [draws] if isinstance(draws, AugmentDraws) else list(draws)
+        if dropout is None:
+            dropout = [None] * g
+        elif isinstance(dropout, torch.Tensor):
+            dropout = [dropout]
+        if len(draws) != g or len(dropout) != g:
+            raise ValueError(f"{len(draws)} draw sets and {len(dropout)} dropout masks "
+                             f"for grad_accum={g}")
+        model = state.model.train()
+        state.optimizer.zero_grad(set_to_none=True)
+        losses: List[Dict[str, torch.Tensor]] = []
+        cm = None
+        for img_u8, lbl, d, keep in zip(images_u8.chunk(g), labels.chunk(g), draws, dropout):
+            # Labels ship as uint8; the geometry is nearest on them, so the
+            # cast to int64 (which the gathers take) after it is exact.
+            img, lbl = train_transform(img_u8, lbl[..., None], d.to(device),
+                                       **self.aug_cfg.transform_kwargs())
+            lbl = lbl[..., 0].to(torch.int64)
+            logits = _seg_logits(model, img, None if keep is None else keep.to(device))
+            ld = combined_segmentation_loss(logits, lbl, **self.loss_cfg.kwargs())
+            ld["total_loss"].backward()
+            losses.append({k: v.detach() for k, v in ld.items()})
+            if self.with_confusion:
+                part = confusion_matrix_batch(sliced_argmax(logits.detach()), lbl,
+                                              self.num_classes, self.loss_cfg.ignore_index)
+                cm = part if cm is None else cm + part
+        if g > 1:
+            for p in model.parameters():
+                if p.grad is not None:
+                    p.grad.div_(g)
+        state.optimizer.step()
+        state.step += 1
+        return {k: torch.stack([ld[k] for ld in losses]).mean() for k in losses[0]}, cm
+
+
+def make_seg_train_step(num_classes: int, loss_cfg: SegLossConfig = SegLossConfig(),
+                        aug_cfg: AugmentConfig = AugmentConfig(),
+                        with_confusion: bool = True, grad_accum: int = 1,
+                        remat: str = "none") -> SegTrainStep:
+    """The segmentation train step.
+
+    images_u8: (N, H, W, 3) uint8; labels: (N, H, W) integer class ids
+    (uint8 as the datasets ship them). The image and its labels go through
+    the paired augment (bilinear on the image, nearest on the labels), the
+    model in train mode (SegmentationUNet's bottleneck dropout under the
+    step's keep mask), the loss on float32 logits and one optimizer update.
+    The batch's confusion matrix comes from ``sliced_argmax`` of the
+    augmented batch's logits and stays on the device.
+
+    ``grad_accum=G`` runs G microbatches in sequence, each with its own
+    augment draws and dropout mask and its own batch statistics (the running
+    statistics chain through them); the gradient sum is divided by G, one
+    update runs, the losses are the microbatches' mean and the confusion
+    matrices their sum. ``remat`` other than 'none' is not ported (see
+    :func:`make_anomaly_train_step`).
+    """
+    _check_step_flags(grad_accum, remat)
+    return SegTrainStep(num_classes, loss_cfg, aug_cfg, with_confusion, grad_accum)
+
+
+def make_seg_eval_step(num_classes: int, loss_cfg: SegLossConfig = SegLossConfig()):
+    """``step(state, images_u8, labels, valid=None) -> (losses, preds, cm)``.
+
+    The model runs in eval mode on ``eval_transform``'s output (K1 on CUDA
+    tensors). ``valid`` (optional (N,) bool or float) marks the real rows of
+    a padded batch: the loss and the confusion matrix cover those rows only
+    (:func:`seg_eval_outputs`). ``preds`` is (N, H, W) int64.
+    """
+
+    def step(state: TrainState, images_u8, labels, valid=None):
+        device = state.device
+        model = state.model
+        was_training = model.training
+        model.eval()
+        try:
+            with torch.no_grad():
+                img = eval_transform(_as_tensor(images_u8, device))
+                lbl = _as_tensor(labels, device).to(torch.int64)
+                if valid is not None:
+                    valid = _as_tensor(valid, device)
+                return seg_eval_outputs(_seg_logits(model, img), lbl, num_classes,
+                                        loss_cfg, valid)
         finally:
             model.train(was_training)
 

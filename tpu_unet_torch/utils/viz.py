@@ -102,3 +102,23 @@ def plot_confusion_matrix(y_true, y_pred, class_names=("Normal", "Anomaly"),
         fig.savefig(save_path, dpi=150, bbox_inches="tight")
         print(f"Confusion matrix saved to {save_path}")
     plt.close(fig)
+
+
+def overlay_segmentation(image: np.ndarray, mask: np.ndarray,
+                         colors: Optional[np.ndarray] = None,
+                         alpha: float = 0.5) -> np.ndarray:
+    """Blend a class-coloured (H, W) label map over a normalized (H, W, 3)
+    image, denormalized first (the reference's Gear overlays); float [0, 1]."""
+    if colors is None:
+        colors = np.asarray([
+            [0, 0, 0], [255, 0, 0], [0, 255, 0], [0, 0, 255],
+            [255, 255, 0], [255, 0, 255], [0, 255, 255],
+        ], np.float32) / 255.0
+    img = denormalize_image(image)
+    out = img.copy()
+    for cls in np.unique(mask):
+        if cls == 0:
+            continue
+        sel = mask == cls
+        out[sel] = (1 - alpha) * img[sel] + alpha * colors[int(cls) % len(colors)]
+    return out
