@@ -99,11 +99,14 @@ non-zero. Without a CUDA GPU it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 # (H = W, Cin, Cout) of the 18 3x3 convs of the int8 score path (AnomalyUNet,
@@ -135,6 +138,24 @@ _SEG_LEVELS = [0, 0, 1, 1, 2, 2, 3, 3, 4, 4, 3, 3, 2, 2, 1, 1, 0, 0]
 SEG_CONVS = {name: [(h >> lv, w >> lv, cin, cout)
                     for lv, (cin, cout) in zip(_SEG_LEVELS, _SEG_CHANNELS)]
              for name, (h, w) in (("kolektorsdd", (1024, 512)), ("gear", (512, 512)))}
+
+
+def unetpp_convs(base, h, w, max_j=4):
+    """(H, W, Cin, Cout) of UNet++'s 3x3 convs (two per node X[i][j], in the
+    int8 plan's order: the encoder column, then column by column) for the
+    head X[0][max_j]: 30 at max_j 4, 6 at max_j 1."""
+    nodes = ([(i, 0) for i in range(max_j + 1)]
+             + [(i, j) for j in range(1, max_j + 1) for i in range(max_j - j + 1)])
+    convs = []
+    for i, j in nodes:
+        c = base * 2 ** i
+        cin = (3 if i == 0 else c // 2) if j == 0 else (j + 1) * c
+        convs += [(h >> i, w >> i, cin, c), (h >> i, w >> i, c, c)]
+    return convs
+
+
+# UNet++ base 64 on Gear (512 x 512) at the seg eval batch: the 30 convs.
+UNETPP_CONVS = unetpp_convs(64, 512, 512)
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
 PEAK_INT8_OPS = 1979e12      # H100 SXM dense int8 tensor-core rate
 PEAK_F32_FLOPS = 67e12       # H100 SXM float32 outside the tensor cores
@@ -456,11 +477,12 @@ def phase_k2(torch, report):
           f"{sum(r['bf16_cudnn_ms_b128'] for r in path):.3f} ms", flush=True)
     report["k2"] = rows
     report["k2_seg"] = {name: _k2_seg(torch, name, convs) for name, convs in SEG_CONVS.items()}
+    report["k2_seg"]["unetpp_gear"] = _k2_seg(torch, "unetpp_gear", UNETPP_CONVS)
 
 
 def _k2_seg(torch, name, convs):
-    """K2 at SegmentationUNet's 18 convs at the seg eval batch (b8): bit for
-    bit against the plain version with natural weights, then timed with the
+    """K2 at a seg model's convs at the seg eval batch (b8): bit for bit
+    against the plain version with natural weights, then timed with the
     weights packed ahead, beside its bound and a bf16 cuDNN yardstick."""
     import torch.nn.functional as F
     from tpu_unet_torch.ops.kernels.int8_conv import (conv3x3_int8, conv3x3_int8_plain,
@@ -495,26 +517,37 @@ def _k2_seg(torch, name, convs):
               f"bf16 cuDNN {c_ms:.4f} ms, bit-exact", flush=True)
     total = {k: sum(r[k] for r in rows) for k in ("kernel_ms", "plain_ms", "bound_ms",
                                                   "bf16_cudnn_ms")}
-    print(f"[K2] seg {name} b{SEG_BATCH}, the 18 convs: kernel {total['kernel_ms']:.3f} ms, "
+    print(f"[K2] seg {name} b{SEG_BATCH}, the {len(rows)} convs: kernel "
+          f"{total['kernel_ms']:.3f} ms, "
           f"bound {total['bound_ms']:.3f} ms, {100 * total['bound_ms'] / total['kernel_ms']:.1f}% "
           f"of bound; plain {total['plain_ms']:.1f} ms; bf16 cuDNN yardstick "
           f"{total['bf16_cudnn_ms']:.3f} ms", flush=True)
     return {"rows": rows, **total, "bound_by": _dominant_bound(rows)}
 
 
-def phase_main_path(torch, np, report):
-    from tpu_unet_torch.metrics.anomaly import anomaly_score
-    from tpu_unet_torch.models import build_model
+def plain_k2_exec(qparams):
+    """The int8 executor over ``qparams`` with K2's plain version in place of
+    the kernel (the reference the card's int8 forwards are held against)."""
     from tpu_unet_torch.ops import quantize as tq
-    from tpu_unet_torch.ops.kernels.int8_conv import conv3x3_int8, conv3x3_int8_plain
-    from tpu_unet_torch.ops.kernels.preprocess import normalize_u8, normalize_u8_plain
-    from tpu_unet_torch.serve import AnomalyScorer
+    from tpu_unet_torch.ops.kernels.int8_conv import conv3x3_int8_plain
 
-    t0 = time.perf_counter()
+    class PlainK2Exec(tq._QuantExec):
+        conv3x3 = staticmethod(conv3x3_int8_plain)
+
+    return PlainK2Exec(qparams)
+
+
+def warm_anomaly_state_dict(torch, bilinear=False):
+    """A full-width AnomalyUNet (base 64) from seed 0 with BN statistics
+    warmed on synthetic 256² images (the cumulative mean of 3 batches of
+    8); its state_dict on the CPU."""
+    from tpu_unet_torch.models import build_model
+    from tpu_unet_torch.ops.kernels.preprocess import normalize_u8
+
     torch.manual_seed(0)
-    model = build_model("anomaly_unet", base_features=64).to(
+    model = build_model("anomaly_unet", base_features=64, bilinear=bilinear).to(
         "cuda", memory_format=torch.channels_last)
-    for m in model.modules():  # warm BN statistics: the cumulative mean of 3 batches
+    for m in model.modules():
         if isinstance(m, torch.nn.BatchNorm2d):
             m.momentum = None
     model.train()
@@ -522,8 +555,18 @@ def phase_main_path(torch, np, report):
         for seed in range(3):
             imgs = torch.from_numpy(synth_images(torch, 8, 256, 10 + seed, "cuda")).cuda()
             model(normalize_u8(imgs).permute(0, 3, 1, 2))
-    state_dict = {k: v.cpu() for k, v in model.state_dict().items()}
-    del model
+    return {k: v.cpu() for k, v in model.state_dict().items()}
+
+
+def phase_main_path(torch, np, report):
+    from tpu_unet_torch.metrics.anomaly import anomaly_score
+    from tpu_unet_torch.ops import quantize as tq
+    from tpu_unet_torch.ops.kernels.int8_conv import conv3x3_int8
+    from tpu_unet_torch.ops.kernels.preprocess import normalize_u8, normalize_u8_plain
+    from tpu_unet_torch.serve import AnomalyScorer
+
+    t0 = time.perf_counter()
+    state_dict = warm_anomaly_state_dict(torch)
     n_params = sum(v.numel() for k, v in state_dict.items()
                    if not k.endswith(("running_mean", "running_var", "num_batches_tracked")))
     check(n_params == 43_228_228, f"AnomalyUNet has {n_params} params")
@@ -554,13 +597,11 @@ def phase_main_path(torch, np, report):
 
     # The first int8 batch again, through the same forward with K1's and K2's
     # plain versions on the card: the scores must be the same bits.
-    class PlainK2Exec(tq._QuantExec):
-        conv3x3 = staticmethod(conv3x3_int8_plain)
 
     batch = torch.from_numpy(images[:128]).cuda()
     with torch.inference_mode():
         img = normalize_u8_plain(batch)
-        recon = tq._run(PlainK2Exec(int8.qparams), img,
+        recon = tq._run(plain_k2_exec(int8.qparams), img,
                         tq.build_plan("anomaly_unet", score_only=True))
         s_plain = anomaly_score(recon, img).cpu().numpy()
     del img, recon
@@ -827,6 +868,21 @@ def phase_train(torch, np, report):
     return {"train_step": train_launches, "eval_step": eval_launches}
 
 
+def _state_dict_errs(sd_cpu, sd_gpu):
+    """Largest |difference| over a leaf's largest |value|: (parameters, BN
+    running statistics)."""
+    param_err = stat_err = 0.0
+    for k, v in sd_cpu.items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        err = float((sd_gpu[k].cpu() - v).abs().max() / v.abs().max().clamp(min=1e-12))
+        if k.endswith(("running_mean", "running_var")):
+            stat_err = max(stat_err, err)
+        else:
+            param_err = max(param_err, err)
+    return param_err, stat_err
+
+
 def phase_train_cpu_vs_card(torch, np, report):
     """One small f32 SGD step on the CPU and on the card from the same weights
     and the same draws (TF32 is off)."""
@@ -851,16 +907,7 @@ def phase_train_cpu_vs_card(torch, np, report):
     l_gpu = step.with_draws(gpu, images, masks, draws.to("cuda"))
     loss_rel = max(abs(float(l_gpu[k]) - float(l_cpu[k])) / abs(float(l_cpu[k]))
                    for k in ("total_loss", "recon_loss", "seg_loss"))
-    sd_cpu, sd_gpu = cpu.model.state_dict(), gpu.model.state_dict()
-    param_err = stat_err = 0.0
-    for k, v in sd_cpu.items():
-        if k.endswith("num_batches_tracked"):
-            continue
-        err = float((sd_gpu[k].cpu() - v).abs().max() / v.abs().max().clamp(min=1e-12))
-        if k.endswith(("running_mean", "running_var")):
-            stat_err = max(stat_err, err)
-        else:
-            param_err = max(param_err, err)
+    param_err, stat_err = _state_dict_errs(cpu.model.state_dict(), gpu.model.state_dict())
     print(f"[train-cpu] base {base}, {size}², b{b}, f32, SGD, one step, same weights and "
           f"draws: losses max rel diff {loss_rel:.3g}; parameters max |diff| / leaf max "
           f"{param_err:.3g}; BN running stats {stat_err:.3g}", flush=True)
@@ -969,9 +1016,6 @@ def phase_mvtec(torch, np, report):
     by ``MVTecDataset``. Only the CLIs' ``main``s are not called: their plots
     need matplotlib, which the card's machine does not have. Returns the
     launch counts of each leg."""
-    import shutil
-    import tempfile
-
     from tpu_unet_torch.cli import test_mvtec, train_mvtec
     from tpu_unet_torch.data.mvtec import MVTecDataset
     from tpu_unet_torch.ops.kernels.int8_conv import conv3x3_int8
@@ -1404,12 +1448,36 @@ class _KeepPreds:
         return self.torch.cat(self.preds)[:n]
 
 
+class TestMode(collections.namedtuple("TestMode", "mode flags k2_per_batch ref limit")):
+    """One leg of a seg test path: its flags, K2's launches per test batch,
+    and the mode whose predictions it is held against (at most ``limit`` of
+    the pixels may differ), or None."""
+
+
+def seg_test_modes(k2_per_batch, extra=(), suffix="", limits=None):
+    """bf16, f32 --fold_bn and int8 test legs (with ``extra`` flags), the
+    two reduced precisions held against f32 --fold_bn within ``limits``
+    (SEG_MAX_DISAGREE by default)."""
+    limits = limits or SEG_MAX_DISAGREE
+    ref = "f32_fold_bn" + suffix
+    return [TestMode("bf16" + suffix, ["--precision", "bf16", *extra], 0, ref, limits["bf16"]),
+            TestMode(ref, ["--precision", "f32", "--fold_bn", *extra], 0, None, None),
+            TestMode("int8" + suffix, ["--precision", "bf16", "--quantize", "int8",
+                                       "--calib_samples", "32", *extra], k2_per_batch, ref,
+                     limits["int8"])]
+
+
 def _seg_dataset(torch, np, report_out, legs, name, train_mod, test_mod, data_root, tmp,
-                 epochs, test_modes):
+                 epochs, test_modes, model_flags=(), profile_epoch=None,
+                 flops_fn=None, checkpoint=None, loss_must_fall=False):
     """One dataset's seg path through the CLIs' functions: ``train_seg``
-    for ``epochs`` epochs with validation each (epoch 1 profiled when there
-    are 3), then the test path per mode. Returns the experiment directory,
-    the flags common to training and testing, and the datasets."""
+    for ``epochs`` epochs with validation each (``profile_epoch`` profiled),
+    then the test path per :class:`TestMode` on ``checkpoint`` (the last
+    epoch's by default). ``model_flags`` go to training and testing;
+    ``flops_fn(base, h, w, n_classes)`` is the model's forward FLOPs per
+    image (SegmentationUNet's by default); ``loss_must_fall``: the last
+    epoch's train loss must be below the first's. Returns the experiment
+    directory, the flags common to training and testing, and the datasets."""
     from tpu_unet_torch.cli import _seg_common as seg
     from tpu_unet_torch.ops.kernels.int8_conv import conv3x3_int8
     from tpu_unet_torch.ops.kernels.preprocess import normalize_u8
@@ -1418,7 +1486,7 @@ def _seg_dataset(torch, np, report_out, legs, name, train_mod, test_mod, data_ro
     kernels = (normalize_u8, conv3x3_int8)
     dev = torch.device("cuda")
     common = ["--data_root", data_root, "--batch_size", str(SEG_BATCH), "--num_workers", "4",
-              "--device", "cuda"]
+              "--device", "cuda", *model_flags]
     train_flags = common + ["--epochs", str(epochs), "--val_freq", "1", "--save_freq", "1",
                             "--save_dir", os.path.join(tmp, "runs")]
     args = train_mod.parse_args(train_flags)
@@ -1433,12 +1501,12 @@ def _seg_dataset(torch, np, report_out, legs, name, train_mod, test_mod, data_ro
     n_test = -(-len(test_ds) // SEG_BATCH)
 
     exp = os.path.join(tmp, "runs", name)
-    spans = _SegSpans(torch, kernels, profile_epoch=1 if epochs == 3 else None)
+    spans = _SegSpans(torch, kernels, profile_epoch=profile_epoch)
     results = seg.train_seg(args, workload, train_ds, val_ds, n_classes, dev, exp, span=spans)
     with open(os.path.join(exp, "results", "history.jsonl")) as f:
         hist = [json.loads(line) for line in f]
     check([h_["epoch"] for h_ in hist] == list(range(epochs)), f"{name} history {hist}")
-    flops = 3 * seg_forward_flops(args.base_features, h, w, n_classes) * SEG_BATCH
+    flops = 3 * (flops_fn or seg_forward_flops)(args.base_features, h, w, n_classes) * SEG_BATCH
     rows = []
     for e, hrow in enumerate(hist):
         tr, va = spans.rows["train", e], spans.rows["validate", e]
@@ -1465,21 +1533,27 @@ def _seg_dataset(torch, np, report_out, legs, name, train_mod, test_mod, data_ro
               f"{r['val_s']:.3f} s ({n_val} batches, K1 {va['normalize_u8']}x); loss "
               f"{r['total_loss']:.4f}, train mIoU {r['train_miou']:.4f}, val loss "
               f"{r['val_loss']:.4f}, val mIoU {r['val_miou']:.4f}", flush=True)
-    if epochs == 3:
-        check(rows[2]["total_loss"] < rows[0]["total_loss"],
-              f"{name}: epoch 2's train loss {rows[2]['total_loss']} is not below epoch 0's "
-              f"{rows[0]['total_loss']}")
-        p = spans.profile
-        prof_wall = 1e3 * rows[1]["train_s"]
-        out["idle"] = {"device_busy_ms": p["device_busy_ms"], "by_category_ms": p["by_category_ms"],
-                       "idle_share_profiled": 1 - p["device_busy_ms"] / prof_wall,
-                       "idle_share_vs_epoch2_wall": 1 - p["device_busy_ms"] / (1e3 * rows[2]["train_s"])}
-        print(f"[seg] {name} epoch 1 profiled: device busy {p['device_busy_ms']:.1f} ms of "
-              f"{prof_wall:.1f} ms, idle share {out['idle']['idle_share_profiled']:.4f}; against "
-              f"epoch 2's unprofiled {1e3 * rows[2]['train_s']:.1f} ms: "
-              f"{out['idle']['idle_share_vs_epoch2_wall']:.4f}; by category: "
-              + ", ".join(f"{c} {ms:.1f} ms" for c, ms in
-                          sorted(p["by_category_ms"].items(), key=lambda kv: -kv[1])), flush=True)
+    if loss_must_fall:
+        check(rows[-1]["total_loss"] < rows[0]["total_loss"],
+              f"{name}: the last epoch's train loss {rows[-1]['total_loss']} is not below "
+              f"epoch 0's {rows[0]['total_loss']}")
+    if profile_epoch is not None:
+        p, pe = spans.profile, profile_epoch
+        prof_wall = 1e3 * rows[pe]["train_s"]
+        out["idle"] = {"epoch": pe, "device_busy_ms": p["device_busy_ms"],
+                       "by_category_ms": p["by_category_ms"],
+                       "idle_share_profiled": 1 - p["device_busy_ms"] / prof_wall}
+        msg = ""
+        if pe + 1 < epochs:  # the next epoch runs unprofiled
+            wall = 1e3 * rows[pe + 1]["train_s"]
+            out["idle"]["idle_share_vs_next_epoch_wall"] = 1 - p["device_busy_ms"] / wall
+            msg = (f"; against epoch {pe + 1}'s unprofiled {wall:.1f} ms: "
+                   f"{out['idle']['idle_share_vs_next_epoch_wall']:.4f}")
+        print(f"[seg] {name} epoch {pe} profiled: device busy {p['device_busy_ms']:.1f} ms of "
+              f"{prof_wall:.1f} ms, idle share {out['idle']['idle_share_profiled']:.4f}{msg}; "
+              "by category: " + ", ".join(f"{c} {ms:.1f} ms" for c, ms in
+                                          sorted(p["by_category_ms"].items(),
+                                                 key=lambda kv: -kv[1])), flush=True)
     for wr in results["checkpoint_writes"]:
         print(f"[seg] {name} checkpoint {os.path.basename(wr['path'])}: {wr['bytes'] / 1e6:.1f} MB, "
               f"async write {wr['seconds']:.3f} s", flush=True)
@@ -1496,18 +1570,20 @@ def _seg_dataset(torch, np, report_out, legs, name, train_mod, test_mod, data_ro
     legs[f"seg_{name}_validate"] = spans.total("validate")
     torch.cuda.empty_cache()
 
-    # --- the test path on the last epoch's checkpoint ------------------------
-    last = os.path.join(ckpt, f"checkpoint_epoch_{epochs - 1}.pth")
+    # --- the test path on the checkpoint ----------------------------------------
+    last = os.path.join(ckpt, checkpoint or f"checkpoint_epoch_{epochs - 1}.pth")
+    check(os.path.exists(last), f"{name}: no checkpoint {last}")
     tests, preds = {}, {}
-    for mode, flags in test_modes:
+    for mode, flags, k2_per_batch, _, _ in test_modes:
         targs = test_mod.parse_args(common + flags + [
             "--checkpoint", last, "--output_dir", os.path.join(tmp, "test", name, mode)])
         seg.check_eval_flags(targs)
         normalize_u8.launches = conv3x3_int8.launches = 0
         t0 = time.perf_counter()
         loader = seg.make_eval_loader(targs, test_ds, dev)
+        quantized = targs.quantize == "int8"
         state, step, loss_cfg = seg.load_seg_model(targs, n_classes, dev,
-                                                   train_ds if mode == "int8" else None)
+                                                   train_ds if quantized else None)
         torch.cuda.synchronize()
         t1, calib_k1 = time.perf_counter(), normalize_u8.launches
         keep = _KeepPreds(torch, step)
@@ -1518,9 +1594,8 @@ def _seg_dataset(torch, np, report_out, legs, name, train_mod, test_mod, data_ro
         t3 = time.perf_counter()
         c = {"normalize_u8": normalize_u8.launches, "conv3x3_int8": conv3x3_int8.launches}
         legs[f"seg_{name}_test_{mode}"] = c
-        chunks = -(-min(len(train_ds), targs.calib_samples) // 8) if mode == "int8" else 0
-        want = {"normalize_u8": n_test + chunks,
-                "conv3x3_int8": 18 * n_test if mode == "int8" else 0}
+        chunks = -(-min(len(train_ds), targs.calib_samples) // 8) if quantized else 0
+        want = {"normalize_u8": n_test + chunks, "conv3x3_int8": k2_per_batch * n_test}
         check(c == want and calib_k1 == chunks,
               f"{name} test {mode} launched {c} (calibration K1 {calib_k1}x), want {want}")
         total = int(np.asarray(summary["confusion_matrix"]).sum())
@@ -1542,23 +1617,23 @@ def _seg_dataset(torch, np, report_out, legs, name, train_mod, test_mod, data_ro
                        "loss": losses, "confusion_matrix": summary["confusion_matrix"]}
         print(f"[seg] {name} test {mode}: {t3 - t0:.3f} s, {len(test_ds) / (t3 - t0):.1f} img/s "
               f"(load_model {t1 - t0:.3f} s"
-              f"{f' with calibration on {targs.calib_samples} images' if mode == 'int8' else ''}"
+              f"{f' with calibration on {targs.calib_samples} images' if quantized else ''}"
               f", device pass {t2 - t1:.3f} s, host metrics {t3 - t2:.3f} s); K1 "
               f"{c['normalize_u8']}x, K2 {c['conv3x3_int8']}x for {n_test} batches; mIoU "
               f"{om['mean_iou']:.4f}, mean Dice {om['mean_dice']:.4f}, pixel accuracy "
               f"{om['pixel_accuracy']:.4f}, loss {losses['total_loss']:.4f}", flush=True)
         del state, step, keep
         torch.cuda.empty_cache()
-    ref = "f32_fold_bn" if "f32_fold_bn" in preds else None
-    for mode in (m for m in preds if ref and m != ref):
+    for mode, _, _, ref, limit in test_modes:
+        if ref is None or ref not in preds:
+            continue
         differ = int((preds[mode] != preds[ref]).sum())
         share = differ / preds[ref].numel()
-        tests[mode]["pixel_agreement_vs_f32_fold_bn"] = 1 - share
-        print(f"[seg] {name} test {mode} against f32 --fold_bn: {differ} of "
-              f"{preds[ref].numel()} pixels differ ({share:.3g}, limit "
-              f"{SEG_MAX_DISAGREE[mode]})", flush=True)
-        check(share <= SEG_MAX_DISAGREE[mode], f"{name} {mode} predictions differ from f32's "
-                                               f"on {share:.3g} of pixels")
+        tests[mode][f"pixel_agreement_vs_{ref}"] = 1 - share
+        print(f"[seg] {name} test {mode} against {ref}: {differ} of "
+              f"{preds[ref].numel()} pixels differ ({share:.3g}, limit {limit})", flush=True)
+        check(share <= limit, f"{name} {mode} predictions differ from {ref}'s "
+                              f"on {share:.3g} of pixels")
     out["test"] = tests
     report_out[name] = out
     return exp, common, (train_ds, val_ds, test_ds, n_classes, workload)
@@ -1618,7 +1693,6 @@ def _seg_cpu_vs_card(torch, np, data_root, tmp):
     from tpu_unet_torch.cli import test_kolektorsdd, train_kolektorsdd
     from tpu_unet_torch.ops import quantize as tq
     from tpu_unet_torch.ops.augment import eval_transform
-    from tpu_unet_torch.ops.kernels.int8_conv import conv3x3_int8_plain
     from tpu_unet_torch.ops.kernels.preprocess import normalize_u8, normalize_u8_plain
     from tpu_unet_torch.ops.seg_head import sliced_argmax
     from tpu_unet_torch.train.loop import validate_seg_epoch
@@ -1669,14 +1743,12 @@ def _seg_cpu_vs_card(torch, np, data_root, tmp):
     # int8 at base 8 on the card, against the plain K1/K2 forward on the card
     _, step, p_int8, _, cm_int8 = test_path("cuda", ("--quantize", "int8"))
 
-    class PlainK2Exec(tq._QuantExec):
-        conv3x3 = staticmethod(conv3x3_int8_plain)
 
     plan = tq.build_plan("seg_unet")
     with torch.no_grad():
         x = images.cuda()
         card = tq._run(tq._QuantExec(step.qparams), normalize_u8(x), plan)
-        plain = tq._run(PlainK2Exec(step.qparams), normalize_u8_plain(x), plan)
+        plain = tq._run(plain_k2_exec(step.qparams), normalize_u8_plain(x), plan)
     same_logits = torch.equal(card.view(torch.int32), plain.view(torch.int32))
     same_preds = torch.equal(p_int8, sliced_argmax(plain).to(torch.uint8).cpu())
     print(f"[seg-cpu] base 8, 64x32, int8 (Cout 8 layers padded to 16 for K2): the test path's "
@@ -1689,51 +1761,296 @@ def _seg_cpu_vs_card(torch, np, data_root, tmp):
             "int8_base8_equal_plain": True}
 
 
-def phase_seg(torch, np, report):
+def phase_seg(torch, np, report, tmp):
     """Phase 9: the segmentation path at full width through the seg CLIs'
     own functions (``_seg_common.train_seg``; ``make_eval_loader``,
     ``load_seg_model``, ``train/loop.py::validate_seg_epoch`` and
     ``save_seg_results``, which is ``run_seg_evaluation`` without its plots)
     with flags from the CLIs' parsers, on synthetic KolektorSDD and Gear
-    trees written under TMPDIR and read by the port's datasets. Returns the
-    launch counts of each leg."""
-    import shutil
-    import tempfile
-
+    trees written under ``tmp`` (``ksdd``, ``gear``) and read by the port's
+    datasets. Returns the launch counts of each leg."""
     from tpu_unet_torch.cli import (test_gear, test_kolektorsdd, train_gear,
                                     train_kolektorsdd)
 
     print("[seg] through the CLIs' functions: _seg_common.train_seg; make_eval_loader, "
           "load_seg_model, validate_seg_epoch, save_seg_results (the test CLIs' plots are "
           "skipped: matplotlib is not installed on this machine)", flush=True)
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_seg_")
     legs, out = {}, {}
-    try:
-        t0 = time.perf_counter()
-        ksdd_root, gear_root = os.path.join(tmp, "ksdd"), os.path.join(tmp, "gear")
-        n_ksdd = write_kolektorsdd(np, ksdd_root)
-        n_gear = write_gear(np, gear_root)
-        out["synth_s"] = time.perf_counter() - t0
-        print(f"[seg] synthetic KolektorSDD: {KSDD_PARTS} parts of {KSDD_HW[1]}x{KSDD_HW[0]} in "
-              f"{KSDD_FOLDERS} folders, {KSDD_DEFECTIVE} defective ({n_ksdd / 1e6:.0f} MB); "
-              f"synthetic Gear: {sum(GEAR_SPLITS.values())} JPGs of {GEAR_SIZE}² "
-              f"({n_gear / 1e6:.0f} MB); written in {out['synth_s']:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    ksdd_root, gear_root = os.path.join(tmp, "ksdd"), os.path.join(tmp, "gear")
+    n_ksdd = write_kolektorsdd(np, ksdd_root)
+    n_gear = write_gear(np, gear_root)
+    out["synth_s"] = time.perf_counter() - t0
+    print(f"[seg] synthetic KolektorSDD: {KSDD_PARTS} parts of {KSDD_HW[1]}x{KSDD_HW[0]} in "
+          f"{KSDD_FOLDERS} folders, {KSDD_DEFECTIVE} defective ({n_ksdd / 1e6:.0f} MB); "
+          f"synthetic Gear: {sum(GEAR_SPLITS.values())} JPGs of {GEAR_SIZE}² "
+          f"({n_gear / 1e6:.0f} MB); written in {out['synth_s']:.1f} s", flush=True)
 
-        modes = (("bf16", ["--precision", "bf16"]),
-                 ("f32_fold_bn", ["--precision", "f32", "--fold_bn"]),
-                 ("int8", ["--precision", "bf16", "--quantize", "int8", "--calib_samples", "32"]))
-        exp, common, data = _seg_dataset(
-            torch, np, out, legs, "kolektorsdd", train_kolektorsdd, test_kolektorsdd,
-            ksdd_root, tmp, epochs=3, test_modes=modes)
-        _seg_resume(torch, np, out, legs, exp, train_kolektorsdd, common, data, tmp)
-        shutil.rmtree(os.path.join(tmp, "runs"))
-        out["kolektorsdd"]["cpu_vs_card"] = _seg_cpu_vs_card(torch, np, ksdd_root, tmp)
+    modes = seg_test_modes(18)
+    exp, common, data = _seg_dataset(
+        torch, np, out, legs, "kolektorsdd", train_kolektorsdd, test_kolektorsdd,
+        ksdd_root, tmp, epochs=3, test_modes=modes, profile_epoch=1, loss_must_fall=True)
+    _seg_resume(torch, np, out, legs, exp, train_kolektorsdd, common, data, tmp)
+    shutil.rmtree(os.path.join(tmp, "runs"))
+    out["kolektorsdd"]["cpu_vs_card"] = _seg_cpu_vs_card(torch, np, ksdd_root, tmp)
 
-        _seg_dataset(torch, np, out, legs, "gear", train_gear, test_gear, gear_root, tmp,
-                     epochs=1, test_modes=(modes[0], modes[2]))
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    _seg_dataset(torch, np, out, legs, "gear", train_gear, test_gear, gear_root, tmp,
+                 epochs=1, test_modes=(modes[0], modes[2]))
     report["main_path"]["seg"] = out
+    return legs
+
+
+# Phase 10's limits on the share of test pixels whose class differs from f32
+# --fold_bn's, set from a first H100 run of the phase, at about 5x what it
+# measured (UNet++ at heads 4: bf16 9.1e-6, int8 4.6e-5; the attention UNet:
+# 2.2e-7, 3.9e-6); for UNet++'s pruned head X[0][1] (bf16 9.8e-4, int8
+# 5.2e-3) the limits set before that run. The attention UNet's run after
+# its gate's stride-2 projection became a sampled 1x1 conv (other cuDNN
+# kernels, another trained model) measured 7.0e-7 and 1.69e-5.
+EXT_MAX_DISAGREE = {"gear_unetpp": {"bf16": 5e-5, "int8": 2.5e-4},
+                    "gear_unetpp_heads1": {"bf16": 5e-3, "int8": 1e-2},
+                    "kolektorsdd_attn": {"bf16": 2e-6, "int8": 2e-5}}
+
+
+def unetpp_forward_flops(base, h, w, n_classes, n_channels=3):
+    """Model FLOPs of one UNet++ forward with deep supervision (every node,
+    the four heads) on one h x w image: the 3x3 convs, the k2s2 level-ups
+    and the heads."""
+    convs = unetpp_convs(base, h, w)
+    total = sum(2 * 9 * hh * ww * cin * cout for hh, ww, cin, cout in convs)
+    total += 2 * 9 * h * w * (n_channels - 3) * base  # the first conv's other inputs
+    for j in range(1, 5):
+        for i in range(5 - j):
+            c = base * 2 ** i
+            total += 2 * (2 * c) * c * (h >> i) * (w >> i)
+    return total + 4 * 2 * base * n_classes * h * w
+
+
+def attn_forward_flops(base, h, w, n_classes, n_channels=3):
+    """Model FLOPs of one attention UNet forward: SegmentationUNet's and the
+    four gates' 1x1 projections at the coarse resolution."""
+    total = seg_forward_flops(base, h, w, n_classes, n_channels)
+    for level in range(1, 5):  # up4..up1 gate at levels 1..4 (coarse = level)
+        cg, cx = base * 2 ** level, base * 2 ** (level - 1)
+        f_int = max(1, cx // 2)
+        total += 2 * (cg + cx + 1) * f_int * (h >> level) * (w >> level)
+    return total
+
+
+def _ext_bilinear_serving(torch, np, out, legs):
+    """(c) AnomalyScorer(bilinear=True) at serving's default (base 64, 256²,
+    b128) in bf16 and int8 against f32: K1 once and K2 18 times per int8
+    batch, the int8 scores bit for bit against the plain K1/K2 forward."""
+    from tpu_unet_torch.metrics.anomaly import anomaly_score
+    from tpu_unet_torch.ops import quantize as tq
+    from tpu_unet_torch.ops.kernels.int8_conv import conv3x3_int8
+    from tpu_unet_torch.ops.kernels.preprocess import normalize_u8, normalize_u8_plain
+    from tpu_unet_torch.serve import AnomalyScorer
+
+    t0 = time.perf_counter()
+    state_dict = warm_anomaly_state_dict(torch, bilinear=True)
+    check(not any(k.endswith(".up.weight") for k in state_dict), "bilinear model has up convs")
+    kw = dict(image_size=256, batch_size=128, device="cuda", bilinear=True)
+    bf16 = AnomalyScorer.from_state_dict(state_dict, precision="bf16", **kw)
+    f32 = AnomalyScorer.from_state_dict(state_dict, precision="f32", **kw)
+    int8 = AnomalyScorer.from_state_dict(state_dict, quantize="int8",
+                                         calib_images=synth_images(torch, 32, 256, 21, "cuda"),
+                                         **kw)
+    images = synth_images(torch, 384, 256, 31, "cuda")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+
+    # --- the bilinear serving path: counters zeroed just before, read just after
+    normalize_u8.launches = conv3x3_int8.launches = 0
+    s_bf16 = bf16.score_array(images)
+    legs["serve_bilinear_bf16"] = {"normalize_u8": normalize_u8.launches,
+                                   "conv3x3_int8": conv3x3_int8.launches}
+    normalize_u8.launches = conv3x3_int8.launches = 0
+    s_int8 = int8.score_array(images)
+    legs["serve_bilinear_int8"] = {"normalize_u8": normalize_u8.launches,
+                                   "conv3x3_int8": conv3x3_int8.launches}
+    # ---------------------------------------------------------------------------
+    check(legs["serve_bilinear_bf16"] == {"normalize_u8": 3, "conv3x3_int8": 0}
+          and legs["serve_bilinear_int8"] == {"normalize_u8": 3, "conv3x3_int8": 54},
+          f"bilinear serving launched {legs} (want K1 3 and 3, K2 0 and 54)")
+
+
+    batch = torch.from_numpy(images[:128]).cuda()
+    with torch.inference_mode():
+        img = normalize_u8_plain(batch)
+        recon = tq._run(plain_k2_exec(int8.qparams), img,
+                        tq.build_plan("anomaly_unet", score_only=True))
+        s_plain = anomaly_score(recon, img).cpu().numpy()
+    del img, recon
+    n_diff = int((s_plain != s_int8[:128]).sum())
+    check(n_diff == 0, f"bilinear int8 scores differ from the plain K1/K2 forward ({n_diff})")
+    s_f32 = f32.score_array(images)
+    del f32
+    for name, sc in (("bf16", s_bf16), ("int8", s_int8), ("f32", s_f32)):
+        check(sc.shape == (384,) and np.isfinite(sc).all(), f"bilinear {name} scores")
+    r = {"setup_s": setup_s, "launches": {k: legs[k] for k in legs if k.startswith("serve")},
+         "int8_equal_plain_b128": True}
+    for name, sc in (("int8", s_int8), ("bf16", s_bf16)):
+        r[f"corr_{name}_f32"] = float(np.corrcoef(sc, s_f32)[0, 1])
+        r[f"median_rel_{name}_f32"] = float(np.median(np.abs(sc - s_f32) / np.abs(s_f32)))
+    r["throughput_img_per_s"] = {"bf16": bf16.throughput(n_batches=10),
+                                 "int8": int8.throughput(n_batches=10)}
+    print(f"[ext] bilinear AnomalyUNet 256² b128 serving: bf16 "
+          f"{r['throughput_img_per_s']['bf16']:.1f} img/s, int8 "
+          f"{r['throughput_img_per_s']['int8']:.1f} img/s; K1 3x and 3x, K2 0x and 54x for 3 "
+          f"batches; int8 scores bit for bit those of the plain K1/K2 forward; int8 vs f32 corr "
+          f"{r['corr_int8_f32']:.6f}, median rel diff {r['median_rel_int8_f32']:.2e}; bf16 vs "
+          f"f32 corr {r['corr_bf16_f32']:.6f}, median rel diff {r['median_rel_bf16_f32']:.2e} "
+          f"(set-up {setup_s:.1f} s)", flush=True)
+    # The main path's limits (about 5x its measured medians).
+    check(r["corr_int8_f32"] > 0.9999 and r["median_rel_int8_f32"] < 1.5e-3,
+          "bilinear int8 scores do not track f32 scores")
+    check(r["corr_bf16_f32"] > 0.9999 and r["median_rel_bf16_f32"] < 1e-3,
+          "bilinear bf16 scores do not track f32 scores")
+    out["bilinear_serving"] = r
+    del bf16, int8
+    torch.cuda.empty_cache()
+
+
+def _update_err(sd, ref, before):
+    """The relative L2 error of one step's parameter update against a
+    reference step's, over every parameter (BN statistics left out)."""
+    num = den = 0.0
+    for k, v0 in before.items():
+        if k.endswith(("num_batches_tracked", "running_mean", "running_var")):
+            continue
+        want = ref[k].cpu().double() - v0
+        num += float(((sd[k].cpu().double() - v0 - want) ** 2).sum())
+        den += float((want ** 2).sum())
+    return (num / den) ** 0.5
+
+
+def _ext_cpu_vs_card(torch, np):
+    """(d) Base 8 in f32: one seg train step of UNet++ with deep supervision
+    and of the attention UNet on the CPU and on the card from the same
+    weights and draws: the losses and BN statistics within phase 7's
+    tolerances. Their parameters are held against the same step in float64
+    on the CPU: these models' small BN gradients (UNet++'s deep nodes, the
+    gates' 1-channel bn2) make float32 round-off reach 1% of some leaves'
+    updates on either device, far beyond phase 7's per-leaf tolerance, so
+    the card's update must be as close to the float64 one as the CPU's
+    float32 update is (relative L2 error at most 3x the CPU's). Then the
+    int8 forwards of UNet++ (heads 4 and 1), the attention UNet and a
+    bilinear AnomalyUNet on the card, bit for bit against the same forwards
+    with K1's and K2's plain versions on the card."""
+    from tpu_unet_torch.core.precision import Policy
+    from tpu_unet_torch.models import build_model
+    from tpu_unet_torch.ops import quantize as tq
+    from tpu_unet_torch.ops.kernels.preprocess import normalize_u8, normalize_u8_plain
+    from tpu_unet_torch.train.state import create_train_state
+    from tpu_unet_torch.train.steps import AugmentConfig, SegLossConfig, make_seg_train_step
+
+    rng = np.random.default_rng(12)
+    b, size, base, c = 4, 64, 8, 3
+    images = rng.integers(0, 256, (b, size, size, 3), dtype=np.uint8)
+    labels = np.zeros((b, size, size), np.uint8)
+    for i in range(b):
+        for k in (1, 2):
+            y, x = rng.integers(0, size - 20, 2)
+            labels[i, y:y + 20, x:x + 20] = k
+    step = make_seg_train_step(c, SegLossConfig(class_weights=(1.0, 50.0, 50.0)),
+                               AugmentConfig(degrees=5.0))
+    f64 = Policy(param_dtype=torch.float64, compute_dtype=torch.float64,
+                 norm_dtype=torch.float64, output_dtype=torch.float64)
+    res, trained = {}, {}
+    for name, kw in (("unetpp", {"deep_supervision": True}), ("attn_unet", {})):
+        torch.manual_seed(4)
+        models = [build_model(name, n_classes=c, base_features=base, **kw) for _ in range(2)]
+        models.append(build_model(name, n_classes=c, base_features=base, policy=f64, **kw))
+        before = {k: v.double() for k, v in models[0].state_dict().items()}
+        for m in models[1:]:
+            m.load_state_dict(models[0].state_dict())
+        states = [create_train_state(models[0], "sgd", 0.05, 1e-4, device="cpu"),
+                  create_train_state(models[1], "sgd", 0.05, 1e-4, device="cuda"),
+                  create_train_state(models[2].double(), "sgd", 0.05, 1e-4, device="cpu")]
+        draws, keeps = step.draws(states[0].model, b, torch.Generator().manual_seed(6))
+        l_cpu, l_gpu, _ = [step.with_draws(st, images, labels, draws, keeps)[0] for st in states]
+        loss_rel = max(abs(float(l_gpu[k]) - float(l_cpu[k])) / abs(float(l_cpu[k]))
+                       for k in l_cpu)
+        sd_cpu, sd_gpu, sd_64 = [st.model.state_dict() for st in states]
+        param_err, stat_err = _state_dict_errs(sd_cpu, sd_gpu)
+        err_cpu, err_gpu = _update_err(sd_cpu, sd_64, before), _update_err(sd_gpu, sd_64, before)
+        print(f"[ext-cpu] {name} base {base}, {size}², b{b}, f32, SGD, one seg step, same "
+              f"weights and draws: losses max rel diff {loss_rel:.3g}; BN running stats "
+              f"{stat_err:.3g}; parameters max |diff| / leaf max {param_err:.3g}; the update "
+              f"against the float64 step's: card {err_gpu:.3g}, CPU {err_cpu:.3g} (rel L2)",
+              flush=True)
+        check(loss_rel <= 1e-5, f"{name}: CPU and card losses differ by {loss_rel:.3g} (rel)")
+        check(stat_err <= TRAIN_STAT_TOL, f"{name}: CPU and card BN statistics differ by "
+                                          f"{stat_err:.3g}")
+        check(err_gpu <= 3 * err_cpu, f"{name}: the card's update is {err_gpu:.3g} from the "
+                                      f"float64 step's, the CPU's {err_cpu:.3g}")
+        res[f"{name}_train_step"] = {"loss_max_rel": loss_rel, "param_max_rel_to_leaf": param_err,
+                                     "bn_stat_max_rel_to_leaf": stat_err,
+                                     "update_rel_l2_vs_f64_card": err_gpu,
+                                     "update_rel_l2_vs_f64_cpu": err_cpu}
+        trained[name] = sd_cpu
+
+
+    torch.manual_seed(5)
+    trained["anomaly_unet"] = build_model("anomaly_unet", base_features=base,
+                                          bilinear=True).state_dict()
+    calib = [rng.integers(0, 256, (8, size, size, 3), dtype=np.uint8)]
+    x = torch.from_numpy(images).cuda()
+    for arch, ds, heads in (("unetpp", True, 4), ("unetpp", True, 1), ("attn_unet", False, 4),
+                            ("anomaly_unet", False, 4)):
+        qp = tq.quantize_from_train_state(arch, trained[arch], calib, device="cuda",
+                                          deep_supervision=ds)
+        plan = tq.build_plan(arch, deep_supervision=ds, heads=heads)
+        with torch.no_grad():
+            card = tq._run(tq._QuantExec(qp), normalize_u8(x), plan)
+            plain = tq._run(plain_k2_exec(qp), normalize_u8_plain(x), plan)
+        card, plain = (card, plain) if isinstance(card, tuple) else ((card,), (plain,))
+        same = all(torch.equal(a.view(torch.int32), p.view(torch.int32))
+                   for a, p in zip(card, plain))
+        tag = f"{arch}{' heads ' + str(heads) if arch == 'unetpp' else ''}"
+        tag += " (bilinear)" if arch == "anomaly_unet" else ""
+        print(f"[ext-cpu] int8 {tag} base {base}, {size}², b{b} on the card: outputs "
+              f"{'equal' if same else 'DIFFER FROM'} those of the plain K1/K2 forward, bit for "
+              f"bit", flush=True)
+        check(same, f"int8 {tag} on the card differs from the plain K1/K2 forward")
+        res[f"int8_{arch}_heads{heads}_equal_plain"] = True
+    return res
+
+
+def phase_extensions(torch, np, report, tmp):
+    """Phase 10: the model extensions at full width. (a) UNet++ with deep
+    supervision on phase 9's synthetic Gear tree through the seg CLIs'
+    functions (train_gear's defaults: base 64, bf16, 512², b8, Adam 1e-3):
+    3 epochs (epoch 0 decodes cold, epoch 1 profiled, epoch 2 clean), then
+    the test path on best_model.pth in bf16, f32 --fold_bn and int8, at
+    --heads 4 and --heads 1 (K2 30 and 6 times per int8 batch). (b) The
+    attention UNet on the synthetic KolektorSDD tree at its defaults
+    (1024 x 512, b8), 3 epochs, tested in bf16, f32 --fold_bn and int8 (K2
+    18 times per batch, the gates in float). (c) Bilinear AnomalyUNet
+    serving. (d) The CPU against the card. Returns the launch counts of each
+    leg."""
+    from tpu_unet_torch.cli import test_gear, test_kolektorsdd, train_gear, train_kolektorsdd
+
+    shutil.rmtree(os.path.join(tmp, "runs"), ignore_errors=True)
+    legs, out = {}, {}
+    unetpp_modes = (seg_test_modes(30, limits=EXT_MAX_DISAGREE["gear_unetpp"])
+                    + seg_test_modes(6, extra=["--heads", "1"], suffix="_heads1",
+                                     limits=EXT_MAX_DISAGREE["gear_unetpp_heads1"]))
+    _seg_dataset(torch, np, out, legs, "gear_unetpp", train_gear, test_gear,
+                 os.path.join(tmp, "gear"), tmp, epochs=3, test_modes=unetpp_modes,
+                 model_flags=["--model", "unetpp", "--deep_supervision"], profile_epoch=1,
+                 flops_fn=unetpp_forward_flops, checkpoint="best_model.pth")
+    shutil.rmtree(os.path.join(tmp, "runs"))
+    _seg_dataset(torch, np, out, legs, "kolektorsdd_attn", train_kolektorsdd, test_kolektorsdd,
+                 os.path.join(tmp, "ksdd"), tmp, epochs=3,
+                 test_modes=seg_test_modes(18, limits=EXT_MAX_DISAGREE["kolektorsdd_attn"]),
+                 model_flags=["--model", "attn_unet"], profile_epoch=1,
+                 flops_fn=attn_forward_flops)
+    shutil.rmtree(os.path.join(tmp, "runs"))
+    _ext_bilinear_serving(torch, np, out, legs)
+    out["cpu_vs_card"] = _ext_cpu_vs_card(torch, np)
+    report["main_path"]["extensions"] = out
     return legs
 
 
@@ -1758,7 +2075,12 @@ def main():
     path_launches = {"serve": launches, **phase_train(torch, np, report)}
     phase_train_cpu_vs_card(torch, np, report)
     path_launches.update(phase_mvtec(torch, np, report))
-    path_launches.update(phase_seg(torch, np, report))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_seg_")
+    try:
+        path_launches.update(phase_seg(torch, np, report, tmp))
+        path_launches.update(phase_extensions(torch, np, report, tmp))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     k1, k2 = report["k1"], report["k2"]
     path_rows = [r for r in k2 if r["relu"]]
@@ -1792,8 +2114,9 @@ def main():
          "bound_ms_b8": sum(r["bound_ms"] for r in path_rows),
          "shape": "the 18 score-path convs at batch 128, summed",
          "seg": {name: {k: v for k, v in t.items() if k != "rows"} | {
-             "shape": f"the 18 SegmentationUNet convs at b{SEG_BATCH}, "
-                      f"{t['rows'][0]['h']}x{t['rows'][0]['w']}, summed"}
+             "shape": f"the {len(t['rows'])} "
+                      f"{'UNet++' if name.startswith('unetpp') else 'SegmentationUNet'} convs "
+                      f"at b{SEG_BATCH}, {t['rows'][0]['h']}x{t['rows'][0]['w']}, summed"}
              for name, t in report["k2_seg"].items()}},
     ]
     report["kernels"] = kernels

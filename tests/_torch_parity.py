@@ -67,23 +67,65 @@ def seg_batch(seed, n=4, h=64, w=32, num_classes=3):
 
 def jax_dropout_keep(apply_fn, variables, shape, k_drop):
     """The bottleneck dropout's (N, C5) keep mask that a JAX train-mode apply
-    of SegmentationUNet draws from dropout key ``k_drop`` for an input of
-    ``shape`` (N, H, W, 3), as a bool tensor.
+    of SegmentationUNet, AttentionUNet or UNetPlusPlus draws from dropout key
+    ``k_drop`` for an input of ``shape`` (N, H, W, 3), as a bool tensor.
 
     flax derives the mask from the key, the module path and the shape, not
     from the values, so it is read from one apply (``capture_intermediates``)
-    instead of drawn again: on zeros, with the bias of the encoder's last
-    BatchNorm raised so that every x5 value is positive, a channel is kept
-    exactly where ``bottleneck_dropout``'s output is nonzero."""
+    instead of drawn again: on zeros, with the bias of the bottleneck's last
+    BatchNorm (``encoder/down4/conv/bn2``, UNet++'s ``x4_0/bn2``) raised so
+    that every bottleneck value is positive, a channel is kept exactly where
+    ``bottleneck_dropout``'s output is nonzero."""
     params = jax.tree_util.tree_map(lambda x: x, variables["params"])
-    bn = params["encoder"]["down4"]["conv"]["bn2"]
-    params["encoder"]["down4"]["conv"]["bn2"] = {**bn, "bias": bn["bias"] + 1e3}
+    node = params["x4_0"] if "x4_0" in params else params["encoder"]["down4"]["conv"]
+    node["bn2"] = {**node["bn2"], "bias": node["bn2"]["bias"] + 1e3}
     _, mut = apply_fn({**variables, "params": params}, jnp.zeros(shape), train=True,
                       rngs={"dropout": k_drop}, mutable=["batch_stats", "intermediates"],
                       capture_intermediates=True)
     dropped = np.asarray(mut["intermediates"]["bottleneck_dropout"]["__call__"][0])
     return torch.from_numpy((dropped != 0).any(axis=(1, 2)))
 
+
+
+def run_recording(exc, x, plan):
+    """Drive an int8 executor of either package (``_QuantExec`` or
+    ``_CalibExec``) through a plan as its ``_run`` does, keeping every op's
+    output by name."""
+    env = {}
+    for op in plan:
+        kind = op[0]
+        if kind == "input":
+            env[op[1]] = exc.input(x)
+        elif kind == "double_conv":
+            env[op[1]] = exc.double_conv(env[op[2]], op[3])
+        elif kind == "maxpool":
+            env[op[1]] = exc.maxpool(env[op[2]])
+        elif kind == "up_block":
+            env[op[1]] = exc.up_block(env[op[2]], env[op[3]], op[4], gated=op[5])
+        elif kind == "fuse":
+            env[op[1]] = exc.fuse(env[op[2]], [env[r] for r in op[3]], op[4])
+        elif kind == "head":
+            env[op[1]] = exc.head(env[op[2]], op[3], op[4])
+        elif kind == "average":
+            outs = [env[r] for r in op[2]]
+            env[op[1]] = sum(outs) / len(outs)
+    return env
+
+
+def assert_int8_envs_equal(port_env, jax_env):
+    """Every int8 activation (and its scale) of two recorded runs bit for
+    bit, the float32 head outputs within 1e-5; returns the int8 count."""
+    n = 0
+    for key, want in jax_env.items():
+        if not isinstance(want, tuple):
+            np.testing.assert_allclose(port_env[key].numpy(), np.asarray(want), atol=1e-5,
+                                       err_msg=key)
+            continue
+        np.testing.assert_array_equal(port_env[key][0].numpy(), np.asarray(want[0]),
+                                      err_msg=key)
+        assert port_env[key][1].item() == float(want[1]), key
+        n += 1
+    return n
 
 
 @pytest.fixture(autouse=True, scope="module")

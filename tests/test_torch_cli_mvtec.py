@@ -234,20 +234,68 @@ def test_clis_default_to_cuda(mvtec_root, tmp_path):
     assert not os.listdir(tmp_path)  # raised before writing anything
 
 
+@pytest.fixture(scope="module")
+def bilinear_run(mvtec_root, tmp_path_factory):
+    """A bilinear AnomalyUNet trained by the CLI for one epoch; its last
+    checkpoint."""
+    exp = _train(mvtec_root, tmp_path_factory.mktemp("bilinear"), "--bilinear", "--epochs", "1")
+    return os.path.join(exp, "checkpoints", "checkpoint_epoch_0.pth")
+
+
 @pytest.mark.parametrize("flag", [
     ["--n_devices", "2"], ["--fsdp"], ["--n_model", "2"], ["--multihost"],
     ["--coordinator_address", "localhost:1234"], ["--num_processes", "2"],
     ["--process_id", "0"], ["--bilinear"]])
-def test_unported_train_flags_raise(mvtec_root, tmp_path, flag):
+def test_unported_train_flags_raise(mvtec_root, tmp_path, bilinear_run, flag):
+    """Multi-device flags raise NotImplementedError before anything is
+    written; ``--bilinear`` trains an AnomalyUNet whose decoders have no
+    transposed conv (the reference's bilinear layout, loaded strict)."""
+    if flag == ["--bilinear"]:
+        sd = torch.load(bilinear_run, weights_only=True)["model_state_dict"]
+        assert not any(k.endswith(".up.weight") for k in sd)
+        build_model("anomaly_unet", base_features=4, bilinear=True).load_state_dict(
+            sd, strict=True)
+        return
     with pytest.raises(NotImplementedError):
         _train(mvtec_root, tmp_path, *flag)
     assert not os.listdir(tmp_path)
 
 
 @pytest.mark.parametrize("flag", [["--n_devices", "2"], ["--bilinear"]])
-def test_unported_test_flags_raise(mvtec_root, tmp_path, flag):
-    with pytest.raises(NotImplementedError):
-        _test(mvtec_root, "x.pth", tmp_path, *flag)
+def test_unported_test_flags_raise(mvtec_root, tmp_path, bilinear_run, flag):
+    """``--n_devices`` raises NotImplementedError; ``--bilinear`` evaluates
+    the bilinear checkpoint end to end (6 test images scored)."""
+    if flag[0] == "--n_devices":
+        with pytest.raises(NotImplementedError):
+            _test(mvtec_root, "x.pth", tmp_path, *flag)
+        return
+    ev = _test(mvtec_root, bilinear_run, tmp_path, "--precision", "f32", *flag)
+    with open(tmp_path / "bottle_test_results" / "detailed_results.json") as f:
+        assert len(json.load(f)["anomaly_scores"]) == 6
+    assert all(0.0 <= v <= 1.0 for v in ev["image_metrics"].values())
+
+
+@pytest.mark.parametrize("mode", [["--fold_bn"], ["--quantize", "int8"]])
+def test_bilinear_test_modes(mvtec_root, bilinear_run, tmp_path, monkeypatch, mode):
+    """The bilinear AnomalyUNet's test path with folded BN [rtol 1e-5] and in
+    int8 [rtol 0.1, as test_test_cli_modes holds the ladder] scores as the
+    f32 model does; the int8 path runs K2 26 times per batch (both
+    decoders, the upsamples as float islands)."""
+    from tpu_unet_torch.ops import quantize as tq
+
+    calls = []
+    real = tq._QuantExec.conv3x3
+    monkeypatch.setattr(tq._QuantExec, "conv3x3",
+                        staticmethod(lambda *a, **kw: calls.append(1) or real(*a, **kw)))
+    scores = {}
+    for name, extra in (("plain", []), ("mode", mode)):
+        _test(mvtec_root, bilinear_run, tmp_path / name, "--precision", "f32", "--bilinear",
+              *extra)
+        with open(tmp_path / name / "bottle_test_results" / "detailed_results.json") as f:
+            scores[name] = json.load(f)["anomaly_scores"]
+    assert len(calls) == (26 * 2 if mode[0] == "--quantize" else 0)  # 6 images, batches of 4
+    np.testing.assert_allclose(scores["mode"], scores["plain"],
+                               rtol=1e-5 if mode == ["--fold_bn"] else 0.1)
 
 
 def test_unknown_category_returns_none(mvtec_root, tmp_path):

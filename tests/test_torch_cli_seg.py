@@ -69,6 +69,12 @@ def trained(ksdd_root, tmp_path_factory):
     return _train(ksdd_root, tmp_path_factory.mktemp("outputs"), "--progress_every", "1")
 
 
+def _n_test(ksdd_root):
+    """The test split's size at these flags."""
+    args = test_kolektorsdd.parse_args(["--data_root", ksdd_root, "--checkpoint", "x", *KSDD])
+    return len(test_kolektorsdd.make_workload().make_datasets(args)[2])
+
+
 def _json(*parts):
     with open(os.path.join(*parts)) as f:
         return json.load(f)
@@ -230,21 +236,126 @@ def test_clis_default_to_cuda(ksdd_root, gear_root, tmp_path):
     assert not os.listdir(tmp_path)  # raised before writing anything
 
 
+# The model variants of the JAX package's seg CLIs, each trained for one
+# epoch: UNet++ with deep supervision, the attention UNet and a bilinear
+# SegmentationUNet.
+VARIANTS = {"unetpp_ds": ["--model", "unetpp", "--deep_supervision"],
+            "attn_unet": ["--model", "attn_unet"],
+            "bilinear": ["--bilinear"]}
+
+
+@pytest.fixture(scope="module")
+def variant_runs(ksdd_root, tmp_path_factory):
+    """{variant: its epoch-0 checkpoint}, trained by the CLI on first use."""
+    out = tmp_path_factory.mktemp("variants")
+    cache = {}
+
+    def get(name):
+        if name not in cache:
+            exp = _train(ksdd_root, out / name, "--epochs", "1", *VARIANTS[name])
+            cache[name] = os.path.join(exp, "checkpoints", "checkpoint_epoch_0.pth")
+        return cache[name]
+
+    return get
+
+
 @pytest.mark.parametrize("flag", [
     ["--n_devices", "2"], ["--n_space", "2"], ["--fsdp"], ["--n_model", "2"], ["--multihost"],
     ["--coordinator_address", "localhost:1234"], ["--num_processes", "2"],
     ["--process_id", "0"], ["--bilinear"], ["--deep_supervision"]])
-def test_unported_train_flags_raise(ksdd_root, tmp_path, flag):
-    with pytest.raises(NotImplementedError):
+def test_unported_train_flags_raise(ksdd_root, tmp_path, variant_runs, flag):
+    """Multi-device flags raise NotImplementedError before anything is
+    written. ``--bilinear`` trains (a checkpoint with no transposed conv and
+    the reference's bilinear widths); ``--deep_supervision`` without
+    ``--model unetpp`` raises the JAX package's ValueError, also before
+    anything is written."""
+    if flag == ["--bilinear"]:
+        sd = torch.load(variant_runs("bilinear"), weights_only=True)["model_state_dict"]
+        assert not any(k.endswith(".up.weight") for k in sd)
+        build_model("seg_unet", n_classes=3, base_features=4, bilinear=True).load_state_dict(
+            sd, strict=True)
+        return
+    with pytest.raises(ValueError if flag == ["--deep_supervision"] else NotImplementedError):
         _train(ksdd_root, tmp_path, *flag)
     assert not os.listdir(tmp_path)
 
 
 @pytest.mark.parametrize("flag", [["--n_devices", "2"], ["--n_space", "2"], ["--bilinear"],
                                   ["--heads", "2"], ["--model", "unetpp"]])
-def test_unported_test_flags_raise(ksdd_root, tmp_path, flag):
-    with pytest.raises(NotImplementedError):
-        _test(ksdd_root, "x.pth", tmp_path, *flag)
+def test_unported_test_flags_raise(ksdd_root, tmp_path, variant_runs, flag):
+    """Multi-device flags raise NotImplementedError; ``--heads`` without
+    UNet++'s deep supervision raises the JAX package's ValueError. The
+    bilinear decoder and UNet++ (pruned to head X[0][2]) now evaluate their
+    checkpoints end to end."""
+    if flag == ["--bilinear"]:
+        summary = _test(ksdd_root, variant_runs("bilinear"), tmp_path, *flag)
+    elif flag == ["--model", "unetpp"]:
+        summary = _test(ksdd_root, variant_runs("unetpp_ds"), tmp_path, *flag,
+                        "--deep_supervision", "--heads", "2")
+    else:
+        with pytest.raises(ValueError if flag[0] == "--heads" else NotImplementedError):
+            _test(ksdd_root, "x.pth", tmp_path, *flag)
+        return
+    assert _json(tmp_path, "evaluation_results.json")["overall_metrics"] == \
+        summary["overall_metrics"]
+    assert np.asarray(summary["confusion_matrix"]).sum() == _n_test(ksdd_root) * 64 * 32
+
+
+@pytest.mark.parametrize("variant,mode,k2_per_batch", [
+    ("unetpp_ds", ["--heads", "4"], 0), ("unetpp_ds", ["--quantize", "int8"], 30),
+    ("unetpp_ds", ["--quantize", "int8", "--heads", "1"], 6),
+    ("attn_unet", ["--fold_bn"], 0), ("attn_unet", ["--quantize", "int8"], 18),
+    ("bilinear", ["--quantize", "int8"], 18)])
+def test_model_variants_test_path(ksdd_root, variant_runs, tmp_path, monkeypatch, variant,
+                                  mode, k2_per_batch):
+    """The test CLI on each variant's checkpoint in f32, folded BN and int8
+    (calibrated over every UNet++ node whatever ``--heads``): a confusion
+    matrix over every test pixel, metrics in [0, 1]; K2 (the int8 path's
+    conv3x3) runs 30 times per batch for UNet++ at heads 4, 6 at heads 1,
+    18 for the attention UNet and the bilinear SegmentationUNet. Float
+    modes stay within 1e-6 of the plain f32 run's metrics (folded BN)."""
+    from tpu_unet_torch.ops import quantize as tq
+
+    calls = []
+    real = tq._QuantExec.conv3x3
+    monkeypatch.setattr(tq._QuantExec, "conv3x3",
+                        staticmethod(lambda *a, **kw: calls.append(1) or real(*a, **kw)))
+    flags = [f for f in VARIANTS[variant] if f != "--deep_supervision"] + (
+        ["--deep_supervision"] if variant == "unetpp_ds" else [])
+    summary = _test(ksdd_root, variant_runs(variant), tmp_path, *flags, *mode)
+    n_test = _n_test(ksdd_root)
+    assert len(calls) == k2_per_batch * -(-n_test // 2)  # batches of 2, the last padded
+    assert np.asarray(summary["confusion_matrix"]).sum() == n_test * 64 * 32
+    assert all(0.0 <= v <= 1.0 for v in summary["overall_metrics"].values())
+    if mode == ["--fold_bn"]:
+        plain = _test(ksdd_root, variant_runs(variant), tmp_path / "plain", *flags)
+        for k, v in plain["overall_metrics"].items():
+            assert abs(summary["overall_metrics"][k] - v) <= 1e-6, k
+
+
+@pytest.mark.parametrize("variant,extra", [("unetpp_ds", ["--heads", "2"]),
+                                           ("attn_unet", [])])
+def test_variant_test_path_matches_the_jax_evaluator(ksdd_root, variant_runs, tmp_path,
+                                                     monkeypatch, variant, extra):
+    """The JAX evaluator on the same weights (UNet++ pruned to head X[0][2],
+    the attention UNet): the confusion matrix [exact], every metric [1e-6]
+    and the loss [rtol 1e-5]."""
+    ckpt = variant_runs(variant)
+    flags = VARIANTS[variant] + extra
+    got = _test(ksdd_root, ckpt, tmp_path / "port", *flags)
+    sd = torch.load(ckpt, weights_only=True)["model_state_dict"]
+    params, stats = jax_trees_from_state_dict(sd, model=flags[1])
+    monkeypatch.setattr(jax_seg_common, "load_params",
+                        lambda state, path: state.replace(params=params, batch_stats=stats))
+    jax_test_ksdd.main(["--data_root", ksdd_root, "--checkpoint", ckpt, "--output_dir",
+                        str(tmp_path / "jax"), "--device", "cpu", "--n_devices", "1", *KSDD,
+                        *[a for a in SMALL if a not in ("--device", "cpu")], *flags])
+    want = _json(tmp_path / "jax", "evaluation_results.json")
+    np.testing.assert_array_equal(got["confusion_matrix"], want["confusion_matrix"])
+    for k, v in want["overall_metrics"].items():
+        assert abs(got["overall_metrics"][k] - v) <= 1e-6, k
+    for k, v in want["loss"].items():
+        np.testing.assert_allclose(got["loss"][k], v, rtol=1e-5, err_msg=k)
 
 
 def test_grad_accum_and_class_weights_are_checked(ksdd_root, tmp_path):

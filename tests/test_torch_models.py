@@ -12,6 +12,7 @@ import pytest
 import torch
 
 import tpu_unet.models as jm
+from tpu_unet.models.attention import AttentionUNet as JaxAttentionUNet
 from tpu_unet.ops.augment import eval_transform as jax_eval_transform
 from tpu_unet_torch.models import build_model
 from tpu_unet_torch.ops.fold_bn import fold_batchnorm
@@ -86,6 +87,56 @@ def test_eval_forward_parity_with_jax(name):
                                    atol=1e-3)
 
 
+_JAX_BILINEAR = {
+    "unet": lambda: jm.UNet(n_classes=1, base_features=BASE, bilinear=True),
+    "seg_unet": lambda: jm.SegmentationUNet(n_classes=4, base_features=BASE, bilinear=True),
+    "anomaly_unet": lambda: jm.AnomalyUNet(base_features=BASE, bilinear=True),
+    "attn_unet": lambda: JaxAttentionUNet(n_classes=4, base_features=BASE, bilinear=True),
+}
+
+
+@pytest.mark.parametrize("name", ["unet", "seg_unet", "anomaly_unet", "attn_unet"])
+def test_bilinear_eval_forward_parity_with_jax(name):
+    """Bilinear decoders (align-corners upsample, ``factor`` 2 widths, no
+    ``up`` parameters), at an H != W size that pads the upsample: the
+    parameter count equals JAX's, the eval forward within 1e-3, and
+    score_forward is the reconstruction."""
+    jax_model = _JAX_BILINEAR[name]()
+    shape = (2, 36, 28, 3)
+    v = warmed_variables(jax_model, key=4, shape=shape, steps=1)
+    x = np.array(jax_eval_transform(jnp.asarray(u8_images(6, shape))))
+    ref = jax_model.apply(v, jnp.asarray(x), train=False)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    model = build_model(name, n_classes=_CLASSES.get(name, 4), base_features=BASE,
+                        bilinear=True)
+    model.load_state_dict(state_dict_from_jax(v["params"], v["batch_stats"], model=name,
+                                              bilinear=True))
+    assert sum(p.numel() for p in model.parameters()) == sum(
+        a.size for a in jax.tree_util.tree_leaves(v["params"]))
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2)
+    with torch.no_grad():
+        out = model.eval()(xt)
+        out = out if isinstance(out, tuple) else (out,)
+        if name == "anomaly_unet":
+            assert torch.equal(model.score_forward(xt), out[0])
+    for o, r in zip(out, ref):
+        np.testing.assert_allclose(o.permute(0, 2, 3, 1).numpy(), np.asarray(r), atol=1e-3)
+
+
+def test_reference_bilinear_pth_loads_strict(tmp_path):
+    """A reference-layout bilinear checkpoint (``upK.conv.double_conv.*``, no
+    ``upK.up.*``, mid width in // 2) loads with strict=True."""
+    from tpu_unet_torch.utils.weights import load_reference_checkpoint
+
+    sd = build_model("unet", n_classes=1, base_features=BASE, bilinear=True).state_dict()
+    assert not any(".up." in k for k in sd)
+    assert sd["up1.conv.double_conv.0.weight"].shape == (8 * BASE, 16 * BASE, 3, 3)
+    path = str(tmp_path / "ref.pth")
+    torch.save({"model_state_dict": sd, "epoch": 3}, path)
+    fresh = build_model("unet", n_classes=1, base_features=BASE, bilinear=True)
+    fresh.load_state_dict(load_reference_checkpoint(path), strict=True)
+
+
 def test_score_forward_is_the_recon_output(anomaly_variables):
     model = port_model("anomaly_unet", anomaly_variables)
     x = torch.randn(2, 3, 32, 32, generator=torch.Generator().manual_seed(0))
@@ -137,10 +188,20 @@ def test_bf16_policy_forward_tracks_f32(anomaly_variables):
 
 
 def test_unported_variants_raise():
-    with pytest.raises(NotImplementedError):
-        build_model("anomaly_unet", bilinear=True)
-    with pytest.raises(NotImplementedError):
-        build_model("unetpp")
+    """Every variant of the JAX package's build_model builds (bilinear
+    ladders, UNet++, the attention UNet), and the JAX package's ValueErrors
+    hold: deep supervision or ``heads`` outside UNet++ with deep
+    supervision, and an unknown model."""
+    assert not any(k.endswith(".up.weight")
+                   for k in build_model("anomaly_unet", bilinear=True).state_dict())
+    assert type(build_model("unetpp")).__name__ == "UNetPlusPlus"
+    assert type(build_model("attn_unet")).__name__ == "AttentionUNet"
+    with pytest.raises(ValueError, match="deep_supervision"):
+        build_model("seg_unet", deep_supervision=True)
+    with pytest.raises(ValueError, match="heads"):
+        build_model("unetpp", heads=2)
+    with pytest.raises(ValueError, match="heads"):
+        build_model("unetpp", deep_supervision=True, heads=5)
     with pytest.raises(ValueError):
         build_model("resnet")
 

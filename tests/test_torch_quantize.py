@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_parity import run_recording
 from tests.test_torch_models import u8_images, warmed_variables
 from tpu_unet.models import AnomalyUNet, UNet
 from tpu_unet.ops import quantize as jq
@@ -96,35 +97,17 @@ def test_quantize_model_gives_jax_kernels_and_scales(setup):
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
-def _run_recording(exc, x, plan):
-    """tq._run / jq._run, keeping every op's output."""
-    env = {}
-    for op in plan:
-        kind = op[0]
-        if kind == "input":
-            env[op[1]] = exc.input(x)
-        elif kind == "double_conv":
-            env[op[1]] = exc.double_conv(env[op[2]], op[3])
-        elif kind == "maxpool":
-            env[op[1]] = exc.maxpool(env[op[2]])
-        elif kind == "up_block":
-            env[op[1]] = exc.up_block(env[op[2]], env[op[3]], op[4], gated=op[5])
-        elif kind == "head":
-            env[op[1]] = exc.head(env[op[2]], op[3], op[4])
-    return env
-
-
 def test_int8_forward_matches_jax_bit_for_bit(setup):
     """qparams carried across: every int8 activation of the plan is bit-exact
     (no 1-LSB tie flips), and the f32 heads agree within 1e-5."""
     images = u8_images(20)
     plan = jq.build_plan("anomaly_unet")
     assert tq.build_plan("anomaly_unet") == plan
-    jenv = _run_recording(jq._QuantExec(setup["jqp"]),
+    jenv = run_recording(jq._QuantExec(setup["jqp"]),
                           jax_eval_transform(jnp.asarray(images)), plan)
     port_q = qparams_from_numpy(setup["jqp"])
     from tpu_unet_torch.ops.augment import eval_transform
-    tenv = _run_recording(tq._QuantExec(port_q), eval_transform(torch.from_numpy(images)),
+    tenv = run_recording(tq._QuantExec(port_q), eval_transform(torch.from_numpy(images)),
                           plan)
     n_int8 = 0
     for key, want in jenv.items():
@@ -154,6 +137,36 @@ def test_unet_int8_forward_matches_jax():
     want = jq.make_quantized_forward("unet")(jqp, jnp.asarray(images))
     got = tq.make_quantized_forward("unet")(qparams_from_numpy(jqp), torch.from_numpy(images))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+
+
+def test_bilinear_anomaly_int8_matches_jax_op_by_op():
+    """A bilinear AnomalyUNet (no ``up`` leaves: the upsample is a float
+    island requantized to the concat scale): the port's calibration tags
+    within 1e-4, every int8 activation of the full and the score-only plan
+    bit for bit against JAX's ``_QuantExec``, the heads within 1e-5."""
+    from _torch_parity import assert_int8_envs_equal
+
+    v = warmed_variables(AnomalyUNet(base_features=4, bilinear=True), key=8)
+    jf = jax.device_get(jq.full_fold(v["params"], v["batch_stats"]))
+    calib = [u8_images(40 + i) for i in range(2)]
+    absmax = jq.calibrate_absmax("anomaly_unet", jf, calib)
+    sd = state_dict_from_jax(v["params"], v["batch_stats"], bilinear=True)
+    got = tq.calibrate_absmax("anomaly_unet", tq.full_fold(sd), calib)
+    assert set(got) == set(absmax)
+    for tag, want in absmax.items():
+        assert got[tag] == pytest.approx(want, rel=1e-4), tag
+    jqp = jax.device_get(jq.quantize_model("anomaly_unet", jf, absmax))
+    port_q = qparams_from_numpy(jqp)
+    assert "up" not in port_q["layers"]["decoder_recon"]["up_recon1"]
+    from tpu_unet_torch.ops.augment import eval_transform
+    images = u8_images(41)
+    plan = jq.build_plan("anomaly_unet")
+    jenv = run_recording(jq._QuantExec(jqp), jax_eval_transform(jnp.asarray(images)), plan)
+    tenv = run_recording(tq._QuantExec(port_q), eval_transform(torch.from_numpy(images)), plan)
+    assert assert_int8_envs_equal(tenv, jenv) == 18
+    recon = tq.make_quantized_forward("anomaly_unet", score_only=True)(
+        port_q, torch.from_numpy(images))
+    assert torch.equal(recon, tenv["out/outc_recon"])
 
 
 def test_jax_qparams_file_loads_in_the_port(setup, tmp_path):
@@ -200,8 +213,10 @@ def test_chunk_calibration_and_unported_archs():
     assert len(tq.chunk_calibration(np.zeros((5, 4, 4, 3), np.uint8), 16)[0]) == 5
     with pytest.raises(ValueError):
         tq.chunk_calibration(np.zeros((0, 4, 4, 3), np.uint8))
-    with pytest.raises(NotImplementedError):
-        tq.build_plan("unetpp")
+    # UNet++'s plan is the JAX package's, node for node; its heads are checked
+    assert tq.build_plan("unetpp") == jq.build_plan("unetpp")
+    with pytest.raises(ValueError, match="heads"):
+        tq.build_plan("unetpp", deep_supervision=True, heads=0)
     with pytest.raises(ValueError):
         tq.build_plan("resnet")
 
@@ -236,12 +251,12 @@ def test_padded_widths_equal_the_unpadded_path(base, n, hw, monkeypatch):
     x = eval_transform(torch.from_numpy(u8_images(70 + base, (n, hw, hw, 3))))
     plan = tq.build_plan("seg_unet")
     padded = tq._QuantExec(qp)
-    got = _run_recording(padded, x, plan)
+    got = run_recording(padded, x, plan)
     assert padded._consts["encoder/inc/conv1"]["kernel"].shape == (16, 32)  # Cout 8/12 -> 16
     assert padded._consts["outc/conv"]["kernel"].shape[0] % 8 == 0
     monkeypatch.setattr(tq, "_int_matmul", lambda x2d, k, n_out: (
         x2d.to(torch.int64) @ k.to(torch.int64)).to(torch.int32)[:, :n_out])
-    want = _run_recording(_UnpaddedExec(qp), x, plan)
+    want = run_recording(_UnpaddedExec(qp), x, plan)
     assert set(got) == set(want)
     for key, w in want.items():
         if key.startswith("out/"):

@@ -266,5 +266,5 @@ def test_quantized_seg_eval_step_matches_the_op_by_op_path(monkeypatch):
                  sample_weight=jnp.asarray(valid), **LOSS.kwargs())
     for k in want:
         np.testing.assert_allclose(float(tl[k]), float(want[k]), rtol=1e-5, err_msg=k)
-    with pytest.raises(NotImplementedError):
-        make_quantized_seg_eval_step(c, deep_supervision=True)
+    with pytest.raises(ValueError, match="heads"):  # JAX's check of UNet++'s head
+        make_quantized_seg_eval_step(c, arch="unetpp", deep_supervision=True, heads=5)

@@ -1,6 +1,8 @@
 """The port's segmentation train and eval steps (tpu_unet_torch/train/steps.py),
 and SegmentationUNet's train mode against the JAX package's,
-on the CPU at base_features=4, KolektorSDD-like 64 x 32 batches.
+on the CPU at base_features=4, KolektorSDD-like 64 x 32 batches; and the
+step on UNet++ with deep supervision (the mean of the four heads' losses)
+and on the attention UNet.
 
 Both packages start from the same seeded weights and see the same augment
 draws (``_torch_parity.jax_draws``) and the same bottleneck dropout mask,
@@ -36,32 +38,41 @@ KSDD_AUG = AugmentConfig(degrees=5.0, brightness=0.1, contrast=0.1, saturation=0
 KSDD_LOSS = SegLossConfig(class_weights=(1.0, 50.0, 50.0))
 
 
+# The port's build_model arguments of each model the steps are held on.
+_MODELS = {"seg_unet": ("seg_unet", {}),
+           "unetpp_ds": ("unetpp", {"deep_supervision": True}),
+           "attn_unet": ("attn_unet", {})}
+
+
 @functools.lru_cache(maxsize=None)
-def _init(c):
+def _init(c, model="seg_unet"):
+    name, kw = _MODELS[model]
     with torch.random.fork_rng():
         torch.manual_seed(0)
-        sd = build_model("seg_unet", n_classes=c, base_features=BASE).state_dict()
-    params, stats = jax_trees_from_state_dict(sd, model="seg_unet")
+        sd = build_model(name, n_classes=c, base_features=BASE, **kw).state_dict()
+    params, stats = jax_trees_from_state_dict(sd, model=name)
     return params, stats
 
 
-def _jax_model(c):
-    return jmodels.SegmentationUNet(n_classes=c, base_features=BASE)
+def _jax_model(c, model="seg_unet"):
+    return jmodels.build_model(_MODELS[model][0], n_classes=c, base_features=BASE,
+                               **_MODELS[model][1])
 
 
-def _jax_state(c):
-    params, stats = _init(c)
-    return JaxTrainState.create(apply_fn=_jax_model(c).apply, params=params,
+def _jax_state(c, model="seg_unet"):
+    params, stats = _init(c, model)
+    return JaxTrainState.create(apply_fn=_jax_model(c, model).apply, params=params,
                                 batch_stats=stats, tx=jax_optimizer("sgd", LR, 1e-4))
 
 
-def _port_state(jstate, c, precision="f32"):
+def _port_state(jstate, c, precision="f32", model="seg_unet"):
     from tpu_unet_torch.core.precision import get_policy
-    model = build_model("seg_unet", n_classes=c, base_features=BASE,
-                        policy=get_policy(precision))
+    name, kw = _MODELS[model]
+    net = build_model(name, n_classes=c, base_features=BASE, policy=get_policy(precision),
+                      **kw)
     params, stats = jax.device_get((jstate.params, jstate.batch_stats))
-    model.load_state_dict(state_dict_from_jax(params, stats, model="seg_unet"))
-    return create_train_state(model, "sgd", LR, 1e-4, device="cpu")
+    net.load_state_dict(state_dict_from_jax(params, stats, model=name, **kw))
+    return create_train_state(net, "sgd", LR, 1e-4, device="cpu")
 
 
 def _pairs(a, b, path=""):
@@ -87,16 +98,16 @@ def _jax_micro_draws(jstate, images, key, aug, grad_accum):
     return draws, keeps
 
 
-def _step_pair(c, grad_accum, with_confusion, aug, loss, seed, hw=(64, 32)):
+def _step_pair(c, grad_accum, with_confusion, aug, loss, seed, hw=(64, 32), model="seg_unet"):
     images, labels = seg_batch(seed, n=4, h=hw[0], w=hw[1], num_classes=c)
     key = jax.random.key(seed)
-    jstate = _jax_state(c)
+    jstate = _jax_state(c, model)
     new_j, jl, jcm = jax_train_step(c, loss, aug, with_confusion=with_confusion,
                                     donate_state=False, grad_accum=grad_accum)(
         jstate, jnp.asarray(images), jnp.asarray(labels), key)
     draws, keeps = _jax_micro_draws(jstate, images, key, aug, grad_accum)
     assert all(0 < int(k.sum()) < k.numel() for k in keeps)  # some channels dropped
-    state = _port_state(jstate, c)
+    state = _port_state(jstate, c, model=model)
     tl, tcm = make_seg_train_step(c, loss, aug, with_confusion=with_confusion,
                                   grad_accum=grad_accum).with_draws(state, images, labels,
                                                                     draws, keeps)
@@ -154,6 +165,33 @@ def test_grad_accum_matches_jax_scan():
     for path, v, ref in _pairs(stats, jax.device_get(new_j.batch_stats)):
         np.testing.assert_allclose(v, ref, rtol=1e-5, atol=1e-6, err_msg=path)
     assert state.model.inc.double_conv[1].num_batches_tracked == 2
+
+
+@pytest.mark.parametrize("model,grad_accum", [("unetpp_ds", 1), ("unetpp_ds", 2),
+                                              ("attn_unet", 1)])
+def test_deep_supervision_and_attention_steps_match_jax(model, grad_accum):
+    """One f32 SGD step of UNet++ with deep supervision (one loss per head,
+    averaged key by key; the confusion matrix from the deepest head;
+    UNet++'s x4_0 dropout mask) with and without grad_accum, and of the
+    attention UNet (12 more BNs in its gates): the losses to 1e-5 relative,
+    the matrix exactly, the parameters to 1e-6 and the statistics as
+    test_grad_accum_matches_jax_scan holds them."""
+    pair = _step_pair(3, grad_accum, True, KSDD_AUG, KSDD_LOSS, seed=5, hw=(32, 32),
+                      model=model)
+    (new_j, jl, jcm), (state, tl, tcm) = pair["jax"], pair["port"]
+    assert set(tl) == set(jl) == {"ce_loss", "dice_loss", "total_loss"}
+    for k in tl:
+        np.testing.assert_allclose(float(tl[k]), float(jl[k]), rtol=1e-5, err_msg=k)
+    np.testing.assert_array_equal(tcm.numpy(), np.asarray(jcm))
+    params, stats = jax_trees_from_state_dict(state.model.state_dict(),
+                                              model=_MODELS[model][0])
+    n = 0
+    for path, p, ref in _pairs(params, jax.device_get(new_j.params)):
+        np.testing.assert_allclose(p, ref, rtol=0, atol=1e-6, err_msg=path)
+        n += 1
+    assert n == len(list(state.model.parameters()))
+    for path, v, ref in _pairs(stats, jax.device_get(new_j.batch_stats)):
+        np.testing.assert_allclose(v, ref, rtol=1e-5, atol=1e-6, err_msg=path)
 
 
 def test_train_mode_dropout_is_the_given_mask():

@@ -235,3 +235,48 @@ def test_throughput_and_latency_report(weights):
     lat = scorer.latency_ms(n_iters=3)
     assert set(lat) == {"p50_ms", "p95_ms", "mean_ms"} and lat["p50_ms"] > 0
     scorer.warmup()
+
+
+@pytest.fixture(scope="module")
+def bilinear_weights():
+    v = warmed_variables(AnomalyUNet(base_features=4, bilinear=True), key=6)
+    return v, state_dict_from_jax(v["params"], v["batch_stats"], bilinear=True)
+
+
+@pytest.mark.parametrize("precision,rtol", [("f32", 1e-4), ("bf16", 1e-3)])
+def test_bilinear_scores_match_jax(bilinear_weights, precision, rtol):
+    """AnomalyScorer(bilinear=True) against the JAX scorer on the same
+    weights, at test_f32_scores_match_jax's and test_bf16_scores_match_jax's
+    tolerances."""
+    v, sd = bilinear_weights
+    images = u8_images(7, (5, 32, 32, 3))
+    want = JaxScorer.from_variables(v["params"], v["batch_stats"], precision=precision,
+                                    bilinear=True, **KW).score_array(images)
+    got = _port(sd, precision=precision, bilinear=True).score_array(images)
+    np.testing.assert_allclose(got, want, rtol=rtol)
+
+
+def test_bilinear_int8_scores_match_jax_with_the_same_qparams(bilinear_weights):
+    """int8 with JAX's qparams (the upsamples float islands): the port's
+    scores against the JAX op-by-op int8 forward's to rtol 1e-6, as
+    test_int8_scores_match_jax_with_the_same_qparams holds the ladder; and a
+    scorer calibrated in process tracks the f32 one within 10%."""
+    from tpu_unet.ops import quantize as jq
+    from tpu_unet.ops.augment import eval_transform as jax_eval_transform
+    from tpu_unet.metrics.anomaly import anomaly_score as jax_anomaly_score
+
+    v, sd = bilinear_weights
+    calib = u8_images(41, (8, 32, 32, 3))
+    jqp = jax.device_get(jq.quantize_from_train_state(
+        "anomaly_unet", v["params"], v["batch_stats"], jq.chunk_calibration(calib, 4)))
+    images = u8_images(8, (4, 32, 32, 3))
+    img = jax_eval_transform(images)
+    recon, _ = jq._run(jq._QuantExec(jqp), img, jq.build_plan("anomaly_unet"))
+    want = np.asarray(jax_anomaly_score(recon, img))
+    got = _port(sd, quantize="int8", qparams=qparams_from_numpy(jqp),
+                bilinear=True).score_array(images)
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+    f32 = _port(sd, precision="f32", bilinear=True).score_array(images)
+    calibrated = _port(sd, quantize="int8", calib_images=calib,
+                       bilinear=True).score_array(images)
+    np.testing.assert_allclose(calibrated, f32, rtol=0.1)

@@ -34,6 +34,7 @@ from tpu_unet_torch.core.device import resolve_device
 from tpu_unet_torch.core.precision import get_policy
 from tpu_unet_torch.data.loader import DataLoader, to_device
 from tpu_unet_torch.models import build_model
+from tpu_unet_torch.models.unet import ATTN_NAMES, UNETPP_NAMES, check_model_flags
 from tpu_unet_torch.train.checkpoint import CheckpointWriter, load_checkpoint, load_params
 from tpu_unet_torch.train.interrupt import (INTERRUPT_EXIT_CODE, GracefulInterrupt,
                                             interrupt_checkpoint_path)
@@ -83,35 +84,31 @@ def cli_device(name: str) -> torch.device:
     return resolve_device("cuda" if name == "auto" else name)
 
 
-def _check_not_ported(args, multi_device_flags) -> None:
-    """NotImplementedError for the paths that are not ported: multi-device
-    runs, bilinear decoders and UNet++'s deep supervision."""
+def _check_not_ported(multi_device_flags) -> None:
+    """NotImplementedError for multi-device runs, which are not ported."""
     used = [flag for flag, on in multi_device_flags.items() if on]
     if used:
         raise NotImplementedError(f"{', '.join(used)}: multi-device runs are not "
                                   "ported yet; the port runs on one device")
-    if args.bilinear:
-        raise NotImplementedError("--bilinear: bilinear decoders are not ported yet")
-    if args.deep_supervision or getattr(args, "heads", 4) != 4:
-        raise NotImplementedError("--deep_supervision and --heads are UNet++'s, which is "
-                                  "not ported yet")
 
 
 def check_train_flags(args) -> None:
     if args.grad_accum < 1 or args.batch_size % args.grad_accum != 0:
         raise SystemExit(f"--batch_size {args.batch_size} must be a positive "
                          f"multiple of --grad_accum {args.grad_accum}")
-    _check_not_ported(args, {
+    _check_not_ported({
         "--n_devices": (args.n_devices or 1) > 1, "--n_space": args.n_space > 1,
         "--fsdp": args.fsdp, "--n_model": args.n_model > 1, "--multihost": args.multihost,
         "--coordinator_address": args.coordinator_address is not None,
         "--num_processes": args.num_processes is not None,
         "--process_id": args.process_id is not None})
+    check_model_flags(args.model, args.deep_supervision)
 
 
 def check_eval_flags(args) -> None:
-    _check_not_ported(args, {"--n_devices": (args.n_devices or 1) > 1,
-                             "--n_space": args.n_space > 1})
+    _check_not_ported({"--n_devices": (args.n_devices or 1) > 1,
+                       "--n_space": args.n_space > 1})
+    check_model_flags(args.model, args.deep_supervision, args.heads)
 
 
 def _device_line(device: torch.device) -> str:
@@ -178,8 +175,9 @@ def train_seg(args, workload: Workload, train_ds, val_ds, num_classes: int,
 
     torch.manual_seed(args.seed)  # the same initial weights on the CPU and the card
     model = build_model(args.model, n_channels=3, n_classes=num_classes,
-                        dropout=args.dropout, policy=get_policy(args.precision),
-                        base_features=args.base_features)
+                        bilinear=args.bilinear, dropout=args.dropout,
+                        policy=get_policy(args.precision), base_features=args.base_features,
+                        deep_supervision=args.deep_supervision)
     state = create_train_state(model, args.optimizer, args.learning_rate,
                                args.weight_decay, device=device)
     total_params = num_params(state)
@@ -330,14 +328,31 @@ def make_eval_loader(args, ds, device: torch.device) -> DataLoader:
                       transform=lambda b: to_device(b, device))
 
 
+def int8_arch(model: str) -> str:
+    """The int8 plan of a seg CLI's ``--model``; SystemExit for one without."""
+    if model in UNETPP_NAMES:
+        return "unetpp"
+    if model in ATTN_NAMES:
+        return "attn_unet"
+    if model in ("seg_unet", "segmentation_unet"):
+        return "seg_unet"
+    raise SystemExit("--quantize int8 supports seg_unet, attn_unet and unetpp (both "
+                     "decoder modes; bilinear upsamples run as float islands)")
+
+
 def load_seg_model(args, num_classes: int, device: torch.device, calib_ds=None):
     """``(state, eval_step, loss_cfg)`` for ``--checkpoint`` on ``device``:
-    BN folded with ``--fold_bn``; with ``--quantize int8`` the step is the
-    int8 one (K2 for every 3x3 conv), calibrated on the first
-    ``--calib_samples`` images of ``calib_ds`` in chunks of 8."""
+    BN folded with ``--fold_bn``; ``--heads k < 4`` evaluates UNet++'s
+    deep-supervision head X[0][k] alone (the full parameter tree is built
+    and loaded). With ``--quantize int8`` the step is the int8 one (K2 for
+    every 3x3 conv), calibrated over the full model (every UNet++ node,
+    whatever ``--heads``) on the first ``--calib_samples`` images of
+    ``calib_ds`` in chunks of 8."""
+    heads = args.heads
     model = build_model(args.model, n_channels=3, n_classes=num_classes,
-                        dropout=args.dropout, policy=get_policy(args.precision),
-                        base_features=args.base_features)
+                        bilinear=args.bilinear, dropout=args.dropout,
+                        policy=get_policy(args.precision), base_features=args.base_features,
+                        deep_supervision=args.deep_supervision, heads=heads)
     state = create_train_state(model, "adam", 1e-3, 0.0, device=device)
     print(f"Loading checkpoint: {args.checkpoint}")
     state = load_params(state, args.checkpoint)
@@ -345,24 +360,26 @@ def load_seg_model(args, num_classes: int, device: torch.device, calib_ds=None):
         from tpu_unet_torch.ops.fold_bn import fold_batchnorm
         fold_batchnorm(state.model)
         print("BatchNorm folded into conv weights for inference")
+    if heads != 4:
+        print(f"Pruned fast mode: evaluating head X[0][{heads}] only")
 
     loss_cfg = SegLossConfig(class_weights=parse_class_weights(args.class_weights,
                                                                num_classes))
     if args.quantize != "int8":
         return state, make_seg_eval_step(num_classes, loss_cfg), loss_cfg
-    if args.model not in ("seg_unet", "segmentation_unet"):
-        raise SystemExit("--quantize int8 supports seg_unet (the attention UNet and "
-                         "UNet++ are not ported yet)")
+    arch = int8_arch(args.model)
     from tpu_unet_torch.ops.quantize import (chunk_calibration, make_quantized_seg_eval_step,
                                              quantize_from_train_state)
     n_calib = min(len(calib_ds), args.calib_samples)
     calib_imgs = np.stack([calib_ds.load(i)["image"] for i in range(n_calib)])
-    qparams = quantize_from_train_state("seg_unet", state.model.state_dict(),
+    qparams = quantize_from_train_state(arch, state.model.state_dict(),
                                         chunk_calibration(calib_imgs, 8),
-                                        percentile=args.calib_percentile, device=device)
+                                        percentile=args.calib_percentile, device=device,
+                                        deep_supervision=args.deep_supervision)
     print(f"int8 quantized inference (calibrated on {n_calib} train images)")
-    return (state, QuantizedEvalStep(make_quantized_seg_eval_step(num_classes, loss_cfg),
-                                     qparams), loss_cfg)
+    qstep = make_quantized_seg_eval_step(num_classes, loss_cfg, arch=arch,
+                                         deep_supervision=args.deep_supervision, heads=heads)
+    return state, QuantizedEvalStep(qstep, qparams), loss_cfg
 
 
 class QuantizedEvalStep:

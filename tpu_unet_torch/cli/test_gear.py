@@ -29,13 +29,14 @@ def add_eval_args(parser, class_weights, output_dir):
     ``--class_weights`` and ``--output_dir`` are the dataset's."""
     parser.add_argument("--model", type=str, default="seg_unet",
                         choices=["unet", "seg_unet", "unetpp", "attn_unet"],
-                        help="Model architecture (unetpp and attn_unet: not ported yet)")
+                        help="Model architecture")
     parser.add_argument("--bilinear", action="store_true",
-                        help="Bilinear decoders (not ported yet)")
+                        help="Bilinear decoders")
     parser.add_argument("--deep_supervision", action="store_true",
-                        help="UNet++ only (not ported yet)")
+                        help="UNet++ only: one head per top-row node")
     parser.add_argument("--heads", type=int, default=4,
-                        help="UNet++ deep-supervision inference heads (not ported yet: 4)")
+                        help="UNet++ deep-supervision inference head: 4 averages "
+                             "the four heads, k < 4 evaluates head X[0][k] alone")
     parser.add_argument("--dropout", type=float, default=0.1)
     parser.add_argument("--checkpoint", type=str, required=True,
                         help="A .pth checkpoint (reference layout or a bare state_dict)")

@@ -51,7 +51,7 @@ def parse_args(argv=None):
     parser.add_argument("--model", type=str, default="anomaly_unet",
                         choices=["unet", "anomaly_unet"])
     parser.add_argument("--bilinear", action="store_true",
-                        help="Bilinear decoders (not ported yet)")
+                        help="Bilinear decoders")
     parser.add_argument("--checkpoint", type=str, required=True,
                         help="A .pth checkpoint (reference layout or a bare state_dict)")
     parser.add_argument("--batch_size", type=int, default=16)
@@ -213,7 +213,7 @@ def load_model(args, device: torch.device, calib_ds=None):
     """``(state, eval_step)`` for ``--checkpoint`` on ``device``: BN folded
     with ``--fold_bn``; with ``--quantize int8`` the step is the int8 one,
     calibrated on the first ``--calib_samples`` images of ``calib_ds``."""
-    model = build_model(args.model, n_channels=3, n_classes=1,
+    model = build_model(args.model, n_channels=3, n_classes=1, bilinear=args.bilinear,
                         policy=get_policy(args.precision), base_features=args.base_features)
     state = create_train_state(model, "adam", 1e-3, 0.0, device=device)
     print(f"Loading checkpoint: {args.checkpoint}")
@@ -225,7 +225,8 @@ def load_model(args, device: torch.device, calib_ds=None):
 
     if args.quantize == "int8":
         if args.model != "anomaly_unet":
-            raise SystemExit("--quantize int8 supports anomaly_unet only")
+            raise SystemExit("--quantize int8 supports anomaly_unet only (both decoder "
+                             "modes; bilinear upsamples run as float islands)")
         n_calib = min(len(calib_ds), args.calib_samples)
         calib_imgs = np.stack([calib_ds.load(i)["image"] for i in range(n_calib)])
         eval_step = quantized_eval_step(state, calib_imgs, args.calib_percentile)
@@ -240,8 +241,6 @@ def main(argv=None):
     if (args.n_devices or 1) > 1:
         raise NotImplementedError("--n_devices: multi-device evaluation is not ported "
                                   "yet; the port runs on one device")
-    if args.bilinear:
-        raise NotImplementedError("--bilinear: bilinear decoders are not ported yet")
     device = cli_device(args.device)
     print(f"Device: {device}"
           + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))

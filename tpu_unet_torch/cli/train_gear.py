@@ -27,12 +27,11 @@ def add_common_args(parser):
     """The flags both seg trainers share."""
     parser.add_argument("--model", type=str, default="seg_unet",
                         choices=["unet", "seg_unet", "unetpp", "attn_unet"],
-                        help="Model architecture (unetpp and attn_unet: not ported yet)")
+                        help="Model architecture")
     parser.add_argument("--bilinear", action="store_true",
-                        help="Bilinear upsampling instead of transposed convolution "
-                             "(not ported yet)")
+                        help="Bilinear upsampling instead of transposed convolution")
     parser.add_argument("--deep_supervision", action="store_true",
-                        help="UNet++ only (not ported yet)")
+                        help="UNet++ only: one head per top-row node")
     parser.add_argument("--dropout", type=float, default=0.1,
                         help="Dropout rate for segmentation UNet")
     parser.add_argument("--epochs", type=int, default=50)

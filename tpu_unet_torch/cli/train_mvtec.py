@@ -65,8 +65,7 @@ def parse_args(argv=None):
     parser.add_argument("--model", type=str, default="anomaly_unet",
                         choices=["unet", "anomaly_unet"], help="Model architecture")
     parser.add_argument("--bilinear", action="store_true",
-                        help="Use bilinear upsampling instead of transposed convolution "
-                             "(not ported yet)")
+                        help="Use bilinear upsampling instead of transposed convolution")
 
     # Training arguments
     parser.add_argument("--epochs", type=int, default=100, help="Number of training epochs")
@@ -156,7 +155,7 @@ def parse_args(argv=None):
 
 def check_not_ported(args) -> None:
     """Raise NotImplementedError for the flags whose paths are not ported:
-    multi-device training (queued with multi-GPU) and bilinear decoders."""
+    multi-device training (queued with multi-GPU)."""
     multi = {"--n_devices": (args.n_devices or 1) > 1, "--fsdp": args.fsdp,
              "--n_model": args.n_model > 1, "--multihost": args.multihost,
              "--coordinator_address": args.coordinator_address is not None,
@@ -166,8 +165,6 @@ def check_not_ported(args) -> None:
     if used:
         raise NotImplementedError(f"{', '.join(used)}: multi-device training is not "
                                   "ported yet; the port trains on one device")
-    if args.bilinear:
-        raise NotImplementedError("--bilinear: bilinear decoders are not ported yet")
 
 
 def main(argv=None):
@@ -255,7 +252,7 @@ def train(args, train_ds, val_ds, device: torch.device, experiment_dir: str,
     # Model / optimizer / schedules
     print("Creating model...")
     torch.manual_seed(args.seed)  # the same initial weights on the CPU and the card
-    model = build_model(args.model, n_channels=3, n_classes=1,
+    model = build_model(args.model, n_channels=3, n_classes=1, bilinear=args.bilinear,
                         policy=get_policy(args.precision), base_features=args.base_features)
     state = create_train_state(model, args.optimizer, args.learning_rate,
                                args.weight_decay, device=device)

@@ -2,15 +2,19 @@
 ``tpu_unet/models/blocks.py``).
 
 Module and parameter names follow the reference state_dict
-(``double_conv.{0,1,3,4}``, ``maxpool_conv.1``, ``up``/``conv``, ``conv``), so a
-reference-layout checkpoint loads with ``strict=True``. Tensors are NCHW
-(channels_last in memory on the GPU), PyTorch's habit.
+(``double_conv.{0,1,3,4}``, ``maxpool_conv.1``, ``up``/``conv``, ``conv``; a
+bilinear ``Up`` has no ``up``), so a reference-layout checkpoint loads with
+``strict=True``; an attention-gated ``Up``'s gate is ``att``
+(``models/attention.py``). Tensors are NCHW (channels_last in memory on the
+GPU), PyTorch's habit.
 
 Precision follows the policy, as in the JAX blocks: convolutions run in the
 compute dtype with float32 parameters cast at use; the BN affine (or, once
 ``ops/fold_bn.py`` has folded it, the conv bias) and ReLU run in float32, and
 the result is cast back to the compute dtype. The transposed conv and the
-1x1 head add their bias in the compute dtype; heads return float32.
+1x1 head add their bias in the compute dtype; heads return float32. The
+bilinear upsample runs in the compute dtype, as matmuls
+(``ops/resize.py``).
 
 BatchNorm follows flax's, as the JAX blocks configure it: eps 1e-5; in train
 mode it normalizes by the batch's biased variance and moves the running
@@ -28,6 +32,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from tpu_unet_torch.core.precision import DEFAULT_POLICY, Policy
+from tpu_unet_torch.ops.resize import upsample2x_bilinear_align_corners
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -51,6 +56,22 @@ class BatchNorm2d(nn.BatchNorm2d):
         return out
 
 
+def conv_bn(conv: nn.Conv2d, norm: nn.Module, x: torch.Tensor, policy: Policy,
+            padding: int = 0, stride: int = 1) -> torch.Tensor:
+    """A bias-free conv in the compute dtype, then its BatchNorm in float32
+    (after ``ops/fold_bn.py``, the conv's float32 bias and an identity).
+    ``stride`` 2 (a 1x1 conv) samples the even rows and columns first: the
+    same sums as a stride-2 conv, whose backward on a channels_last CPU
+    tensor corrupts memory in PyTorch's CPU build."""
+    cd = policy.compute_dtype
+    if stride > 1:
+        x = x[:, :, ::stride, ::stride]
+    y = F.conv2d(x.to(cd), conv.weight.to(cd), padding=padding).to(policy.norm_dtype)
+    if conv.bias is not None:  # BN folded into the conv (ops/fold_bn.py)
+        y = y + conv.bias.view(-1, 1, 1)
+    return norm(y)
+
+
 class DoubleConv(nn.Module):
     """(Conv3x3 no-bias -> BN -> ReLU) twice, optionally with a narrower mid width."""
 
@@ -70,14 +91,9 @@ class DoubleConv(nn.Module):
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        cd = self.policy.compute_dtype
         for i in (0, 3):
-            conv, norm = self.double_conv[i], self.double_conv[i + 1]
-            y = F.conv2d(x.to(cd), conv.weight.to(cd), padding=1)
-            y = y.to(self.policy.norm_dtype)
-            if conv.bias is not None:  # BN folded into the conv (ops/fold_bn.py)
-                y = y + conv.bias.view(-1, 1, 1)
-            x = F.relu(norm(y)).to(cd)
+            y = conv_bn(self.double_conv[i], self.double_conv[i + 1], x, self.policy, padding=1)
+            x = F.relu(y).to(self.policy.compute_dtype)
         return x
 
 
@@ -95,23 +111,41 @@ class Down(nn.Module):
 
 
 class Up(nn.Module):
-    """ConvTranspose k2s2 of x1, pad to the skip's extent, concat(skip, x1),
-    DoubleConv. ``in_channels`` is x1's width; the transposed conv halves it."""
+    """Upsample x1 2x, pad it to the skip's extent, concat(skip, x1), DoubleConv.
+
+    ``in_channels`` is the concat's width. The transposed conv (``up``) maps
+    x1's ``in_channels`` to half; the bilinear upsample (``bilinear=True``,
+    align corners, no parameters) keeps x1's ``in_channels // 2`` and the
+    DoubleConv narrows to ``in_channels // 2`` in the middle, as the
+    reference's does. ``attention=True`` gates the skip through an
+    :class:`~tpu_unet_torch.models.attention.AttentionGate` (``att``) before
+    the upsample; the gating signal is the coarse x1.
+    """
 
     def __init__(self, in_channels: int, out_channels: int, bilinear: bool = False,
-                 policy: Policy = DEFAULT_POLICY):
+                 policy: Policy = DEFAULT_POLICY, attention: bool = False):
         super().__init__()
-        if bilinear:
-            raise NotImplementedError(
-                "bilinear decoders need ops/resize.py, which is not ported yet")
         self.policy = policy
-        self.up = nn.ConvTranspose2d(in_channels, in_channels // 2, 2, stride=2)
-        self.conv = DoubleConv(in_channels, out_channels, policy=policy)
+        skip = in_channels // 2
+        if attention:
+            from tpu_unet_torch.models.attention import AttentionGate
+            self.att = AttentionGate(in_channels // 2 if bilinear else in_channels, skip,
+                                     f_int=max(1, skip // 2), policy=policy)
+        if bilinear:
+            self.conv = DoubleConv(in_channels, out_channels, in_channels // 2, policy=policy)
+        else:
+            self.up = nn.ConvTranspose2d(in_channels, in_channels // 2, 2, stride=2)
+            self.conv = DoubleConv(in_channels, out_channels, policy=policy)
 
     def forward(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
         cd = self.policy.compute_dtype
-        x1 = F.conv_transpose2d(x1.to(cd), self.up.weight.to(cd),
-                                self.up.bias.to(cd), stride=2)
+        if hasattr(self, "att"):
+            x2 = self.att(x1, x2)
+        if hasattr(self, "up"):
+            x1 = F.conv_transpose2d(x1.to(cd), self.up.weight.to(cd),
+                                    self.up.bias.to(cd), stride=2)
+        else:
+            x1 = upsample2x_bilinear_align_corners(x1.to(cd))
         # Static pad to the skip's extent (zero for power-of-two sizes).
         dh = x2.shape[2] - x1.shape[2]
         dw = x2.shape[3] - x1.shape[3]

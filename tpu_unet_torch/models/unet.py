@@ -1,5 +1,5 @@
 """The UNet model family as PyTorch modules (counterpart of
-``tpu_unet/models/unet.py``), transposed-conv decoders.
+``tpu_unet/models/unet.py``), with transposed-conv or bilinear decoders.
 
 - ``UNet(n_channels=3, n_classes=1)``: encoder 64/128/256/512/1024, 4 skip
   decoder stages, 1x1 head; 31,037,633 params at n_classes=1.
@@ -14,7 +14,10 @@ and updates its running statistics as flax does (``models/blocks.py``).
 
 Inputs and outputs are NCHW. Attribute names are the reference state_dict's
 (``inc``, ``down1``..``down4``, ``up1``..``up4`` or ``up1_recon``/``up1_seg``..,
-``outc`` or ``outc_recon``/``outc_seg``).
+``outc`` or ``outc_recon``/``outc_seg``). A bilinear decoder's Up blocks have
+no ``up`` child (``upK.conv.double_conv.*`` only), so a reference bilinear
+``.pth`` loads with ``strict=True``. ``build_model`` also builds the attention
+UNet (``models/attention.py``) and UNet++ (``models/unetpp.py``).
 """
 
 from __future__ import annotations
@@ -29,27 +32,28 @@ from tpu_unet_torch.models.blocks import DoubleConv, Down, OutConv, Up
 
 
 class _Ladder(nn.Module):
-    """Shared encoder and decoder builders of the ladder family."""
+    """Shared encoder and decoder builders of the ladder family. Bilinear
+    ladders halve the bottleneck and the decoder widths (``factor`` 2), as
+    the reference's do."""
 
     def __init__(self, n_channels: int, base_features: int, bilinear: bool,
-                 policy: Policy):
+                 policy: Policy, attention: bool = False):
         super().__init__()
-        if bilinear:
-            raise NotImplementedError(
-                "bilinear decoders need ops/resize.py, which is not ported yet")
-        self.policy = policy
-        b = base_features
+        self.policy, self.bilinear, self.attention = policy, bilinear, attention
+        self.base_features = b = base_features
+        factor = 2 if bilinear else 1
         self.inc = DoubleConv(n_channels, b, policy=policy)
         self.down1 = Down(b, 2 * b, policy=policy)
         self.down2 = Down(2 * b, 4 * b, policy=policy)
         self.down3 = Down(4 * b, 8 * b, policy=policy)
-        self.down4 = Down(8 * b, 16 * b, policy=policy)
+        self.down4 = Down(8 * b, 16 * b // factor, policy=policy)
 
     def _add_decoder(self, suffix: str) -> None:
-        b = self.inc.double_conv[0].out_channels
-        for i, (cin, cout) in enumerate(((16 * b, 8 * b), (8 * b, 4 * b),
-                                         (4 * b, 2 * b), (2 * b, b)), start=1):
-            self.add_module(f"up{i}{suffix}", Up(cin, cout, policy=self.policy))
+        b, factor = self.base_features, 2 if self.bilinear else 1
+        for i, (cin, cout) in enumerate(((16 * b, 8 * b // factor), (8 * b, 4 * b // factor),
+                                         (4 * b, 2 * b // factor), (2 * b, b)), start=1):
+            self.add_module(f"up{i}{suffix}", Up(cin, cout, self.bilinear, self.policy,
+                                                 attention=self.attention))
 
     def _encode(self, x: torch.Tensor):
         x1 = self.inc(self.policy.cast_to_compute(x))
@@ -72,8 +76,8 @@ class UNet(_Ladder):
 
     def __init__(self, n_channels: int = 3, n_classes: int = 1,
                  bilinear: bool = False, policy: Policy = DEFAULT_POLICY,
-                 base_features: int = 64):
-        super().__init__(n_channels, base_features, bilinear, policy)
+                 base_features: int = 64, attention: bool = False):
+        super().__init__(n_channels, base_features, bilinear, policy, attention)
         self._add_decoder("")
         self.outc = OutConv(base_features, n_classes, policy=policy)
 
@@ -81,26 +85,15 @@ class UNet(_Ladder):
         return self.outc(self._decode(self._encode(x), ""))
 
 
-class SegmentationUNet(UNet):
-    """UNet for multi-class segmentation, with channel dropout (Dropout2d,
-    reference model.py:130,146) on the bottleneck x5 only.
+class BottleneckDropout:
+    """Channel dropout (Dropout2d) of a bottleneck tensor whose mask is a
+    draw: the identity in eval mode or at rate 0; in train mode ``keep``, an
+    (N, C) bool mask of the channels that survive (:meth:`sample_dropout`),
+    each kept channel divided by 1 - rate (flax's ``Dropout``). The class
+    sets ``dropout`` and ``bottleneck_channels``."""
 
-    The dropout holds no parameters and is the identity in eval mode. In
-    train mode with ``dropout > 0`` the forward takes its draw as an
-    argument, as the augment does: ``keep``, an (N, C5) bool mask of the
-    bottleneck channels that survive (:meth:`sample_dropout`), and each
-    kept channel is divided by 1 - rate (flax's ``Dropout``).
-    """
-
-    def __init__(self, n_channels: int = 3, n_classes: int = 4,
-                 bilinear: bool = False, dropout: float = 0.1,
-                 policy: Policy = DEFAULT_POLICY, base_features: int = 64):
-        super().__init__(n_channels, n_classes, bilinear, policy, base_features)
-        self.dropout = dropout
-
-    @property
-    def bottleneck_channels(self) -> int:
-        return self.down4.maxpool_conv[1].double_conv[0].out_channels
+    dropout: float
+    bottleneck_channels: int
 
     def sample_dropout(self, n: int, generator: torch.Generator) -> Optional[torch.Tensor]:
         """A keep mask for a batch of ``n`` on the generator's device: each
@@ -111,19 +104,36 @@ class SegmentationUNet(UNet):
                        device=generator.device)
         return u < 1.0 - self.dropout
 
+    def _drop(self, x: torch.Tensor, keep: Optional[torch.Tensor]) -> torch.Tensor:
+        if not (self.training and self.dropout > 0):
+            return x
+        if keep is None:
+            raise ValueError(f"{type(self).__name__} in train mode takes its dropout draw: "
+                             "forward(x, keep=model.sample_dropout(n, generator))")
+        if tuple(keep.shape) != tuple(x.shape[:2]):
+            raise ValueError(f"dropout keep mask {tuple(keep.shape)} for a bottleneck "
+                             f"of {tuple(x.shape[:2])}")
+        keep = keep.to(x.device)[:, :, None, None]
+        return torch.where(keep, x / (1.0 - self.dropout), torch.zeros_like(x))
+
+
+class SegmentationUNet(BottleneckDropout, UNet):
+    """UNet for multi-class segmentation, with channel dropout (Dropout2d,
+    reference model.py:130,146) on the bottleneck x5 only (see
+    :class:`BottleneckDropout`). ``attention=True`` gates the decoder's
+    skips (``models/attention.py::AttentionUNet``)."""
+
+    def __init__(self, n_channels: int = 3, n_classes: int = 4,
+                 bilinear: bool = False, dropout: float = 0.1,
+                 policy: Policy = DEFAULT_POLICY, base_features: int = 64,
+                 attention: bool = False):
+        super().__init__(n_channels, n_classes, bilinear, policy, base_features, attention)
+        self.dropout = dropout
+        self.bottleneck_channels = self.down4.maxpool_conv[1].double_conv[3].out_channels
+
     def forward(self, x: torch.Tensor, keep: Optional[torch.Tensor] = None) -> torch.Tensor:
         skips = self._encode(x)
-        if self.training and self.dropout > 0:
-            if keep is None:
-                raise ValueError("SegmentationUNet in train mode takes its dropout draw: "
-                                 "forward(x, keep=model.sample_dropout(n, generator))")
-            x5 = skips[4]
-            if tuple(keep.shape) != tuple(x5.shape[:2]):
-                raise ValueError(f"dropout keep mask {tuple(keep.shape)} for a bottleneck "
-                                 f"of {tuple(x5.shape[:2])}")
-            keep = keep.to(x5.device)[:, :, None, None]
-            x5 = torch.where(keep, x5 / (1.0 - self.dropout), torch.zeros_like(x5))
-            skips = (*skips[:4], x5)
+        skips = (*skips[:4], self._drop(skips[4], keep))
         return self.outc(self._decode(skips, ""))
 
 
@@ -152,11 +162,40 @@ class AnomalyUNet(_Ladder):
         return torch.sigmoid(self.outc_recon(self._decode(self._encode(x), "_recon")))
 
 
+UNETPP_NAMES = ("unetpp", "unet++", "nested_unet")
+ATTN_NAMES = ("attn_unet", "attention_unet", "attunet")
+
+
+def check_model_flags(name: str, deep_supervision: bool = False, heads: int = 4) -> None:
+    """The JAX package's ValueErrors for ``deep_supervision`` or ``heads``
+    outside UNet++ with deep supervision (raised by :func:`build_model`; the
+    CLIs call it before they write anything)."""
+    is_unetpp = name.lower() in UNETPP_NAMES
+    if deep_supervision and not is_unetpp:
+        raise ValueError(
+            f"deep_supervision is only supported by --model unetpp, got {name!r}")
+    if heads != 4 and not (is_unetpp and deep_supervision):
+        raise ValueError(
+            "heads selects a UNet++ deep-supervision inference head; it "
+            f"requires --model unetpp with deep_supervision (got model={name!r}, "
+            f"deep_supervision={deep_supervision})")
+
+
 def build_model(name: str, *, n_channels: int = 3, n_classes: int = 1,
                 bilinear: bool = False, dropout: float = 0.1,
-                policy: Policy = DEFAULT_POLICY, base_features: int = 64):
-    """Build a model by CLI name ('unet' | 'anomaly_unet' | 'seg_unet')."""
+                policy: Policy = DEFAULT_POLICY, base_features: int = 64,
+                deep_supervision: bool = False, heads: int = 4):
+    """Build a model by CLI name ('unet' | 'anomaly_unet' | 'seg_unet' |
+    'unetpp' | 'attn_unet'). ``deep_supervision`` and ``heads`` (the UNet++
+    inference head: 4 averages the head logits, k < 4 is head X[0][k]
+    alone) are UNet++'s and raise the JAX package's ValueError elsewhere."""
+    check_model_flags(name, deep_supervision, heads)
     name = name.lower()
+    if name in UNETPP_NAMES:
+        from tpu_unet_torch.models.unetpp import UNetPlusPlus
+        return UNetPlusPlus(n_channels=n_channels, n_classes=n_classes, bilinear=bilinear,
+                            dropout=dropout, deep_supervision=deep_supervision, heads=heads,
+                            policy=policy, base_features=base_features)
     if name == "unet":
         return UNet(n_channels=n_channels, n_classes=n_classes, bilinear=bilinear,
                     policy=policy, base_features=base_features)
@@ -167,7 +206,8 @@ def build_model(name: str, *, n_channels: int = 3, n_classes: int = 1,
         return SegmentationUNet(n_channels=n_channels, n_classes=n_classes,
                                 bilinear=bilinear, dropout=dropout, policy=policy,
                                 base_features=base_features)
-    if name in ("unetpp", "unet++", "nested_unet", "attn_unet", "attention_unet",
-                "attunet"):
-        raise NotImplementedError(f"model {name!r} is not ported yet")
+    if name in ATTN_NAMES:
+        from tpu_unet_torch.models.attention import AttentionUNet
+        return AttentionUNet(n_channels=n_channels, n_classes=n_classes, bilinear=bilinear,
+                             dropout=dropout, policy=policy, base_features=base_features)
     raise ValueError(f"Unknown model: {name!r}")

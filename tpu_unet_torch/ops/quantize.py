@@ -1,6 +1,7 @@
 """Post-training int8 quantization for serving (counterpart of
 ``tpu_unet/ops/quantize.py``), for the ladder architectures ('unet',
-'seg_unet', 'anomaly_unet') with transposed-conv decoders.
+'seg_unet', 'attn_unet', 'anomaly_unet') with transposed-conv or bilinear
+decoders, and for UNet++ ('unetpp').
 
 The scheme is the JAX package's, value for value:
 
@@ -15,7 +16,17 @@ The scheme is the JAX package's, value for value:
   (N*H*W, Cin) input by the (Cin, 4*Cout) kernel, the epilogue requantizing
   straight to the skip concat's shared scale, then a pixel shuffle;
 - the skip concat: the skip requantizes int8 -> int8 to that shared scale;
-- heads (1x1 conv + sigmoid or logits): int8 matmul, float32 epilogue.
+- heads (1x1 conv + sigmoid or logits): int8 matmul, float32 epilogue;
+- attention gates ('attn_unet'): in float32 on the dequantized operands,
+  their folded layers kept float; the gated skip requantizes straight to
+  the concat scale, calibrated on the gated tensor (tag ``.../att/out``);
+- bilinear decoders: the upsample is a float island on the dequantized
+  tensor, requantized straight to the concat scale; the tree has no ``up``
+  leaf there, which is how the executors tell the modes apart;
+- UNet++: each node X[i][j] (``fuse``) requantizes its dense row and its
+  level-up to one concat scale; the plan holds only the nodes that the
+  requested head needs (``heads`` k < 4 with deep supervision: i + j <= k),
+  and ``average`` is the accurate mode's mean of the four head logits.
 
 Tensors flow NHWC. Trees are keyed by the JAX package's paths
 ('encoder/inc/conv1', ...), so calibration tags, scales and ``.npz`` files are
@@ -26,8 +37,6 @@ qparams trees hold K2's layout (see ``utils/weights.py``).
 Every division by a scale divides by a tensor on the data's device: on CUDA
 PyTorch multiplies by the reciprocal of a Python-number divisor, which is not
 ``jnp``'s division.
-
-UNet++, attention gates and bilinear decoders (float islands) are not ported.
 
 Usage:
     fparams = full_fold(model.state_dict())
@@ -43,6 +52,7 @@ Usage:
 from __future__ import annotations
 
 import os
+import re
 from typing import Any, Dict, Iterable, Optional, Tuple
 
 import numpy as np
@@ -52,7 +62,8 @@ import torch.nn.functional as F
 from tpu_unet_torch.core.device import resolve_device
 from tpu_unet_torch.ops.augment import eval_transform
 from tpu_unet_torch.ops.kernels.int8_conv import conv3x3_int8, pack_weights, pad_cout
-from tpu_unet_torch.utils.weights import (ladder_layout, qparams_from_numpy,
+from tpu_unet_torch.ops.resize import interp_axis
+from tpu_unet_torch.utils.weights import (CONV_BN, UP_LEAF, layout_of, qparams_from_numpy,
                                           qparams_to_numpy)
 
 _EPS = 1e-5  # BatchNorm eps
@@ -60,11 +71,15 @@ _EPS = 1e-5  # BatchNorm eps
 _ARCH_HEADS = {
     "unet": (("decoder", "up", "outc", "logits"),),
     "seg_unet": (("decoder", "up", "outc", "logits"),),
+    "attn_unet": (("decoder", "up", "outc", "logits"),),
     "anomaly_unet": (
         ("decoder_recon", "up_recon", "outc_recon", "sigmoid"),
         ("decoder_seg", "up_seg", "outc_seg", "sigmoid"),
     ),
 }
+# Architectures whose Up blocks gate the skip (models/attention.py).
+_GATED_ARCHS = frozenset({"attn_unet"})
+_GRID_NODE = re.compile(r"^x(\d+)_(\d+)$")  # UNet++ node names
 
 # Heads and transposed convs pad their int8 matmul's inner dim and width to a
 # multiple of this, and its rows to at least _MM_MIN_ROWS (CUDA's
@@ -128,20 +143,22 @@ def full_fold(state_dict: Dict[str, torch.Tensor],
 
     Takes the port's (reference-named) state_dict, unfolded or already folded
     by ``ops/fold_bn.py``, and returns the quantizer's float form: a tree keyed
-    by JAX paths with ``{kernel, bias}`` conv leaves in PyTorch layouts.
+    by JAX paths with ``{kernel, bias}`` conv leaves in PyTorch layouts. The
+    layout (bilinear decoders, UNet++'s deep supervision heads) is read from
+    the state_dict's names.
     """
     sd = {k: v.detach().to(torch.float32) for k, v in state_dict.items()}
     out: Dict[str, Any] = {}
-    for path, prefix, kind in ladder_layout(arch):
-        if kind != "double":
+    for path, prefix, kind in layout_of(arch, sd):
+        if kind not in CONV_BN:
             w = sd[f"{prefix}.weight"]
             bias = sd.get(f"{prefix}.bias", torch.zeros(w.shape[1 if kind == "up" else 0]))
             _set(out, path, {"kernel": w, "bias": bias})
             continue
-        for i, (ci, bi) in enumerate(((0, 1), (3, 4)), start=1):
-            w = sd[f"{prefix}.double_conv.{ci}.weight"]
-            conv_bias = sd.get(f"{prefix}.double_conv.{ci}.bias", torch.tensor(0.0))
-            bn = f"{prefix}.double_conv.{bi}"
+        for jconv, _, tconv, tbn in CONV_BN[kind]:
+            w = sd[f"{prefix}.{tconv}.weight"]
+            conv_bias = sd.get(f"{prefix}.{tconv}.bias", torch.tensor(0.0))
+            bn = f"{prefix}.{tbn}"
             if f"{bn}.weight" in sd:
                 inv = sd[f"{bn}.weight"] * torch.rsqrt(sd[f"{bn}.running_var"] + _EPS)
                 leaf = {"kernel": w * inv.view(-1, 1, 1, 1),
@@ -149,7 +166,7 @@ def full_fold(state_dict: Dict[str, torch.Tensor],
                         + (conv_bias - sd[f"{bn}.running_mean"]) * inv}
             else:  # folded already
                 leaf = {"kernel": w, "bias": conv_bias.expand(w.shape[0]).clone()}
-            _set(out, f"{path}/conv{i}", leaf)
+            _set(out, f"{path}/{jconv}", leaf)
     return out
 
 
@@ -172,6 +189,27 @@ def _pad_to(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
     if dh or dw:
         x = F.pad(x, (0, 0, dw // 2, dw - dw // 2, dh // 2, dh - dh // 2))
     return x
+
+
+def _upsample2x_nhwc(x: torch.Tensor) -> torch.Tensor:
+    """The align-corners 2x upsample of an NHWC tensor (H, then W)."""
+    return interp_axis(interp_axis(x, 2 * x.shape[1], 1), 2 * x.shape[2], 2)
+
+
+def _gate_float(p, g, x, path):
+    """``models/attention.py::AttentionGate`` in folded float32 form, NHWC:
+    ``p`` holds the gate's folded ``{kernel, bias}`` leaves under ``path``,
+    ``g`` is the coarse gating signal and ``x`` the skip. Both executors run
+    it; the int8 one on dequantized operands."""
+    def conv(v, leaf):
+        return _nhwc(F.conv2d(_nchw(v), leaf["kernel"], leaf["bias"]))
+
+    gp = conv(g, _get(p, f"{path}/g/conv1"))
+    # W_x's stride 2 (a 1x1 kernel): the even rows and columns
+    xp = conv(x[:, ::2, ::2], _get(p, f"{path}/x/conv1"))[:, :gp.shape[1], :gp.shape[2]]
+    a = conv(torch.relu(gp + xp), _get(p, f"{path}/conv2"))
+    alpha = interp_axis(interp_axis(torch.sigmoid(a), x.shape[1], 1), x.shape[2], 2)
+    return x * alpha
 
 
 class _CalibExec:
@@ -203,15 +241,27 @@ class _CalibExec:
     def maxpool(self, x):
         return _nhwc(F.max_pool2d(_nchw(x), 2))
 
+    def _level_up(self, x, up_path):
+        """The transposed conv at ``up_path``, or the bilinear upsample
+        where the tree has none."""
+        if not _has(self.p, up_path):
+            return _upsample2x_nhwc(x)
+        leaf = _get(self.p, up_path)
+        return _nhwc(F.conv_transpose2d(_nchw(x), leaf["kernel"], leaf["bias"], stride=2))
+
     def up_block(self, x, skip, path, gated: bool = False):
-        if gated or not _has(self.p, f"{path}/up"):
-            raise NotImplementedError("attention gates and bilinear decoders "
-                                      "are not ported yet")
-        leaf = _get(self.p, f"{path}/up")
-        y = _nhwc(F.conv_transpose2d(_nchw(x), leaf["kernel"], leaf["bias"], stride=2))
-        y = self._tag(f"{path}/up", y)
+        if gated:  # the gating signal is the coarse (pre-upsample) x
+            skip = self._tag(f"{path}/att/out", _gate_float(self.p, x, skip, f"{path}/att"))
+        y = self._tag(f"{path}/up", self._level_up(x, f"{path}/up"))
         y = _pad_to(y, skip)
         return self.double_conv(torch.cat([skip, y], dim=-1), f"{path}/conv")
+
+    def fuse(self, below, row, path):
+        """UNet++ node X[i][j] (``path`` 'x{i}_{j}'): the level-up of
+        ``below`` (``up{i}_{j}``), concat with the dense row, DoubleConv."""
+        y = self._tag(f"{path}/up", self._level_up(below, "up" + path[1:]))
+        y = _pad_to(y, row[0])
+        return self.double_conv(torch.cat(list(row) + [y], dim=-1), path)
 
     def head(self, x, path, activation):
         leaf = _get(self.p, f"{path}/conv")
@@ -299,27 +349,46 @@ class _QuantExec:
         # max commutes with the (monotone) quantization: scale unchanged
         return x.reshape(n, h // 2, 2, w // 2, 2, c).amax(dim=(2, 4)), s
 
-    def up_block(self, xs, skips, path, gated: bool = False):
-        if gated or not _has(self.layers, f"{path}/up"):
-            raise NotImplementedError("attention gates and bilinear decoders "
-                                      "are not ported yet")
+    def _level_up(self, xs, up_path, s_cat):
+        """The level-up of int8 ``xs``, requantized straight to ``s_cat``:
+        the transposed conv's epilogue (one int8 matmul, then a pixel
+        shuffle), or the bilinear upsample as a float island on the
+        dequantized tensor where the tree has no ``up_path``."""
         x, s_in = xs
-        skip, s_skip = skips
-        c = self._leaf(f"{path}/up", s_in, "up")
+        if not _has(self.layers, up_path):
+            return self._requant(_upsample2x_nhwc(x.to(torch.float32)) * s_in, s_cat)
+        c = self._leaf(up_path, s_in, "up")
         n, h, w, cin = x.shape
         cout = c["cout"]
         acc = _int_matmul(x.reshape(-1, cin), c["kernel"], 4 * cout)
         y = acc.to(torch.float32) * c["scale"]
         y = y + c["bias"]
-        # Shared concat scale: the transposed conv's epilogue quantizes
-        # straight to it, the skip requants int8 -> int8.
-        s_cat = self.scales[f"{path}/cat"]
         q_up = self._requant(y, s_cat).view(n, h, w, 2, 2, cout)
-        q_up = q_up.permute(0, 1, 3, 2, 4, 5).reshape(n, 2 * h, 2 * w, cout)
-        q_up = _pad_to(q_up, skip)
-        q_skip = self._requant(skip.to(torch.float32) * s_skip, s_cat)
-        cat = torch.cat([q_skip, q_up], dim=-1)
+        return q_up.permute(0, 1, 3, 2, 4, 5).reshape(n, 2 * h, 2 * w, cout)
+
+    def up_block(self, xs, skips, path, gated: bool = False):
+        x, s_in = xs
+        skip, s_skip = skips
+        # Shared concat scale: the level-up quantizes straight to it, the
+        # skip requants int8 -> int8 (or, gated, from the float gate).
+        s_cat = self.scales[f"{path}/cat"]
+        if gated:  # the gate in float on dequantized operands
+            y = _gate_float(self.layers, x.to(torch.float32) * s_in,
+                            skip.to(torch.float32) * s_skip, f"{path}/att")
+        else:
+            y = skip.to(torch.float32) * s_skip
+        q_up = _pad_to(self._level_up(xs, f"{path}/up", s_cat), skip)
+        cat = torch.cat([self._requant(y, s_cat), q_up], dim=-1)
         return self.double_conv((cat, s_cat), f"{path}/conv")
+
+    def fuse(self, below_xs, row_xs, path):
+        """UNet++ node X[i][j] in int8: the level-up quantizes straight to
+        the node's concat scale, and each operand of the dense row requants
+        int8 -> int8 to it."""
+        s_cat = self.scales[f"{path}/cat"]
+        q_up = _pad_to(self._level_up(below_xs, "up" + path[1:], s_cat), row_xs[0][0])
+        parts = [self._requant(r.to(torch.float32) * s_r, s_cat) for r, s_r in row_xs]
+        return self.double_conv((torch.cat(parts + [q_up], dim=-1), s_cat), path)
 
     def head(self, xs, path, activation):
         x, s_in = xs
@@ -339,11 +408,12 @@ def _ladder_plan(arch: str, score_only: bool = False):
         plan += [("maxpool", f"p{i}", f"x{i}"),
                  ("double_conv", f"x{i + 1}", f"p{i}", f"encoder/down{i}/conv")]
     rows = _ARCH_HEADS[arch][:1] if score_only else _ARCH_HEADS[arch]
+    gated = arch in _GATED_ARCHS
     outs = []
     for dec, up, outc, act in rows:
         prev = "x5"
         for i, skip in enumerate(("x4", "x3", "x2", "x1"), 1):
-            plan.append(("up_block", f"{dec}/y{i}", prev, skip, f"{dec}/{up}{i}", False))
+            plan.append(("up_block", f"{dec}/y{i}", prev, skip, f"{dec}/{up}{i}", gated))
             prev = f"{dec}/y{i}"
         plan.append(("head", f"out/{outc}", prev, outc, act))
         outs.append(f"out/{outc}")
@@ -351,14 +421,49 @@ def _ladder_plan(arch: str, score_only: bool = False):
     return tuple(plan)
 
 
-def build_plan(arch: str, *, score_only: bool = False):
+def _unetpp_plan(deep_supervision: bool, heads: int):
+    """The UNet++ grid: exactly the nodes the requested output needs, X[i][j]
+    with i + j <= the last column (4, or ``heads`` for deep supervision's
+    pruned mode), then the head: ``outc`` on X[0][4]; with deep supervision
+    the average of the four heads (``heads`` 4) or head X[0][k] alone."""
+    if not 1 <= heads <= 4:
+        raise ValueError(f"heads must be in 1..4, got {heads}")
+    max_j = heads if deep_supervision else 4
+    plan = [("input", "t0")]
+    prev = "t0"
+    for i in range(max_j + 1):  # encoder column X[i][0]
+        if i > 0:
+            plan.append(("maxpool", f"p{i}", prev))
+            prev = f"p{i}"
+        plan.append(("double_conv", f"x{i}_0", prev, f"x{i}_0"))
+        prev = f"x{i}_0"
+    for j in range(1, max_j + 1):
+        for i in range(0, max_j - j + 1):
+            plan.append(("fuse", f"x{i}_{j}", f"x{i + 1}_{j - 1}",
+                         tuple(f"x{i}_{k}" for k in range(j)), f"x{i}_{j}"))
+    if not deep_supervision:
+        plan.append(("head", "out", "x0_4", "outc", "logits"))
+    elif heads < 4:
+        plan.append(("head", "out", f"x0_{heads}", f"outc_{heads}", "logits"))
+    else:
+        for j in range(1, 5):
+            plan.append(("head", f"out{j}", f"x0_{j}", f"outc_{j}", "logits"))
+        plan.append(("average", "out", tuple(f"out{j}" for j in range(1, 5))))
+    plan.append(("output", ("out",)))
+    return tuple(plan)
+
+
+def build_plan(arch: str, *, score_only: bool = False, deep_supervision: bool = False,
+               heads: int = 4):
     """Compile an architecture name into a flat op plan. Ops: ('input', dst) |
     ('double_conv', dst, src, path) | ('maxpool', dst, src) | ('up_block', dst,
-    src, skip, path, gated) | ('head', dst, src, path, act) | ('output',
+    src, skip, path, gated) | ('fuse', dst, below, (row...), path) | ('head',
+    dst, src, path, act) | ('average', dst, (srcs...)) | ('output',
     (srcs...)). ``score_only`` (anomaly_unet) runs the reconstruction ladder
-    alone, as the JAX score program does after dead-code elimination."""
-    if arch in ("unetpp", "attn_unet"):
-        raise NotImplementedError(f"int8 {arch!r} is not ported yet")
+    alone, as the JAX score program does after dead-code elimination;
+    ``deep_supervision`` and ``heads`` are UNet++'s."""
+    if arch == "unetpp":
+        return _unetpp_plan(deep_supervision, heads)
     if arch not in _ARCH_HEADS:
         raise ValueError(f"unknown arch {arch!r}")
     return _ladder_plan(arch, score_only)
@@ -380,8 +485,13 @@ def _run(exc, x, plan):
             env[op[1]] = exc.maxpool(env[op[2]])
         elif kind == "up_block":
             env[op[1]] = exc.up_block(env[op[2]], env[op[3]], op[4], gated=op[5])
+        elif kind == "fuse":
+            env[op[1]] = exc.fuse(env[op[2]], [env[r] for r in op[3]], op[4])
         elif kind == "head":
             env[op[1]] = exc.head(env[op[2]], op[3], op[4])
+        elif kind == "average":  # head outputs are float32 in both executors
+            outs = [env[r] for r in op[2]]
+            env[op[1]] = sum(outs) / len(outs)
         elif kind == "output":
             outs = [env[r] for r in op[1]]
             return outs[0] if len(outs) == 1 else tuple(outs)
@@ -398,13 +508,17 @@ def _run(exc, x, plan):
 def calibrate_absmax(arch: str, fparams: Dict[str, Any],
                      batches: Iterable[np.ndarray],
                      max_batches: int = 8,
-                     percentile: Optional[float] = None) -> Dict[str, float]:
+                     percentile: Optional[float] = None,
+                     deep_supervision: bool = False,
+                     heads: int = 4) -> Dict[str, float]:
     """Per-tensor activation ranges over calibration batches of uint8 NHWC
     images, on the device ``fparams`` lie on. Abs-max by default;
     ``percentile`` (e.g. 99.9) takes that percentile of |x| per batch instead.
     Batches combine with max. The whole plan is calibrated (both AnomalyUNet
-    decoders), so the scales serve the heatmap program too."""
-    plan = build_plan(arch)
+    decoders), so the scales serve the heatmap program too;
+    ``deep_supervision`` and ``heads`` select UNet++'s plan (heads 4, the
+    default, calibrates every node, which serves every pruned head)."""
+    plan = build_plan(arch, deep_supervision=deep_supervision, heads=heads)
     device = _tree_device(fparams)
     absmax: Dict[str, float] = {}
     for i, images in enumerate(batches):
@@ -438,7 +552,8 @@ def _quant_per_channel(kernel: torch.Tensor, dims) -> Tuple[torch.Tensor, torch.
 def quantize_model(arch: str, fparams: Dict[str, Any],
                    absmax: Dict[str, float]) -> Dict[str, Any]:
     """Build the int8 tree that make_quantized_forward consumes, on the
-    device ``fparams`` lie on."""
+    device ``fparams`` lie on. An attention gate's subtree (``att``) stays
+    in folded float32; a bilinear tree has no ``up`` leaf to quantize."""
     build_plan(arch)  # validates arch
     device = _tree_device(fparams)
     scales = {tag: _scale(v, device) for tag, v in absmax.items()
@@ -446,27 +561,39 @@ def quantize_model(arch: str, fparams: Dict[str, Any],
     for tag, v in absmax.items():  # shared concat scales
         if tag.endswith("/up"):
             path = tag[:-3]
-            scales[f"{path}/cat"] = _scale(max(absmax[_skip_relu_tag(path)], v), device)
+            m = _GRID_NODE.match(path)
+            if m:  # UNet++ node: the concat fuses the dense row and the level-up
+                i, j = int(m.group(1)), int(m.group(2))
+                operands = [absmax[f"x{i}_{k}/relu2"] for k in range(j)] + [v]
+            elif f"{path}/att/out" in absmax:  # the skip operand is the gated one
+                operands = [absmax[f"{path}/att/out"], v]
+            else:
+                operands = [absmax[_skip_relu_tag(path)], v]
+            scales[f"{path}/cat"] = _scale(max(operands), device)
 
-    layers: Dict[str, Any] = {}
-    for path, _, kind in ladder_layout(arch):
-        leaves = ([(f"{path}/conv1", "conv"), (f"{path}/conv2", "conv")]
-                  if kind == "double" else [(path, kind)])
-        for leaf_path, leaf_kind in leaves:
-            leaf = _get(fparams, leaf_path)
-            k = leaf["kernel"]
-            if leaf_kind == "up":  # (Cin, Cout, 2, 2) -> (Cin, 2, 2, Cout)
+    def walk(node):
+        out = {}
+        for name, child in node.items():
+            if name == "att":
+                out[name] = tree_to(child, device)  # a copy, kept float
+                continue
+            if "kernel" not in child:
+                out[name] = walk(child)
+                continue
+            k = child["kernel"]
+            if UP_LEAF.match(name):  # (Cin, Cout, 2, 2) -> (Cin, 2, 2, Cout)
                 q, s = _quant_per_channel(k, (0, 2, 3))
                 q = q.permute(0, 2, 3, 1)
-            elif leaf_kind == "head":  # (K, C, 1, 1) -> (C, K)
+            elif k.shape[2:] == (1, 1):  # head: (K, C, 1, 1) -> (C, K)
                 q, s = _quant_per_channel(k, (1, 2, 3))
                 q = q[:, :, 0, 0].t()
             else:  # OIHW -> OHWI
                 q, s = _quant_per_channel(k, (1, 2, 3))
                 q = q.permute(0, 2, 3, 1)
-            _set(layers, leaf_path, {"kernel": q.contiguous(), "w_scale": s,
-                                     "bias": leaf["bias"].clone()})
-    return {"layers": layers, "scales": scales}
+            out[name] = {"kernel": q.contiguous(), "w_scale": s, "bias": child["bias"].clone()}
+        return out
+
+    return {"layers": walk(fparams), "scales": scales}
 
 
 def _skip_relu_tag(up_path: str) -> str:
@@ -477,14 +604,18 @@ def _skip_relu_tag(up_path: str) -> str:
     return f"encoder/down{4 - i}/conv/relu2"
 
 
-def make_quantized_forward(arch: str, *, score_only: bool = False):
+def make_quantized_forward(arch: str, *, score_only: bool = False,
+                           deep_supervision: bool = False, heads: int = 4):
     """``fwd(qparams, images_u8) -> model outputs`` (float32 heads, NHWC).
 
     Output structure matches the float model's eval mode: ``(reconstruction,
     anomaly_map)`` for 'anomaly_unet' (the reconstruction alone with
-    ``score_only``), logits for 'unet'/'seg_unet'.
+    ``score_only``), logits for 'unet', 'seg_unet', 'attn_unet' and
+    'unetpp' (with deep supervision the mean of the four head logits at
+    ``heads`` 4, head X[0][k] alone at k < 4).
     """
-    plan = build_plan(arch, score_only=score_only)
+    plan = build_plan(arch, score_only=score_only, deep_supervision=deep_supervision,
+                      heads=heads)
 
     @torch.no_grad()
     def fwd(qparams, images_u8):
@@ -509,12 +640,15 @@ def quantize_from_train_state(arch: str, state_dict: Dict[str, torch.Tensor],
                               calib_batches: Iterable[np.ndarray],
                               max_batches: int = 8,
                               percentile: Optional[float] = None,
-                              device="cuda") -> Dict[str, Any]:
+                              device="cuda", deep_supervision: bool = False,
+                              heads: int = 4) -> Dict[str, Any]:
     """One-call PTQ: fold BN, calibrate activation scales on ``device``
-    (``cuda`` unless the caller asks for ``cpu``), quantize weights."""
+    (``cuda`` unless the caller asks for ``cpu``), quantize weights.
+    ``deep_supervision`` and ``heads`` select UNet++'s calibration plan."""
     fparams = tree_to(full_fold(state_dict, arch), resolve_device(device))
     absmax = calibrate_absmax(arch, fparams, calib_batches,
-                              max_batches=max_batches, percentile=percentile)
+                              max_batches=max_batches, percentile=percentile,
+                              deep_supervision=deep_supervision, heads=heads)
     return quantize_model(arch, fparams, absmax)
 
 
@@ -570,17 +704,16 @@ def make_quantized_seg_eval_step(num_classes: int, loss_cfg=None, arch: str = "s
     cm)``, the float step's contract, so ``validate_seg_epoch`` and the seg
     test CLIs run unchanged on int8 inference, on the device the qparams lie
     on. ``eval_transform`` (K1) runs once per batch and every 3x3 conv
-    through K2: 18 launches per batch for SegmentationUNet. One executor is
-    kept while the same qparams come back. ``arch`` 'seg_unet' or 'unet';
-    UNet++ (``deep_supervision``, ``heads``) is not ported.
+    through K2: 18 launches per batch for SegmentationUNet and the
+    attention UNet, 30 for UNet++ (6 with deep supervision and ``heads`` 1).
+    One executor is kept while the same qparams come back. ``arch``
+    'seg_unet', 'unet', 'attn_unet' or 'unetpp' (``deep_supervision``,
+    ``heads``: see :func:`make_quantized_forward`).
     """
     from tpu_unet_torch.train.steps import SegLossConfig, _as_tensor, seg_eval_outputs
 
-    if deep_supervision or heads != 4:
-        raise NotImplementedError("deep supervision and --heads are UNet++'s, which is "
-                                  "not ported yet")
     cfg = loss_cfg if loss_cfg is not None else SegLossConfig()
-    plan = build_plan(arch)
+    plan = build_plan(arch, deep_supervision=deep_supervision, heads=heads)
     cache: Dict[str, Any] = {}
 
     @torch.no_grad()

@@ -221,8 +221,10 @@ class AnomalyScorer:
                         with_heatmap: bool = False,
                         bucket_sizes: Optional[Sequence[int]] = None,
                         device="cuda") -> "AnomalyScorer":
-        """Build a scorer from an AnomalyUNet state_dict (reference names).
-        The float programs fold BN into the convs (``ops/fold_bn.py``).
+        """Build a scorer from an AnomalyUNet state_dict (reference names;
+        ``bilinear`` for bilinear decoders). The float programs fold BN into
+        the convs (``ops/fold_bn.py``); in int8 the bilinear upsamples run as
+        float islands (``ops/quantize.py``).
 
         ``qparams`` (from ``ops.quantize.load_qparams``) skips calibration;
         otherwise int8 calibrates on ``calib_images`` ((N, H, W, 3) uint8) in
@@ -233,8 +235,6 @@ class AnomalyScorer:
         """
         if quantize not in (None, "none", "int8"):
             raise ValueError(f"unsupported quantize mode {quantize!r}")
-        if bilinear:
-            raise NotImplementedError("bilinear decoders are not ported yet")
         _normalize_buckets(bucket_sizes, batch_size)  # fail before any model work
         device = resolve_device(device)
         if quantize == "int8":
@@ -255,7 +255,7 @@ class AnomalyScorer:
                 return _run(qexec, img, plans[with_amap])
         else:
             model = build_model("anomaly_unet", policy=get_policy(precision),
-                                base_features=base_features)
+                                base_features=base_features, bilinear=bilinear)
             model.load_state_dict(state_dict)
             fold_batchnorm(model.eval())
             model.to(device=device, memory_format=torch.channels_last)

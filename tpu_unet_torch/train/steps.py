@@ -247,12 +247,25 @@ def make_anomaly_eval_step(loss_cfg: AnomalyLossConfig = AnomalyLossConfig(),
 # Semantic segmentation (SegmentationUNet on Gear / KolektorSDD)
 # ---------------------------------------------------------------------------
 
-def _seg_logits(model, img: torch.Tensor, keep: Optional[torch.Tensor] = None
-                ) -> torch.Tensor:
-    """Model on NHWC ``img`` -> NHWC logits (a view of the NCHW output).
-    ``keep`` is SegmentationUNet's dropout draw; other models take none."""
+def _seg_logits(model, img: torch.Tensor, keep: Optional[torch.Tensor] = None):
+    """Model on NHWC ``img`` -> NHWC logits (a view of the NCHW output), or
+    a tuple of them (UNet++'s deep supervision heads in train mode).
+    ``keep`` is the bottleneck dropout's draw; models without one take none."""
     x = img.permute(0, 3, 1, 2)
-    return (model(x) if keep is None else model(x, keep=keep)).permute(0, 2, 3, 1)
+    out = model(x) if keep is None else model(x, keep=keep)
+    if isinstance(out, tuple):
+        return tuple(t.permute(0, 2, 3, 1) for t in out)
+    return out.permute(0, 2, 3, 1)
+
+
+def _seg_train_losses(logits, labels: torch.Tensor, loss_cfg: SegLossConfig):
+    """The loss dict of a train-mode forward, and the logits the predictions
+    come from. Deep supervision (a tuple of head logits): one loss per head,
+    averaged key by key, and the deepest head's logits."""
+    if not isinstance(logits, tuple):
+        return combined_segmentation_loss(logits, labels, **loss_cfg.kwargs()), logits
+    per = [combined_segmentation_loss(t, labels, **loss_cfg.kwargs()) for t in logits]
+    return {k: sum(p[k] for p in per) / len(per) for k in per[0]}, logits[-1]
 
 
 def seg_eval_outputs(logits: torch.Tensor, labels: torch.Tensor, num_classes: int,
@@ -337,7 +350,7 @@ class SegTrainStep:
                                        **self.aug_cfg.transform_kwargs())
             lbl = lbl[..., 0].to(torch.int64)
             logits = _seg_logits(model, img, None if keep is None else keep.to(device))
-            ld = combined_segmentation_loss(logits, lbl, **self.loss_cfg.kwargs())
+            ld, logits = _seg_train_losses(logits, lbl, self.loss_cfg)
             ld["total_loss"].backward()
             losses.append({k: v.detach() for k, v in ld.items()})
             if self.with_confusion:
@@ -362,10 +375,12 @@ def make_seg_train_step(num_classes: int, loss_cfg: SegLossConfig = SegLossConfi
     images_u8: (N, H, W, 3) uint8; labels: (N, H, W) integer class ids
     (uint8 as the datasets ship them). The image and its labels go through
     the paired augment (bilinear on the image, nearest on the labels), the
-    model in train mode (SegmentationUNet's bottleneck dropout under the
-    step's keep mask), the loss on float32 logits and one optimizer update.
-    The batch's confusion matrix comes from ``sliced_argmax`` of the
-    augmented batch's logits and stays on the device.
+    model in train mode (the bottleneck dropout under the step's keep mask),
+    the loss on float32 logits and one optimizer update. The batch's
+    confusion matrix comes from ``sliced_argmax`` of the augmented batch's
+    logits and stays on the device. With UNet++'s deep supervision the loss
+    is the mean of the four heads' losses, key by key, and the predictions
+    come from the deepest head (``logits[-1]``).
 
     ``grad_accum=G`` runs G microbatches in sequence, each with its own
     augment draws and dropout mask and its own batch statistics (the running

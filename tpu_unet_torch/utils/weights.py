@@ -21,7 +21,12 @@ Layouts: Conv2d HWIO <-> OIHW; ConvTranspose (kh, kw, in, out) <-> (in, out,
 kh, kw) with the flip above; BatchNorm scale/bias <-> weight/bias,
 batch_stats mean/var <-> running_mean/var. In qparams: 3x3 kernels (3, 3, Cin, Cout) <-> (Cout, 3, 3,
 Cin); transposed-conv kernels (2, 2, Cin, Cout) <-> (Cin, 2, 2, Cout), flipped
-as above; the 1x1 head matrices (C, K) stay as they are.
+as above; the 1x1 head matrices (C, K) stay as they are; an attention gate's
+leaves stay folded float32 convs (HWIO <-> OIHW, no ``w_scale``).
+
+Layer names: :func:`model_layout` lists each model's layers by JAX path and
+torch prefix, for the ladders with or without bilinear decoders and
+attention gates, and for UNet++'s grid with or without deep supervision.
 """
 
 from __future__ import annotations
@@ -32,14 +37,28 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-_UP_LEAF = re.compile(r"^up(\d+_\d+)?$")  # transposed-conv leaf names
+UP_LEAF = re.compile(r"^up(\d+_\d+)?$")  # transposed-conv leaf names
 
 
-def ladder_layout(model: str = "anomaly_unet") -> List[Tuple[str, str, str]]:
-    """``(jax_path, torch_prefix, kind)`` for every layer of a ladder model, in
-    forward order. ``kind`` is 'double' (a DoubleConv), 'up' (the k2s2
-    transposed conv) or 'head' (a 1x1 OutConv)."""
-    if model not in ("unet", "seg_unet", "anomaly_unet"):
+# (jax conv, jax bn, torch conv, torch bn) of each conv -> BN pair of a
+# layer kind, relative to the layer's path and prefix.
+CONV_BN = {
+    "double": (("conv1", "bn1", "double_conv.0", "double_conv.1"),
+               ("conv2", "bn2", "double_conv.3", "double_conv.4")),
+    "gate": (("g/conv1", "g/bn1", "g.conv1", "g.bn1"),
+             ("x/conv1", "x/bn1", "x.conv1", "x.bn1"),
+             ("conv2", "bn2", "conv2", "bn2")),
+}
+
+
+def ladder_layout(model: str = "anomaly_unet",
+                  bilinear: bool = False) -> List[Tuple[str, str, str]]:
+    """``(jax_path, torch_prefix, kind)`` for every layer of a ladder model
+    ('unet', 'seg_unet', 'anomaly_unet', 'attn_unet'), in forward order.
+    ``kind`` is 'double' (a DoubleConv), 'gate' (an attention gate), 'up'
+    (the k2s2 transposed conv, absent from bilinear decoders) or 'head' (a
+    1x1 OutConv)."""
+    if model not in ("unet", "seg_unet", "anomaly_unet", "attn_unet"):
         raise ValueError(f"unknown ladder model {model!r}")
     layers = [("encoder/inc", "inc", "double")]
     layers += [(f"encoder/down{i}/conv", f"down{i}.maxpool_conv.1", "double")
@@ -49,10 +68,41 @@ def ladder_layout(model: str = "anomaly_unet") -> List[Tuple[str, str, str]]:
             if model == "anomaly_unet" else (("decoder", "up", "", "outc"),))
     for dec, up, suffix, outc in rows:
         for i in range(1, 5):
-            layers.append((f"{dec}/{up}{i}/up", f"up{i}{suffix}.up", "up"))
+            if model == "attn_unet":
+                layers.append((f"{dec}/{up}{i}/att", f"up{i}{suffix}.att", "gate"))
+            if not bilinear:
+                layers.append((f"{dec}/{up}{i}/up", f"up{i}{suffix}.up", "up"))
             layers.append((f"{dec}/{up}{i}/conv", f"up{i}{suffix}.conv", "double"))
         layers.append((f"{outc}/conv", f"{outc}.conv", "head"))
     return layers
+
+
+def model_layout(model: str = "anomaly_unet", bilinear: bool = False,
+                 deep_supervision: bool = False) -> List[Tuple[str, str, str]]:
+    """:func:`ladder_layout`, and for 'unetpp' the nested grid: nodes
+    ``x{i}_{j}``, level-up convs ``up{i}_{j}`` (not bilinear) and the head
+    ``outc`` or, with deep supervision, ``outc_1``..``outc_4``; JAX paths and
+    torch prefixes are the same names."""
+    if model != "unetpp":
+        return ladder_layout(model, bilinear)
+    layers = []
+    for j in range(5):
+        for i in range(5 - j):
+            if j and not bilinear:
+                layers.append((f"up{i}_{j}", f"up{i}_{j}", "up"))
+            layers.append((f"x{i}_{j}", f"x{i}_{j}", "double"))
+    heads = [f"outc_{j}" for j in range(1, 5)] if deep_supervision else ["outc"]
+    return layers + [(f"{h}/conv", f"{h}.conv", "head") for h in heads]
+
+
+def layout_of(model: str, names) -> List[Tuple[str, str, str]]:
+    """:func:`model_layout` of the model whose state_dict keys are ``names``:
+    bilinear when it has no transposed conv, deep supervision when it has
+    ``outc_1``."""
+    names = set(names)
+    bilinear = not any(n.endswith(".up.weight") or re.fullmatch(r"up\d+_\d+\.weight", n)
+                       for n in names)
+    return model_layout(model, bilinear, "outc_1.conv.weight" in names)
 
 
 def _get(tree, path: str):
@@ -66,10 +116,9 @@ def _f32(v) -> torch.Tensor:
 
 
 def state_dict_from_jax(params, batch_stats, model: str = "anomaly_unet",
-                        bilinear: bool = False) -> Dict[str, torch.Tensor]:
+                        bilinear: bool = False,
+                        deep_supervision: bool = False) -> Dict[str, torch.Tensor]:
     """JAX (params, batch_stats) trees (numpy leaves) -> the port's state_dict."""
-    if bilinear:
-        raise NotImplementedError("bilinear decoders are not ported yet")
     sd: Dict[str, torch.Tensor] = {}
 
     def conv(leaf, prefix, axes):
@@ -77,14 +126,14 @@ def state_dict_from_jax(params, batch_stats, model: str = "anomaly_unet",
         if "bias" in leaf:
             sd[f"{prefix}.bias"] = _f32(leaf["bias"])
 
-    for path, prefix, kind in ladder_layout(model):
+    for path, prefix, kind in model_layout(model, bilinear, deep_supervision):
         p = _get(params, path)
-        if kind == "double":
+        if kind in CONV_BN:
             s = _get(batch_stats, path)
-            for i, (ci, bi) in enumerate(((0, 1), (3, 4)), start=1):
-                conv(p[f"conv{i}"], f"{prefix}.double_conv.{ci}", (3, 2, 0, 1))
-                bn, st = p[f"bn{i}"], s[f"bn{i}"]
-                bp = f"{prefix}.double_conv.{bi}"
+            for jconv, jbn, tconv, tbn in CONV_BN[kind]:
+                conv(_get(p, jconv), f"{prefix}.{tconv}", (3, 2, 0, 1))
+                bn, st = _get(p, jbn), _get(s, jbn)
+                bp = f"{prefix}.{tbn}"
                 sd[f"{bp}.weight"] = _f32(bn["scale"])
                 sd[f"{bp}.bias"] = _f32(bn["bias"])
                 sd[f"{bp}.running_mean"] = _f32(st["mean"])
@@ -103,8 +152,9 @@ def jax_trees_from_state_dict(tensors: Dict[str, torch.Tensor],
     ``(params, batch_stats)`` trees with numpy float32 leaves, transposed-conv
     kernels flipped back. ``tensors`` is a state_dict, or any map from the
     same names to tensors of the same shapes (the parameters' gradients, for
-    instance); ``batch_stats`` is filled where the running statistics are
-    present."""
+    instance); the layout (bilinear, deep supervision) is read from the
+    names (:func:`layout_of`), and ``batch_stats`` is filled where the
+    running statistics are present."""
     params: Dict = {}
     stats: Dict = {}
 
@@ -124,16 +174,15 @@ def jax_trees_from_state_dict(tensors: Dict[str, torch.Tensor],
             leaf["bias"] = arr(f"{prefix}.bias")
         return leaf
 
-    for path, prefix, kind in ladder_layout(model):
-        if kind == "double":
-            for i, (ci, bi) in enumerate(((0, 1), (3, 4)), start=1):
-                bp = f"{prefix}.double_conv.{bi}"
-                put(params, f"{path}/conv{i}",
-                    conv(f"{prefix}.double_conv.{ci}", (2, 3, 1, 0)))
-                put(params, f"{path}/bn{i}", {"scale": arr(f"{bp}.weight"),
+    for path, prefix, kind in layout_of(model, tensors):
+        if kind in CONV_BN:
+            for jconv, jbn, tconv, tbn in CONV_BN[kind]:
+                bp = f"{prefix}.{tbn}"
+                put(params, f"{path}/{jconv}", conv(f"{prefix}.{tconv}", (2, 3, 1, 0)))
+                put(params, f"{path}/{jbn}", {"scale": arr(f"{bp}.weight"),
                                               "bias": arr(f"{bp}.bias")})
                 if f"{bp}.running_mean" in tensors:
-                    put(stats, f"{path}/bn{i}", {"mean": arr(f"{bp}.running_mean"),
+                    put(stats, f"{path}/{jbn}", {"mean": arr(f"{bp}.running_mean"),
                                                  "var": arr(f"{bp}.running_var")})
         elif kind == "up":  # flax ConvTranspose == torch's with a flipped kernel
             put(params, path, conv(prefix, (2, 3, 0, 1), flip=True))
@@ -157,7 +206,7 @@ def _map_layers(node, fn):
 def _kernel_to_port(name: str, k: np.ndarray) -> np.ndarray:
     if k.ndim == 2:
         return k  # head matrix (C, K)
-    if _UP_LEAF.match(name):  # (2, 2, Cin, Cout) -> flipped (Cin, 2, 2, Cout)
+    if UP_LEAF.match(name):  # (2, 2, Cin, Cout) -> flipped (Cin, 2, 2, Cout)
         return np.transpose(k[::-1, ::-1], (2, 0, 1, 3))
     return np.transpose(k, (3, 0, 1, 2))  # HWIO -> OHWI
 
@@ -165,7 +214,7 @@ def _kernel_to_port(name: str, k: np.ndarray) -> np.ndarray:
 def _kernel_to_jax(name: str, k: np.ndarray) -> np.ndarray:
     if k.ndim == 2:
         return k
-    if _UP_LEAF.match(name):
+    if UP_LEAF.match(name):
         return np.transpose(k, (1, 2, 0, 3))[::-1, ::-1]
     return np.transpose(k, (1, 2, 3, 0))
 
@@ -175,6 +224,9 @@ def qparams_from_numpy(tree) -> Dict:
     ``{"layers": {... {"kernel", "w_scale", "bias"}}, "scales": {tag: 0-dim
     float32 tensor}}`` on the CPU, kernels in K2's layout."""
     def leaf(name, child):
+        if "w_scale" not in child:  # an attention gate's folded float conv: OIHW
+            k = np.transpose(np.asarray(child["kernel"]), (3, 2, 0, 1))
+            return {"kernel": _f32(np.ascontiguousarray(k)), "bias": _f32(child["bias"])}
         k = _kernel_to_port(name, np.asarray(child["kernel"]))
         return {"kernel": torch.from_numpy(np.array(k, np.int8, order="C")),
                 "w_scale": _f32(child["w_scale"]), "bias": _f32(child["bias"])}
@@ -186,6 +238,9 @@ def qparams_from_numpy(tree) -> Dict:
 def qparams_to_numpy(qparams) -> Dict:
     """Inverse of :func:`qparams_from_numpy`: the JAX layout, numpy leaves."""
     def leaf(name, child):
+        if "w_scale" not in child:
+            k = np.transpose(child["kernel"].cpu().numpy(), (2, 3, 1, 0))
+            return {"kernel": np.ascontiguousarray(k), "bias": child["bias"].cpu().numpy()}
         k = _kernel_to_jax(name, child["kernel"].cpu().numpy())
         return {"kernel": np.ascontiguousarray(k),
                 "w_scale": child["w_scale"].cpu().numpy(),
