@@ -90,6 +90,29 @@
    then test_gear in bf16 and int8. K1 and K2 are held bit for bit at the
    seg shapes in phases 2 and 3 (K1 at (8,1024,512,3) and (8,512,512,3), K2
    at SegmentationUNet's 18 convs at 1024 x 512 and 512², b8).
+10. The model extensions at full width on the same trees: UNet++ with deep
+   supervision on Gear (3 epochs, tested in bf16, f32 --fold_bn and int8 at
+   --heads 4 and 1), the attention UNet on KolektorSDD (3 epochs, 3 test
+   modes), bilinear AnomalyUNet serving, and base 8 on the CPU against the
+   card.
+11. The serving surface through the port's entry points, with seeded weights
+   whose BN is warmed: SegmentationPredictor at serve_seg's defaults
+   (SegmentationUNet base 64, 4 classes, 512², b16) in f32 --fold_bn, bf16
+   and int8, and at KolektorSDD's 1024 x 512 b8 with 3 classes (img/s, batch-1
+   p50/p95 latency, K1 once and K2 18 times per int8 batch, int8 masks and
+   confidences bit for bit those of the plain K1/K2 forward, bf16 and int8
+   against f32); UNet++ at --heads 1 and the attention UNet in int8 (K2 6 and
+   18 per batch, bit for bit); the 512² model over 1024² images in a 3 x 3
+   tile grid (bf16 and int8, K1 once and K2 18 per tile batch; one tile the
+   size of the image equals the untiled engine exactly); the HTTP daemon
+   (make_server on 127.0.0.1:0) over the bf16 seg engine with buckets
+   (1, 4, 16) and the int8 AnomalyScorer with its heatmap, 64 PNG requests
+   from 16 client threads each (every response equal to its flush's engine
+   output; request p50/p95; flush sizes read from /metrics), and a burst
+   against max_queue 2 (503s counted by /healthz); artifacts of the bucketed
+   bf16 and the int8 seg engines and of the int8 scorer exported and loaded
+   (MB, export and load seconds, launches through the loaded programs,
+   outputs bit for bit the live engines').
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit
 (nvidia-smi), and as the last line ``{"ok": true, "device": {...}}``; the
@@ -124,9 +147,11 @@ ODD_CONVS = [(1, 10, 20, 32, 16), (2, 70, 70, 64, 64), (1, 5, 3, 3, 16),
              (1, 9, 130, 3, 80), (1, 3, 3, 32, 128), (2, 17, 33, 96, 144),
              (1, 6, 7, 2, 32), (1, 16, 24, 32, 8), (2, 20, 12, 8, 24), (1, 17, 9, 3, 12)]
 # The seg eval batch (the JAX CLIs' --batch_size 8), and the input shapes of
-# K1 there: KolektorSDD at 1024 x 512, Gear at 512 x 512.
+# K1 there: KolektorSDD at 1024 x 512, Gear at 512 x 512; then serve_seg's
+# batch (16 at 512²) and its tile batch (2 images of 1024² in 9 tiles each).
 SEG_BATCH = 8
-SEG_K1_SHAPES = [(SEG_BATCH, 1024, 512, 3), (SEG_BATCH, 512, 512, 3)]
+SEG_K1_SHAPES = [(SEG_BATCH, 1024, 512, 3), (SEG_BATCH, 512, 512, 3),
+                 (16, 512, 512, 3), (18, 512, 512, 3)]
 # (H, W, Cin, Cout) of SegmentationUNet's 18 3x3 convs at base 64, in order:
 # encoder inc, down1..down4, then the one decoder up1..up4; at KolektorSDD's
 # 1024 x 512 and at Gear's 512 x 512.
@@ -2054,6 +2079,506 @@ def phase_extensions(torch, np, report, tmp):
     return legs
 
 
+# Phase 11: the serving surface. serve_seg's defaults (SegmentationUNet base 64,
+# 4 classes, 512², b16) and KolektorSDD's (1024 x 512, b8, 3 classes); the
+# tiled extent is chosen (Gear's native size is not in the repo): 1024² images
+# in 512² tiles overlapping by 64 px, a 3 x 3 grid.
+SERVE_HW, SERVE_BATCH = (512, 512), 16
+KSDD_SERVE_HW, KSDD_SERVE_BATCH = (1024, 512), 8
+TILED_HW, TILED_BATCH, TILE_OVERLAP = (1024, 1024), 2, 64
+DAEMON_REQUESTS, DAEMON_CLIENTS = 64, 16
+# Shares of served pixels whose class differs from the f32 --fold_bn engine's,
+# about 5x what an H100 run measured (bf16 9.2e-3 and 7.2e-3, int8 5.8e-2 and
+# 4.2e-2 at 512² and 1024 x 512). The weights are seeded, not trained, so the
+# class logits sit close together and a rounding flips many argmaxes; the int8
+# forwards are held bit for bit against the plain K1/K2 forward besides.
+SERVE_MAX_DISAGREE = {"seg_bf16": 0.05, "seg_int8": 0.3, "ksdd_bf16": 0.04,
+                      "ksdd_int8": 0.2}
+
+
+def synth_hw(torch, n, hw, seed):
+    """synth_images' textures cut to (h, w)."""
+    return synth_images(torch, n, max(hw), seed, "cuda")[:, :hw[0], :hw[1]].copy()
+
+
+def warm_seg_state_dict(torch, name, n_classes, hw, seed=0, **kw):
+    """A full-width seg model (base 64) from ``seed`` with BN statistics
+    warmed on synthetic ``hw`` images (the cumulative mean of 3 batches of
+    4); its state_dict on the CPU."""
+    from tpu_unet_torch.models import build_model
+    from tpu_unet_torch.ops.kernels.preprocess import normalize_u8
+
+    torch.manual_seed(seed)
+    model = build_model(name, n_classes=n_classes, base_features=64, dropout=0.0, **kw).to(
+        "cuda", memory_format=torch.channels_last)
+    for m in model.modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            m.momentum = None
+    model.train()
+    with torch.no_grad():
+        for i in range(3):
+            imgs = torch.from_numpy(synth_hw(torch, 4, hw, 50 + seed + i)).cuda()
+            model(normalize_u8(imgs).permute(0, 3, 1, 2))
+    return {k: v.cpu() for k, v in model.state_dict().items()}
+
+
+def _launches():
+    from tpu_unet_torch.ops.kernels.int8_conv import conv3x3_int8
+    from tpu_unet_torch.ops.kernels.preprocess import normalize_u8
+    return {"normalize_u8": normalize_u8.launches, "conv3x3_int8": conv3x3_int8.launches}
+
+
+def _zero_launches():
+    from tpu_unet_torch.ops.kernels.int8_conv import conv3x3_int8
+    from tpu_unet_torch.ops.kernels.preprocess import normalize_u8
+    normalize_u8.launches = conv3x3_int8.launches = 0
+
+
+def _serve_leg(np, legs, name, engine, images, k2_per_batch):
+    """``engine.predict_array(images)`` with the launch counters zeroed just
+    before and read just after: K1 once and K2 ``k2_per_batch`` times per
+    batch; masks of the image shape with valid classes, finite confidences."""
+    _zero_launches()
+    masks, confs = engine.predict_array(images)
+    legs[name] = _launches()
+    n_batches = -(-len(images) // engine.batch_size)
+    want = {"normalize_u8": n_batches, "conv3x3_int8": k2_per_batch * n_batches}
+    check(legs[name] == want, f"{name} launched {legs[name]} (want {want})")
+    check(masks.shape == (len(images), *engine.image_size_hw) and masks.dtype == np.uint8
+          and int(masks.max()) < engine.num_classes and np.isfinite(confs).all()
+          and confs.shape == (len(images),), f"{name}: bad outputs")
+    return masks, confs
+
+
+def _plain_predict(torch, qparams, plan, images_u8, tiling=None):
+    """The int8 predictor's function with K1's and K2's plain versions on the
+    card: (masks, mean confidences); ``tiling`` (image_hw, tile_hw, overlap)."""
+    from tpu_unet_torch.ops import quantize as tq
+    from tpu_unet_torch.ops.kernels.preprocess import normalize_u8_plain
+    from tpu_unet_torch.ops.seg_head import sliced_pred_confidence
+    from tpu_unet_torch.ops.tiling import make_tiled_logits_fn
+
+    exc = plain_k2_exec(qparams)
+
+    def apply(x):
+        return tq._run(exc, normalize_u8_plain(x), plan)
+
+    fn = apply if tiling is None else make_tiled_logits_fn(apply, *tiling)
+    with torch.inference_mode():
+        preds, conf = sliced_pred_confidence(fn(torch.from_numpy(images_u8).cuda()))
+        return preds.cpu().numpy(), conf.mean(dim=(1, 2)).cpu().numpy()
+
+
+def _check_plain(torch, np, name, engine, plan, images, got, tiling=None):
+    masks, confs = _plain_predict(torch, engine.qparams, plan, images, tiling)
+    n = len(images)
+    check(np.array_equal(masks, got[0][:n]) and np.array_equal(confs, got[1][:n]),
+          f"{name}: masks or confidences differ from the plain K1/K2 forward")
+
+
+def _serve_models(torch, np, out, legs):
+    """(a) SegmentationUNet at serve_seg's defaults and at KolektorSDD's, in
+    f32 --fold_bn, bf16 and int8; (b) UNet++ at --heads 1 and the attention
+    UNet in int8; (c) tiling. Returns the 512² engines and state_dict."""
+    from tpu_unet_torch.ops.quantize import build_plan
+    from tpu_unet_torch.serve import SegmentationPredictor
+
+    r = out.setdefault("predictor", {})
+    keep = {}
+    for ds, hw, batch, classes in (("seg", SERVE_HW, SERVE_BATCH, 4),
+                                   ("ksdd", KSDD_SERVE_HW, KSDD_SERVE_BATCH, 3)):
+        t0 = time.perf_counter()
+        sd = warm_seg_state_dict(torch, "seg_unet", classes, hw)
+        kw = dict(num_classes=classes, image_size_hw=hw, batch_size=batch, device="cuda")
+        engines = {
+            "f32": SegmentationPredictor.from_state_dict(sd, precision="f32", **kw),
+            "bf16": SegmentationPredictor.from_state_dict(sd, precision="bf16", **kw),
+            "int8": SegmentationPredictor.from_state_dict(
+                sd, quantize="int8", calib_images=synth_hw(torch, 16, hw, 60), **kw)}
+        images = synth_hw(torch, 2 * batch, hw, 61)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        res = {m: _serve_leg(np, legs, f"serve_{ds}_{m}", e, images, 18 if m == "int8" else 0)
+               for m, e in engines.items()}
+        _check_plain(torch, np, f"serve_{ds}_int8", engines["int8"], build_plan("seg_unet"),
+                     images[:batch], res["int8"])
+        leg = r[ds] = {"setup_s": setup_s, "int8_equal_plain": True}
+        for m in ("bf16", "int8"):
+            leg[f"disagree_{m}_f32"] = float((res[m][0] != res["f32"][0]).mean())
+        for m, e in engines.items():
+            b1 = SegmentationPredictor.from_state_dict(
+                sd, **{**kw, "batch_size": 1},
+                **({"quantize": "int8", "qparams": e.qparams} if m == "int8"
+                   else {"precision": m}))
+            leg[m] = {"img_per_s": e.throughput(n_batches=10),
+                      "latency_b1_ms": b1.latency_ms(n_iters=20)}
+            del b1
+        print(f"[serve] SegmentationUNet {hw[0]}x{hw[1]} b{batch}, {classes} classes: "
+              + "; ".join(f"{m} {leg[m]['img_per_s']:.1f} img/s, b1 p50 "
+                          f"{leg[m]['latency_b1_ms']['p50_ms']} ms p95 "
+                          f"{leg[m]['latency_b1_ms']['p95_ms']} ms" for m in engines)
+              + f"; K1 2 and K2 0/0/36 for 2 batches; int8 bit for bit the plain K1/K2 "
+              f"forward; pixels differing from f32: bf16 {leg['disagree_bf16_f32']:.3g}, int8 "
+              f"{leg['disagree_int8_f32']:.3g} (set-up {setup_s:.1f} s)", flush=True)
+        for m in ("bf16", "int8"):
+            share = leg[f"disagree_{m}_f32"]
+            check(share <= SERVE_MAX_DISAGREE[f"{ds}_{m}"],
+                  f"serve_{ds} {m} masks differ from f32's on {share:.3g} of the pixels")
+        if ds == "seg":
+            keep = {"sd": sd, "engines": engines, "images": images}
+        else:
+            del engines
+    torch.cuda.empty_cache()
+
+    # (b) UNet++ with deep supervision at --heads 1, and the attention UNet, in int8.
+    for name, model_kw, pred_kw, k2 in (
+            ("unetpp_heads1", {"deep_supervision": True},
+             {"model_name": "unetpp", "deep_supervision": True, "heads": 1}, 6),
+            ("attn", {}, {"model_name": "attn_unet"}, 18)):
+        arch = pred_kw["model_name"]
+        sd = warm_seg_state_dict(torch, arch, 4, SERVE_HW, seed=1, **model_kw)
+        e = SegmentationPredictor.from_state_dict(
+            sd, quantize="int8", calib_images=synth_hw(torch, 16, SERVE_HW, 62),
+            num_classes=4, image_size_hw=SERVE_HW, batch_size=SERVE_BATCH, device="cuda",
+            **pred_kw)
+        images = synth_hw(torch, 2 * SERVE_BATCH, SERVE_HW, 63)
+        got = _serve_leg(np, legs, f"serve_{name}_int8", e, images, k2)
+        plan = build_plan(arch, deep_supervision=pred_kw.get("deep_supervision", False),
+                          heads=pred_kw.get("heads", 4))
+        _check_plain(torch, np, f"serve_{name}_int8", e, plan, images[:SERVE_BATCH], got)
+        r[name] = {"int8_img_per_s": e.throughput(n_batches=10), "int8_equal_plain": True}
+        print(f"[serve] {arch} {pred_kw} int8 512² b16: {r[name]['int8_img_per_s']:.1f} img/s; "
+              f"K1 2 and K2 {2 * k2} for 2 batches; bit for bit the plain K1/K2 forward",
+              flush=True)
+        del e
+    torch.cuda.empty_cache()
+
+    # (c) The 512² model over 1024² images: 9 tiles per image, 18 per batch of 2.
+    sd, engines = keep["sd"], keep["engines"]
+    tkw = dict(num_classes=4, image_size_hw=TILED_HW, batch_size=TILED_BATCH, device="cuda",
+               tile_hw=SERVE_HW, tile_overlap=TILE_OVERLAP)
+    tiled = {"bf16": SegmentationPredictor.from_state_dict(sd, precision="bf16", **tkw),
+             "int8": SegmentationPredictor.from_state_dict(
+                 sd, quantize="int8", qparams=engines["int8"].qparams, **tkw)}
+    images = synth_hw(torch, 2 * TILED_BATCH, TILED_HW, 64)
+    res = {m: _serve_leg(np, legs, f"serve_tiled_{m}", e, images, 18 if m == "int8" else 0)
+           for m, e in tiled.items()}
+    _check_plain(torch, np, "serve_tiled_int8", tiled["int8"], build_plan("seg_unet"),
+                 images[:TILED_BATCH], res["int8"], (TILED_HW, SERVE_HW, TILE_OVERLAP))
+    one = {m: SegmentationPredictor.from_state_dict(
+        sd, num_classes=4, image_size_hw=SERVE_HW, batch_size=SERVE_BATCH, device="cuda",
+        tile_hw=SERVE_HW, tile_overlap=TILE_OVERLAP,
+        **({"quantize": "int8", "qparams": engines["int8"].qparams} if m == "int8"
+           else {"precision": m})) for m in ("bf16", "int8")}
+    for m, e in one.items():
+        a, b = e.predict_array(keep["images"]), engines[m].predict_array(keep["images"])
+        check(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1]),
+              f"{m}: one 512² tile differs from the untiled engine")
+    r["tiled"] = {"grid": "3x3", "tiles_per_batch": 9 * TILED_BATCH,
+                  "one_tile_equals_untiled": True, "int8_equal_plain": True,
+                  **{f"{m}_img_per_s": e.throughput(n_batches=5) for m, e in tiled.items()}}
+    print(f"[serve] tiled {TILED_HW[0]}² in 512² tiles, overlap {TILE_OVERLAP} (3x3 grid, "
+          f"{9 * TILED_BATCH} tiles per batch of {TILED_BATCH}): bf16 "
+          f"{r['tiled']['bf16_img_per_s']:.2f} img/s, int8 {r['tiled']['int8_img_per_s']:.2f} "
+          f"img/s; K1 1 and K2 18 per tile batch; int8 bit for bit the plain K1/K2 tiled "
+          f"forward; one 512² tile equals the untiled engine in bf16 and int8", flush=True)
+    return keep
+
+
+def _png_bytes(arr):
+    import io
+
+    from PIL import Image
+    buf = io.BytesIO()
+    Image.fromarray(arr).save(buf, format="PNG")
+    return buf.getvalue()
+
+
+def _png_array(b64):
+    import base64
+    import io
+
+    import numpy as np
+    from PIL import Image
+    return np.asarray(Image.open(io.BytesIO(base64.b64decode(b64))))
+
+
+def _http(port, method, path, body=None):
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=300)
+    try:
+        t0 = time.perf_counter()
+        conn.request(method, path, body=body)
+        r = conn.getresponse()
+        data = r.read()
+        return r.status, dict(r.getheaders()), data, (time.perf_counter() - t0) * 1e3
+    finally:
+        conn.close()
+
+
+def _engine_counters(metrics_text):
+    """The engine batch and request counters of a /metrics text."""
+    counters = {}
+    for line in metrics_text.splitlines():
+        if line.startswith(("tpu_unet_engine_batches_total", "tpu_unet_engine_requests_total")):
+            key, value = line.rsplit(" ", 1)
+            counters[key] = int(value)
+    return counters
+
+
+def _recording(batcher, log):
+    """Record each flush's image stack and results (the batcher's run_batch)."""
+    inner = batcher._run
+
+    def run(images):
+        results = inner(images)
+        log.append((images.copy(), results))
+        return results
+
+    batcher._run = run
+
+
+def _daemon_leg(torch, np, out, legs, name, service, requests):
+    """``requests`` ((path, image) pairs) from DAEMON_CLIENTS threads against
+    make_server on 127.0.0.1:0. Every response must equal its row of its
+    flush's results, and the engine run again on each flush's stack must
+    give those results bit for bit. Returns the per-request latencies."""
+    import json
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from tpu_unet_torch.serve_http import make_server
+
+    logs = {"main": []}
+    _recording(service.batcher, logs["main"])
+    if service.heatmap_batcher is not None:
+        logs["heatmap"] = []
+        _recording(service.heatmap_batcher, logs["heatmap"])
+    server = make_server(service, host="127.0.0.1", port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    port = server.server_address[1]
+    try:
+        bodies = [(path, _png_bytes(img)) for path, img in requests]
+        before = _engine_counters(_http(port, "GET", "/metrics")[2].decode())
+        _zero_launches()
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(DAEMON_CLIENTS) as pool:
+            replies = list(pool.map(lambda pb: _http(port, "POST", pb[0], pb[1]), bodies))
+        wall = time.perf_counter() - t0
+        legs[name] = _launches()
+        metrics = _http(port, "GET", "/metrics")[2].decode()
+        meta = json.loads(_http(port, "GET", "/healthz")[2])
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    check(all(r[0] == 200 for r in replies), f"{name}: statuses {[r[0] for r in replies]}")
+    engine = service.engine
+    rows = {}
+    for prog, log in logs.items():
+        for stack, results in log:
+            if prog == "main" and service.kind == "segmentation_predictor":
+                again = list(zip(*engine.predict_array(stack)))
+            elif prog == "main":
+                again = list(engine.score_array(stack))
+            else:
+                again = list(zip(*engine.heatmap_array(stack)))
+            for img, res, res2 in zip(stack, results, again):
+                same = (np.array_equal(res[0], res2[0]) and np.array_equal(res[1], res2[1])
+                        if isinstance(res, tuple) else res == res2)
+                check(same, f"{name}: a flush's results differ from the engine run again")
+                rows[(prog, img.tobytes())] = res
+    for (path, img), reply in zip(requests, replies):
+        r = json.loads(reply[2])
+        if path == "/v1/predict":
+            mask, conf = rows[("main", img.tobytes())]
+            ok = (np.array_equal(_png_array(r["mask_png_base64"]), mask)
+                  and r["mean_confidence"] == float(conf))
+        elif path == "/v1/score":
+            ok = r["score"] == float(rows[("main", img.tobytes())])
+        else:
+            score, heat = rows[("heatmap", img.tobytes())]
+            ok = r["score"] == float(score) and np.array_equal(
+                _png_array(r["heatmap_png_base64"]), heat)
+        check(ok, f"{name}: a response differs from the engine's output for its image")
+    lat = np.array([rep[3] for rep in replies])
+    flushes = {prog: [len(s) for s, _ in log] for prog, log in logs.items()}
+    counters = {k: v - before.get(k, 0) for k, v in _engine_counters(metrics).items()}
+    for prog, sizes in flushes.items():
+        check(counters[f'tpu_unet_engine_batches_total{{program="{prog}"}}'] == len(sizes)
+              and counters[f'tpu_unet_engine_requests_total{{program="{prog}"}}'] == sum(sizes),
+              f"{name}: /metrics disagrees with the flushes of {prog}")
+    r = {"requests": len(requests), "clients": DAEMON_CLIENTS, "wall_s": wall,
+         "request_p50_ms": float(np.percentile(lat, 50)),
+         "request_p95_ms": float(np.percentile(lat, 95)),
+         "flush_sizes": flushes, "metrics_counters_during_requests": counters,
+         "requests_served": meta["requests_served"], "launches": legs[name]}
+    out[name] = r
+    print(f"[serve] daemon {name}: {len(requests)} PNG requests from {DAEMON_CLIENTS} client "
+          f"threads in {wall:.2f} s, request p50 {r['request_p50_ms']:.1f} ms p95 "
+          f"{r['request_p95_ms']:.1f} ms; flushes (from /metrics) "
+          + ", ".join(f"{p}: {len(s)} of mean size {sum(s) / len(s):.2f}"
+                      for p, s in flushes.items())
+          + f"; launches {legs[name]}; every response equals its flush's engine output",
+          flush=True)
+    return flushes
+
+
+def _overload(torch, np, out, engine):
+    """max_queue 2 with the engine held: a burst of DAEMON_CLIENTS requests
+    gets 503s with Retry-After, as many as /healthz counts rejected."""
+    import json
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from tpu_unet_torch.serve_http import ServingService, make_server
+
+    service = ServingService(engine, max_wait_ms=0, max_queue=2)
+    gate, entered = threading.Event(), threading.Event()
+    inner = service.batcher._run
+
+    def held(images):
+        entered.set()
+        gate.wait(timeout=120)
+        return inner(images)
+
+    service.batcher._run = held
+    server = make_server(service, host="127.0.0.1", port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    port = server.server_address[1]
+    body = _png_bytes(synth_hw(torch, 1, engine.image_size_hw, 70)[0])
+    try:
+        with ThreadPoolExecutor(DAEMON_CLIENTS) as pool:
+            first = pool.submit(_http, port, "POST", "/v1/predict", body)
+            check(entered.wait(timeout=120), "overload: the first request never ran")
+            burst = [pool.submit(_http, port, "POST", "/v1/predict", body)
+                     for _ in range(DAEMON_CLIENTS - 1)]
+            time.sleep(1.0)
+            gate.set()
+            replies = [first.result()] + [f.result() for f in burst]
+        meta = json.loads(_http(port, "GET", "/healthz")[2])
+    finally:
+        gate.set()
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+        service.close()
+    codes = [rep[0] for rep in replies]
+    refused = [rep for rep in replies if rep[0] == 503]
+    check(refused and all(rep[1].get("Retry-After") == "1" for rep in refused)
+          and meta["requests_rejected"] == len(refused)
+          and codes.count(200) == len(codes) - len(refused),
+          f"overload: statuses {codes}, /healthz rejected {meta['requests_rejected']}")
+    out["overload"] = {"max_queue": 2, "burst": len(codes), "served": codes.count(200),
+                       "refused_503": len(refused), "healthz_rejected": meta["requests_rejected"]}
+    print(f"[serve] overload: max_queue 2, engine held, burst of {len(codes)}: "
+          f"{codes.count(200)} served, {len(refused)} refused with 503 + Retry-After; "
+          f"/healthz counts {meta['requests_rejected']} rejected", flush=True)
+
+
+def _artifact_leg(torch, np, out, legs, name, engine, images, tmp, want):
+    """Export ``engine``, load it, and hold the loaded engine's outputs bit for
+    bit against the live one's; the launches through the loaded programs must
+    be ``want``."""
+    from tpu_unet_torch.serve import AnomalyScorer
+    from tpu_unet_torch.serve_artifact import export_artifact, load_artifact
+
+    d = os.path.join(tmp, name)
+    t0 = time.perf_counter()
+    meta = export_artifact(engine, d)
+    export_s = time.perf_counter() - t0
+    mb = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d)) / 1e6
+    t0 = time.perf_counter()
+    loaded = load_artifact(d, device=engine.device)
+    load_s = time.perf_counter() - t0
+    anomaly = isinstance(engine, AnomalyScorer)
+    run = ((lambda e: (e.score_array(images),) + e.heatmap_array(images)) if anomaly
+           else (lambda e: e.predict_array(images)))
+    _zero_launches()
+    got = run(loaded)
+    legs[name] = _launches()
+    check(legs[name] == want, f"{name} launched {legs[name]} (want {want})")
+    live = run(engine)
+    check(all(np.array_equal(a, b) for a, b in zip(got, live)),
+          f"{name}: the loaded artifact's outputs differ from the live engine's")
+    out[name] = {"mb": mb, "export_s": export_s, "load_s": load_s, "files": sorted(os.listdir(d)),
+                 "bucket_sizes": meta.get("bucket_sizes"), "launches": legs[name],
+                 "equal_live": True}
+    print(f"[serve] artifact {name}: {mb:.1f} MB ({len(os.listdir(d)) - 2} programs), export "
+          f"{export_s:.1f} s, load {load_s:.2f} s; through the loaded programs K1 "
+          f"{legs[name]['normalize_u8']}x, K2 {legs[name]['conv3x3_int8']}x; outputs bit for "
+          f"bit the live engine's", flush=True)
+    shutil.rmtree(d)
+
+
+def phase_serving(torch, np, report, tmp):
+    """Phase 11: the serving surface at full width through the port's entry
+    points. SegmentationPredictor at serve_seg's defaults (SegmentationUNet
+    base 64, 4 classes, 512², b16) in f32 --fold_bn, bf16 and int8, and at
+    KolektorSDD's 1024 x 512 b8 with 3 classes; UNet++ at --heads 1 and the
+    attention UNet in int8; the 512² model tiled over 1024² images; the HTTP
+    daemon over the bf16 seg engine (buckets 1, 4, 16) and the int8 AnomalyScorer
+    with its heatmap; artifacts exported and loaded. Weights are seeded, BN
+    warmed. Returns the launch counts of each leg."""
+    from tpu_unet_torch.serve import AnomalyScorer, SegmentationPredictor
+    from tpu_unet_torch.serve_http import ServingService
+
+    print(f"[serve] card: {nvidia_smi_line()}", flush=True)
+    legs, out = {}, {}
+    report["main_path"]["serving"] = out
+    keep = _serve_models(torch, np, out, legs)
+
+    # (d) The HTTP daemon.
+    t0 = time.perf_counter()
+    seg = SegmentationPredictor.from_state_dict(
+        keep["sd"], precision="bf16", num_classes=4, image_size_hw=SERVE_HW,
+        batch_size=SERVE_BATCH, bucket_sizes=(1, 4, 16), device="cuda")
+    anomaly = AnomalyScorer.from_state_dict(
+        warm_anomaly_state_dict(torch), quantize="int8", with_heatmap=True, image_size=256,
+        batch_size=8, calib_images=synth_images(torch, 32, 256, 71, "cuda"), device="cuda")
+    for service in (ServingService(seg, max_wait_ms=5), ServingService(anomaly, max_wait_ms=5)):
+        service.warmup()
+        try:
+            if service.kind == "segmentation_predictor":
+                imgs = synth_hw(torch, DAEMON_REQUESTS, SERVE_HW, 72)
+                requests = [("/v1/predict", im) for im in imgs]
+                flushes = _daemon_leg(torch, np, out, legs, "daemon_seg_bf16", service, requests)
+                n = len(flushes["main"])
+                check(legs["daemon_seg_bf16"] == {"normalize_u8": n, "conv3x3_int8": 0},
+                      f"daemon_seg_bf16 launched {legs['daemon_seg_bf16']} for {n} flushes")
+            else:
+                imgs = synth_images(torch, DAEMON_REQUESTS, 256, 73, "cuda")
+                requests = [("/v1/score" if i % 2 else "/v1/heatmap", im)
+                            for i, im in enumerate(imgs)]
+                flushes = _daemon_leg(torch, np, out, legs, "daemon_anomaly_int8", service,
+                                      requests)
+                ns, nh = len(flushes["main"]), len(flushes["heatmap"])
+                want = {"normalize_u8": ns + nh, "conv3x3_int8": 18 * ns + 26 * nh}
+                check(legs["daemon_anomaly_int8"] == want,
+                      f"daemon_anomaly_int8 launched {legs['daemon_anomaly_int8']} (want {want})")
+        finally:
+            service.close()
+    _overload(torch, np, out, seg)
+    out["daemon_s"] = time.perf_counter() - t0
+
+    # (e) Artifacts.
+    images = keep["images"]
+    # 20 images: one batch of 16 and one padded to the bucket of 4.
+    _artifact_leg(torch, np, out, legs, "artifact_seg_bf16_buckets", seg, images[:20], tmp,
+                  {"normalize_u8": 2, "conv3x3_int8": 0})
+    _artifact_leg(torch, np, out, legs, "artifact_seg_int8", keep["engines"]["int8"], images,
+                  tmp, {"normalize_u8": 2, "conv3x3_int8": 36})
+    # 16 images at b8 through the score and the heatmap programs: 18 and 26 K2 each.
+    _artifact_leg(torch, np, out, legs, "artifact_anomaly_int8", anomaly,
+                  synth_images(torch, 16, 256, 74, "cuda"), tmp,
+                  {"normalize_u8": 4, "conv3x3_int8": 2 * 18 + 2 * 26})
+    del keep, seg, anomaly
+    torch.cuda.empty_cache()
+    return legs
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2079,6 +2604,7 @@ def main():
     try:
         path_launches.update(phase_seg(torch, np, report, tmp))
         path_launches.update(phase_extensions(torch, np, report, tmp))
+        path_launches.update(phase_serving(torch, np, report, tmp))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

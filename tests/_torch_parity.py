@@ -138,3 +138,26 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+def seeded_state_dict(name, seed=0, **kw):
+    """A port model's state_dict from a torch seed, with the BN running
+    statistics drawn too (so folding them is not the identity), on the CPU.
+    ``kw`` goes to ``build_model`` (n_classes, base_features, ...)."""
+    from tpu_unet_torch.models import build_model
+    torch.manual_seed(seed)
+    sd = build_model(name, **kw).state_dict()
+    g = torch.Generator().manual_seed(seed + 1)
+    for k, v in sd.items():
+        if k.endswith("running_mean"):
+            sd[k] = 0.1 * torch.randn(v.shape, generator=g)
+        elif k.endswith("running_var"):
+            sd[k] = 0.5 + torch.rand(v.shape, generator=g)
+    return sd
+
+
+def jax_variables(state_dict, name):
+    """The JAX variables ({"params", "batch_stats"}) of a port state_dict."""
+    from tpu_unet_torch.utils.weights import jax_trees_from_state_dict
+    params, stats = jax_trees_from_state_dict(state_dict, name)
+    return {"params": params, "batch_stats": stats}

@@ -2,11 +2,13 @@
 """Batch anomaly-scoring CLI on the GPU (counterpart of
 ``tpu_unet/cli/serve_mvtec.py``).
 
-Loads a trained AnomalyUNet from a reference-layout ``.pth`` and scores a
-directory of images: BN-folded score-only forward, optional int8
-post-training quantization, pipelined host decode. Writes ``scores.json`` in
-the JAX CLI's schema: per-image anomaly scores, optional thresholded verdicts,
-and the measured throughput.
+Loads a trained AnomalyUNet from a reference-layout ``.pth`` (or an
+exported artifact, ``--artifact``) and scores a directory of images:
+BN-folded score-only forward, optional int8 post-training quantization,
+pipelined host decode. Writes ``scores.json`` in the JAX CLI's schema:
+per-image anomaly scores, optional thresholded verdicts, and the measured
+throughput. ``--export_artifact`` writes the engine built from the
+checkpoint as a serving artifact (``serve_artifact.py``).
 
 Examples:
   python tools/export_torch_checkpoint.py --checkpoint outputs/exp/checkpoints/best_model \
@@ -14,7 +16,8 @@ Examples:
   python -m tpu_unet_torch.cli.serve_mvtec --checkpoint best_model.pth \
       --input_dir datasets/mvtec/bottle/test/broken_large --threshold 0.012
   python -m tpu_unet_torch.cli.serve_mvtec --checkpoint best_model.pth --input_dir imgs/ \
-      --quantize int8 --calib_dir datasets/mvtec/bottle/train/good
+      --quantize int8 --calib_dir datasets/mvtec/bottle/train/good --export_artifact art/
+  python -m tpu_unet_torch.cli.serve_mvtec --artifact art/ --input_dir imgs/
 """
 
 from __future__ import annotations
@@ -25,19 +28,20 @@ import time
 
 import numpy as np
 
+from tpu_unet_torch.cli._artifact_common import (add_artifact_args, add_bucket_arg,
+                                                  load_artifact_engine, maybe_export_artifact,
+                                                  parse_bucket_sizes, validate_artifact_args)
 from tpu_unet_torch.cli._quant_common import maybe_save_qparams, resolve_quantization
-from tpu_unet_torch.serve import AnomalyScorer, _normalize_buckets
+from tpu_unet_torch.serve import AnomalyScorer
 from tpu_unet_torch.utils.io import list_images, save_json
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="Serve anomaly scores for a directory of images")
-    p.add_argument("--checkpoint", type=str, required=True,
+    p.add_argument("--checkpoint", type=str, default=None,
                    help="Reference-layout .pth (tools/export_torch_checkpoint.py)")
-    p.add_argument("--bucket_sizes", type=str, default=None,
-                   help="Comma-separated batch-shape ladder (e.g. '1,2,4'): a "
-                        "ragged batch pads to the smallest adequate bucket "
-                        "instead of the full --batch_size (always the top bucket)")
+    add_artifact_args(p)
+    add_bucket_arg(p)
     p.add_argument("--input_dir", type=str, required=True,
                    help="Directory of images to score (searched recursively)")
     p.add_argument("--image_size", type=int, default=256)
@@ -69,34 +73,31 @@ def parse_args(argv=None):
                         "under this directory (implies --heatmap)")
     p.add_argument("--base_features", type=int, default=64)
     p.add_argument("--bilinear", action="store_true")
+    p.add_argument("--n_devices", type=int, default=None,
+                   help="Shard each serving batch over this many devices (not "
+                        "ported: more than 1 raises)")
     p.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
     p.add_argument("--output", type=str, default="scores.json")
-    return p.parse_args(argv)
-
-
-def _parse_bucket_sizes(args):
-    if not args.bucket_sizes:
-        return None
-    try:
-        buckets = [int(tok) for tok in args.bucket_sizes.split(",") if tok]
-    except ValueError:
-        raise SystemExit(f"--bucket_sizes must be comma-separated integers, "
-                         f"got {args.bucket_sizes!r}")
-    try:
-        _normalize_buckets(buckets, args.batch_size)
-    except ValueError as e:
-        raise SystemExit(f"--bucket_sizes: {e}")
-    return buckets
+    return p.parse_args(argv), p
 
 
 def main(argv=None):
-    args = parse_args(argv)
-    buckets = _parse_bucket_sizes(args)
+    args, parser = parse_args(argv)
+    validate_artifact_args(
+        args, parser, sharded=(args.n_devices or 0) > 1, sharded_flags="--n_devices",
+        baked_flags=("image_size", "batch_size", "precision", "quantize",
+                     "calib_dir", "calib_samples", "calib_percentile",
+                     "qparams", "base_features", "bilinear", "heatmap",
+                     "bucket_sizes"))
+    buckets = parse_bucket_sizes(args, args.batch_size)
     paths = list_images(args.input_dir)
     if not paths:
         print(f"No images found under {args.input_dir}")
         return None
     print(f"Scoring {len(paths)} images from {args.input_dir}")
+
+    if args.artifact:
+        return _score_and_save(args, load_artifact_engine(args), paths)
 
     quantize, calib_images, qparams_tree = resolve_quantization(
         args, (args.image_size, args.image_size))
@@ -104,10 +105,12 @@ def main(argv=None):
         args.checkpoint, image_size=args.image_size, batch_size=args.batch_size,
         precision=args.precision, quantize=quantize, calib_images=calib_images,
         base_features=args.base_features, bilinear=args.bilinear,
-        qparams=qparams_tree, calib_percentile=args.calib_percentile,
+        n_devices=args.n_devices, qparams=qparams_tree,
+        calib_percentile=args.calib_percentile,
         with_heatmap=args.heatmap or args.heatmap_dir is not None,
         bucket_sizes=buckets, device=args.device)
     maybe_save_qparams(args, scorer, qparams_tree)
+    maybe_export_artifact(scorer, args)
     return _score_and_save(args, scorer, paths)
 
 
@@ -115,6 +118,9 @@ def _score_and_save(args, scorer, paths):
     heatmaps = None
     t0 = time.perf_counter()
     if args.heatmap_dir is not None:
+        if not scorer.has_heatmap:
+            raise SystemExit("--heatmap_dir needs a heatmap-capable engine; this "
+                             "artifact was exported without --heatmap")
         scores, heatmaps, failed_idx = scorer.heatmap_paths(
             paths, num_workers=args.num_workers,
             on_decode_error=args.on_decode_error, return_failed=True)
@@ -130,7 +136,7 @@ def _score_and_save(args, scorer, paths):
     # null and never get a verdict: an unreadable image is "unknown".
     failed = {int(i) for i in failed_idx}
     payload = {
-        "checkpoint": args.checkpoint,
+        "checkpoint": args.checkpoint or args.artifact,
         "quantize": scorer.quantize or "none",
         "image_size": scorer.image_size,
         "throughput_img_per_sec": round(throughput, 2),

@@ -31,8 +31,10 @@ has a zero scale and bias, so padding is exact.
 it accumulates in float64, where every partial sum of int8 products is an
 integer below 2**53 (float32 stops being exact once 9 * Cin * 127**2 >= 2**24,
 i.e. for Cin >= 116). The wrapper :func:`conv3x3_int8` runs the plain version
-for CPU tensors and the kernel for CUDA tensors; ``conv3x3_int8.launches``
-counts kernel launches.
+for CPU tensors and the kernel for CUDA tensors, through the operator
+``torch.ops.tpu_unet_torch.conv3x3_int8`` (a ``torch.library`` custom op with a
+fake implementation, so ``torch.export`` records it in a program);
+``conv3x3_int8.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -154,32 +156,15 @@ def _check(x, w, scale, bias, out_scale) -> None:
             raise ValueError(f"conv3x3_int8 takes contiguous tensors ({name} is not)")
 
 
-def conv3x3_int8(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
-                 bias: torch.Tensor, out_scale: torch.Tensor,
-                 relu: bool = True) -> torch.Tensor:
-    """int8 (N, H, W, Cin) x weights -> requantized int8 (N, H, W, Cout).
-
-    On CUDA, natural weights are packed here on every call (pack them once
-    with :func:`pack_weights` where they serve many calls). Cin = 3 goes to
-    the first-layer kernel, which reads the input as it is; any other Cin
-    that is not a multiple of 32 is zero-padded here (one extra pass over x).
-    Natural weights with Cout not a multiple of 16 are zero-padded here with
-    their scale and bias, and the output sliced back (an extra copy); packed
-    weights must come padded (:func:`pad_cout` before :func:`pack_weights`).
-    """
-    _check(x, w, scale, bias, out_scale)
-    if x.device.type == "cpu":
-        return conv3x3_int8_plain(x, w, scale, bias, out_scale, relu)
-    if x.device.type != "cuda":
-        raise ValueError(f"conv3x3_int8 runs on cpu or cuda, not {x.device}")
+def _launch(x, w, scale, bias, out_scale, relu):
+    """K2 on CUDA tensors (see :func:`conv3x3_int8`)."""
     n, h, wd, cin = x.shape
     cout = _cout(w, cin)
     if cout % _COUT_MULTIPLE:
         if not _is_natural(w, cin):
             raise ValueError(f"conv3x3_int8 on CUDA takes packed weights with Cout % 16 "
                              f"== 0 (pad_cout before pack_weights), got {cout}")
-        out = conv3x3_int8(x, pad_cout(w), pad_cout(scale), pad_cout(bias), out_scale,
-                           relu)
+        out = _launch(x, pad_cout(w), pad_cout(scale), pad_cout(bias), out_scale, relu)
         return out[..., :cout].contiguous()
     if _is_natural(w, cin):
         w = pack_weights(w, cin)
@@ -198,6 +183,40 @@ def conv3x3_int8(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     build.check(lib, "conv3x3_int8", err)
     conv3x3_int8.launches += 1
     return out
+
+
+@torch.library.custom_op("tpu_unet_torch::conv3x3_int8", mutates_args=())
+def _conv3x3_int8_op(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+                     bias: torch.Tensor, out_scale: torch.Tensor, relu: bool) -> torch.Tensor:
+    """The plain version for CPU tensors; the kernel for CUDA tensors."""
+    if x.device.type == "cpu":
+        return conv3x3_int8_plain(x, w, scale, bias, out_scale, relu)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv3x3_int8 runs on cpu or cuda, not {x.device}")
+    return _launch(x, w, scale, bias, out_scale, relu)
+
+
+@_conv3x3_int8_op.register_fake
+def _(x, w, scale, bias, out_scale, relu):
+    n, h, wd, cin = x.shape
+    return x.new_empty((n, h, wd, _cout(w, cin)))
+
+
+def conv3x3_int8(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
+                 bias: torch.Tensor, out_scale: torch.Tensor,
+                 relu: bool = True) -> torch.Tensor:
+    """int8 (N, H, W, Cin) x weights -> requantized int8 (N, H, W, Cout).
+
+    On CUDA, natural weights are packed here on every call (pack them once
+    with :func:`pack_weights` where they serve many calls). Cin = 3 goes to
+    the first-layer kernel, which reads the input as it is; any other Cin
+    that is not a multiple of 32 is zero-padded here (one extra pass over x).
+    Natural weights with Cout not a multiple of 16 are zero-padded here with
+    their scale and bias, and the output sliced back (an extra copy); packed
+    weights must come padded (:func:`pad_cout` before :func:`pack_weights`).
+    """
+    _check(x, w, scale, bias, out_scale)
+    return _conv3x3_int8_op(x, w, scale, bias, out_scale, relu)
 
 
 conv3x3_int8.launches = 0

@@ -9,13 +9,16 @@ order of operations. The kernel is a table lookup: a uint8 value in one of 3
 channels has 768 possible results, and each block of the kernel computes them
 with the same IEEE operations in the same order, so the kernel and the plain
 version agree bit for bit. The wrapper :func:`normalize_u8` runs the plain
-version for CPU tensors and the kernel for CUDA tensors;
+version for CPU tensors and the kernel for CUDA tensors, through the
+operator ``torch.ops.tpu_unet_torch.normalize_u8`` (a ``torch.library``
+custom op with a fake implementation, so ``torch.export`` records it in a
+program and the loaded program dispatches the same way);
 ``normalize_u8.launches`` counts kernel launches.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import torch
 
@@ -47,14 +50,12 @@ def _check(images_u8: torch.Tensor, mean, std, out_dtype) -> None:
         raise ValueError("normalize_u8 takes NHWC-contiguous images")
 
 
-def normalize_u8(images_u8: torch.Tensor,
-                 mean: Tuple[float, ...] = IMAGENET_MEAN,
-                 std: Tuple[float, ...] = IMAGENET_STD,
-                 out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """uint8 (N, H, W, 3) -> normalized (N, H, W, 3) ``out_dtype``."""
-    _check(images_u8, mean, std, out_dtype)
+@torch.library.custom_op("tpu_unet_torch::normalize_u8", mutates_args=())
+def _normalize_u8_op(images_u8: torch.Tensor, mean: Sequence[float], std: Sequence[float],
+                     out_dtype: torch.dtype) -> torch.Tensor:
+    """The plain version for a CPU tensor; the kernel for a CUDA tensor."""
     if images_u8.device.type == "cpu":
-        return normalize_u8_plain(images_u8, mean, std, out_dtype)
+        return normalize_u8_plain(images_u8, tuple(mean), tuple(std), out_dtype)
     if images_u8.device.type != "cuda":
         raise ValueError(f"normalize_u8 runs on cpu or cuda, not {images_u8.device}")
     out = torch.empty(images_u8.shape, dtype=out_dtype, device=images_u8.device)
@@ -66,6 +67,20 @@ def normalize_u8(images_u8: torch.Tensor,
     build.check(lib, "normalize_u8", err)
     normalize_u8.launches += 1
     return out
+
+
+@_normalize_u8_op.register_fake
+def _(images_u8, mean, std, out_dtype):
+    return images_u8.new_empty(images_u8.shape, dtype=out_dtype)
+
+
+def normalize_u8(images_u8: torch.Tensor,
+                 mean: Tuple[float, ...] = IMAGENET_MEAN,
+                 std: Tuple[float, ...] = IMAGENET_STD,
+                 out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """uint8 (N, H, W, 3) -> normalized (N, H, W, 3) ``out_dtype``."""
+    _check(images_u8, mean, std, out_dtype)
+    return _normalize_u8_op(images_u8, list(mean), list(std), out_dtype)
 
 
 normalize_u8.launches = 0

@@ -51,6 +51,7 @@ Usage:
 
 from __future__ import annotations
 
+import contextlib
 import os
 import re
 from typing import Any, Dict, Iterable, Optional, Tuple
@@ -287,6 +288,28 @@ def _int_matmul(x2d: torch.Tensor, k: torch.Tensor, n_out: int) -> torch.Tensor:
     return torch._int_mm(x2d, k)[:m, :n_out]
 
 
+def _gate_subtrees(node, prefix=""):
+    """(path, subtree) of every attention gate (``att``) of a quantized tree."""
+    for name, child in node.items():
+        if name == "att":
+            yield prefix + name, child
+        elif "kernel" not in child:
+            yield from _gate_subtrees(child, f"{prefix}{name}/")
+
+
+def _skeleton(node, gates, prefix=""):
+    """A quantized tree's structure with each quantized leaf empty and each
+    attention gate taken from ``gates`` (path -> subtree)."""
+    out = {}
+    for name, child in node.items():
+        path = prefix + name
+        if name == "att":
+            out[name] = gates[path]
+        else:
+            out[name] = {} if "kernel" in child else _skeleton(child, gates, path + "/")
+    return out
+
+
 class _QuantExec:
     """int8 forward over the quantized tree. Tensors flow as (q_int8, scale)
     with NHWC int8 data and 0-dim float32 scales on the same device."""
@@ -322,6 +345,31 @@ class _QuantExec:
             c = self._consts[path] = {"kernel": k, "scale": scale, "bias": bias,
                                       "cout": cout}
         return c
+
+    def state(self) -> Dict[str, Any]:
+        """The tensors the forward reads once every layer it runs has been
+        prepared (``_leaf``): the scales, each layer's constants and the
+        attention gates' float leaves. :meth:`bound` runs the executor on
+        another copy of them, which is how ``serve_artifact.py`` traces it."""
+        return {"scales": dict(self.scales),
+                "consts": {p: {k: v for k, v in c.items() if k != "cout"}
+                           for p, c in self._consts.items()},
+                "gates": dict(_gate_subtrees(self.layers))}
+
+    @contextlib.contextmanager
+    def bound(self, state: Dict[str, Any]):
+        """Run the executor on ``state`` (the structure of :meth:`state`)
+        inside the ``with`` block. Its quantized leaves are empty there, so a
+        layer that was not prepared raises instead of reading the live tree."""
+        saved = self.layers, self.scales, self._consts
+        self.layers = _skeleton(self.layers, state["gates"])
+        self.scales = state["scales"]
+        self._consts = {p: {**c, "cout": saved[2][p]["cout"]}
+                        for p, c in state["consts"].items()}
+        try:
+            yield
+        finally:
+            self.layers, self.scales, self._consts = saved
 
     @staticmethod
     def _requant(y_f32, scale, lo=-127):

@@ -1,36 +1,50 @@
-"""Batched anomaly-scoring engine on the GPU (counterpart of
-``tpu_unet/serve.py::AnomalyScorer``).
+"""Batched serving engines on the GPU (counterpart of ``tpu_unet/serve.py``).
 
-Load a trained AnomalyUNet once, then score streams of NHWC uint8 images.
+- :class:`AnomalyScorer` loads a trained AnomalyUNet once and scores streams
+  of NHWC uint8 images;
+- :class:`SegmentationPredictor` loads a segmentation model (SegmentationUNet,
+  UNet++ with its pruned heads, the attention UNet) and predicts per-image
+  class masks and a mean confidence, optionally over a tile grid at the
+  images' native resolution (``ops/tiling.py``).
+
 Every call runs on the engine's device (``cuda`` unless the caller asks for
-``cpu``) and:
+``cpu``), in inference mode and on that device whatever thread calls it,
+and:
 
 - normalizes the batch with kernel K1 (``eval_transform``);
-- runs the score-only forward: encoder, reconstruction decoder and its head.
-  The segmentation decoder never runs;
-- in int8 (``quantize='int8'``), runs every 3x3 conv through kernel K2
-  (``ops/quantize.py``), after calibrating once or loading saved qparams;
+- runs the forward in f32 or bf16 with BN folded into the convs, or in int8
+  (``quantize='int8'``) with every 3x3 conv through kernel K2
+  (``ops/quantize.py``), after calibrating once or loading saved qparams.
+  The scorer's score program runs the encoder, the reconstruction decoder
+  and its head; the segmentation decoder never runs;
 - pads ragged batches to the serving batch, or to the smallest bucket of an
   optional ``bucket_sizes`` ladder;
-- enqueues batches back to back and fetches only the (N,) scores at the end.
+- enqueues batches back to back and fetches only the results.
 
-The score compares the sigmoid reconstruction with the float32 normalized
-image, as the JAX package (and the reference it follows) does.
+The anomaly score compares the sigmoid reconstruction with the float32
+normalized image, as the JAX package (and the reference it follows) does.
+An engine keeps the tensors its forward reads and a way to run it on
+another copy of them, which ``serve_artifact.py`` uses to export it.
 
 Usage:
     scorer = AnomalyScorer.from_checkpoint("best_model.pth", quantize="int8",
                                            calib_images=calib_u8)
     scores = scorer.score_paths(glob.glob("line_camera/*.png"))
+    predictor = SegmentationPredictor.from_checkpoint("best_model.pth", num_classes=4)
+    masks, confidences = predictor.predict_paths(paths)
 """
 
 from __future__ import annotations
 
+import contextlib
+import itertools
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
+from torch.nn.utils.stateless import _reparametrize_module
 
 from tpu_unet_torch.core.device import resolve_device
 from tpu_unet_torch.core.precision import get_policy
@@ -41,6 +55,8 @@ from tpu_unet_torch.ops.augment import eval_transform
 from tpu_unet_torch.ops.fold_bn import fold_batchnorm
 from tpu_unet_torch.ops.quantize import (_QuantExec, _run, build_plan, chunk_calibration,
                                          quantize_from_train_state, tree_to)
+from tpu_unet_torch.ops.seg_head import sliced_pred_confidence
+from tpu_unet_torch.ops.tiling import make_tiled_logits_fn
 from tpu_unet_torch.utils.weights import load_reference_checkpoint
 
 
@@ -180,24 +196,48 @@ def _lagged_host_fetch(device_fn):
     return run, drain
 
 
-class AnomalyScorer:
-    """Batched anomaly scorer over a score-only forward.
+def _check_one_device(n_devices, n_space: int = 1) -> None:
+    """The engines serve on one device; sharded serving is not ported."""
+    if (n_devices or 1) > 1 or n_space > 1:
+        raise NotImplementedError("n_devices / n_space > 1: multi-device serving is not "
+                                  "ported yet (ROADMAP queue 1, item 7); the port serves "
+                                  "on one device")
 
-    Construct with :meth:`from_checkpoint` (a reference-layout ``.pth``) or
-    :meth:`from_state_dict` (in-process weights).
-    """
 
-    def __init__(self, score_fn: Callable, image_size: int, batch_size: int,
-                 device, quantize: Optional[str] = None, heatmap_fn=None,
-                 bucket_sizes: Optional[Sequence[int]] = None, qparams=None):
-        self._score_fn = score_fn
-        self._heatmap_fn = heatmap_fn
-        self.image_size = int(image_size)
+def _module_state(model: torch.nn.Module):
+    """An engine's export state for a float forward over ``model``:
+    ``(params(), bind(params))``, the module's parameters and buffers and a
+    context that runs the module on another copy of them."""
+    def params():
+        return {k: v.detach() for k, v in itertools.chain(model.named_parameters(),
+                                                          model.named_buffers())}
+
+    return params, lambda p: _reparametrize_module(model, p)
+
+
+def _float_model(name: str, state_dict, policy_name: str, fold_bn: bool, device, **kw):
+    """``name`` built under the ``policy_name`` precision policy with
+    ``state_dict`` loaded, in eval mode, BN folded when ``fold_bn``, on
+    ``device`` in channels_last."""
+    model = build_model(name, policy=get_policy(policy_name), **kw)
+    model.load_state_dict(state_dict)
+    model.eval()
+    if fold_bn:
+        fold_batchnorm(model)
+    return model.to(device=device, memory_format=torch.channels_last)
+
+
+class _Engine:
+    """What both engines share: the device, the serving batch and its bucket
+    ladder, the per-thread serving context, and the export state."""
+
+    def __init__(self, batch_size: int, device, bucket_sizes, export_state):
         self.batch_size = int(batch_size)
         self.device = resolve_device(device)
-        self.quantize = quantize  # 'int8' or None (float program)
-        self.qparams = qparams  # the int8 tree, for save_qparams
         self.bucket_sizes = _normalize_buckets(bucket_sizes, self.batch_size)
+        # (params(), bind(params)) for serve_artifact.export_artifact; None for
+        # an engine loaded from an artifact.
+        self._export_state = export_state
 
     def _put(self, chunk: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(chunk)).to(self.device)
@@ -208,6 +248,89 @@ class AnomalyScorer:
             return self.batch_size
         return next(b for b in self.bucket_sizes if b >= n)
 
+    @contextlib.contextmanager
+    def _serving(self):
+        """Inference mode on the engine's CUDA device. Both are per thread,
+        and the HTTP daemon calls the engine from its batching thread."""
+        cuda = self.device.type == "cuda"
+        with torch.inference_mode(), (torch.cuda.device(self.device) if cuda
+                                      else contextlib.nullcontext()):
+            yield
+
+    def _batches(self, images_u8: np.ndarray, fn):
+        """``fn`` over padded device batches of ``images_u8``, enqueued back to back."""
+        out = []
+        with self._serving():
+            for lo in range(0, len(images_u8), self.batch_size):
+                raw = np.asarray(images_u8[lo:lo + self.batch_size])
+                out.append(fn(self._put(_pad_chunk(raw, self._pad_target(len(raw))))))
+        return out
+
+    def _paths(self, paths, size_hw, num_workers, on_decode_error, fn, lagged):
+        """``fn`` over decoded batches of ``paths`` (``_pipelined_batches``):
+        ``(results, failed)``, results fetched one batch behind when
+        ``lagged``."""
+        def device_fn(imgs):
+            with self._serving():
+                return fn(self._put(imgs))
+
+        if not lagged:
+            return _pipelined_batches(paths, size_hw, self.batch_size, num_workers,
+                                      device_fn, on_decode_error=on_decode_error,
+                                      pad_target=self._pad_target)
+        run, drain = _lagged_host_fetch(device_fn)
+        _, failed = _pipelined_batches(paths, size_hw, self.batch_size, num_workers, run,
+                                       on_decode_error=on_decode_error,
+                                       pad_target=self._pad_target)
+        return drain(), failed
+
+    def _synthetic(self, size_hw) -> np.ndarray:
+        rng = np.random.default_rng(0)
+        return rng.integers(0, 256, (self.batch_size, *size_hw, 3), dtype=np.uint8)
+
+    def _throughput(self, fn, size_hw, n_batches: int) -> float:
+        """img/s of ``n_batches`` calls of ``fn`` (its last output is
+        fetched) on a synthetic device-resident batch enqueued back to back,
+        timed to the fetch of their outputs, after one warmup call."""
+        with self._serving():
+            imgs = self._put(self._synthetic(size_hw))
+            fn(imgs).cpu()
+            t0 = time.perf_counter()
+            out = torch.cat([fn(imgs) for _ in range(n_batches)]).cpu().numpy()
+        dt = time.perf_counter() - t0
+        if not np.isfinite(out).all():
+            raise RuntimeError("non-finite outputs in the throughput run")
+        return self.batch_size * n_batches / dt
+
+    def _latency_ms(self, fn, size_hw, n_iters: int) -> dict:
+        imgs = self._synthetic(size_hw)
+
+        def run_once():
+            with self._serving():
+                fn(self._put(imgs)).cpu()
+
+        return _latency_stats_ms(run_once, n_iters)
+
+
+class AnomalyScorer(_Engine):
+    """Batched anomaly scorer over a score-only forward.
+
+    Construct with :meth:`from_checkpoint` (a reference-layout ``.pth``),
+    :meth:`from_state_dict` (in-process weights) or
+    ``serve_artifact.load_artifact``.
+    """
+
+    def __init__(self, score_fn: Callable, image_size: int, batch_size: int,
+                 device, quantize: Optional[str] = None, heatmap_fn=None,
+                 bucket_sizes: Optional[Sequence[int]] = None, qparams=None,
+                 export_state=None):
+        super().__init__(batch_size, device, bucket_sizes, export_state)
+        self._score_fn = score_fn
+        self._heatmap_fn = heatmap_fn
+        self.image_size = int(image_size)
+        self.quantize = quantize  # 'int8' or None (float program)
+        self.qparams = qparams  # the int8 tree, for save_qparams
+
     # -- constructors -------------------------------------------------------
 
     @classmethod
@@ -216,6 +339,7 @@ class AnomalyScorer:
                         quantize: Optional[str] = None,
                         calib_images: Optional[np.ndarray] = None,
                         base_features: int = 64, bilinear: bool = False,
+                        n_devices: Optional[int] = None,
                         qparams: Optional[dict] = None,
                         calib_percentile: Optional[float] = None,
                         with_heatmap: bool = False,
@@ -232,9 +356,11 @@ class AnomalyScorer:
         second program returning (score, (H, W) uint8 anomaly heatmap) per
         image. ``bucket_sizes`` (e.g. ``(1, 4, 16)``) lets a ragged batch pad
         to the smallest adequate bucket; ``batch_size`` is the top bucket.
+        ``n_devices`` > 1 raises: sharded serving is not ported.
         """
         if quantize not in (None, "none", "int8"):
             raise ValueError(f"unsupported quantize mode {quantize!r}")
+        _check_one_device(n_devices)
         _normalize_buckets(bucket_sizes, batch_size)  # fail before any model work
         device = resolve_device(device)
         if quantize == "int8":
@@ -250,15 +376,14 @@ class AnomalyScorer:
             plans = {False: build_plan("anomaly_unet", score_only=True),
                      True: build_plan("anomaly_unet")}
             qexec = _QuantExec(qparams)  # keeps each leaf's constants across batches
+            export_state = (qexec.state, qexec.bound)
 
             def forward(img, with_amap):
                 return _run(qexec, img, plans[with_amap])
         else:
-            model = build_model("anomaly_unet", policy=get_policy(precision),
-                                base_features=base_features, bilinear=bilinear)
-            model.load_state_dict(state_dict)
-            fold_batchnorm(model.eval())
-            model.to(device=device, memory_format=torch.channels_last)
+            model = _float_model("anomaly_unet", state_dict, precision, True, device,
+                                 base_features=base_features, bilinear=bilinear)
+            export_state = _module_state(model)
 
             def forward(img, with_amap):  # NHWC in and out; NCHW views inside
                 x = img.permute(0, 3, 1, 2)
@@ -279,7 +404,8 @@ class AnomalyScorer:
                    quantize="int8" if quantize == "int8" else None,
                    heatmap_fn=heatmap_fn if with_heatmap else None,
                    bucket_sizes=bucket_sizes,
-                   qparams=qparams if quantize == "int8" else None)
+                   qparams=qparams if quantize == "int8" else None,
+                   export_state=export_state)
 
     @classmethod
     def from_checkpoint(cls, checkpoint: str, **kwargs) -> "AnomalyScorer":
@@ -289,15 +415,6 @@ class AnomalyScorer:
         return cls.from_state_dict(load_reference_checkpoint(checkpoint), **kwargs)
 
     # -- scoring ------------------------------------------------------------
-
-    def _batches(self, images_u8: np.ndarray, fn):
-        """``fn`` over padded device batches of ``images_u8``, enqueued back to back."""
-        out = []
-        with torch.inference_mode():
-            for lo in range(0, len(images_u8), self.batch_size):
-                raw = np.asarray(images_u8[lo:lo + self.batch_size])
-                out.append(fn(self._put(_pad_chunk(raw, self._pad_target(len(raw))))))
-        return out
 
     def score_array(self, images_u8: np.ndarray) -> np.ndarray:
         """Score a (N, H, W, 3) uint8 array; returns (N,) float32 scores."""
@@ -315,14 +432,9 @@ class AnomalyScorer:
         ``on_decode_error='skip'`` it is logged and its score is NaN. With
         ``return_failed=True`` returns ``(scores, failed_indices)``.
         """
-        def run(imgs):
-            with torch.inference_mode():
-                return self._score_fn(self._put(imgs))
-
-        pending, failed = _pipelined_batches(
-            paths, (self.image_size, self.image_size), self.batch_size,
-            num_workers, run, on_decode_error=on_decode_error,
-            pad_target=self._pad_target)
+        hw = (self.image_size, self.image_size)
+        pending, failed = self._paths(paths, hw, num_workers, on_decode_error,
+                                      self._score_fn, lagged=False)
         if not pending:
             scores = np.zeros((0,), np.float32)
             return (scores, []) if return_failed else scores
@@ -340,7 +452,8 @@ class AnomalyScorer:
     def _require_heatmap(self):
         if self._heatmap_fn is None:
             raise RuntimeError("this engine has no heatmap program; rebuild "
-                               "with with_heatmap=True")
+                               "with with_heatmap=True (or export an artifact "
+                               "from one)")
 
     def heatmap_array(self, images_u8: np.ndarray):
         """(N, H, W, 3) uint8 -> (scores (N,) f32, heatmaps (N, H, W) uint8)."""
@@ -360,19 +473,10 @@ class AnomalyScorer:
         pipeline and failure policy of :meth:`score_paths` (skipped files:
         score NaN, heatmap zero). Outputs come to the host one batch behind."""
         self._require_heatmap()
-
-        def device_fn(imgs):
-            with torch.inference_mode():
-                return self._heatmap_fn(self._put(imgs))
-
-        run, drain = _lagged_host_fetch(device_fn)
-        _, failed = _pipelined_batches(
-            paths, (self.image_size, self.image_size), self.batch_size,
-            num_workers, run, on_decode_error=on_decode_error,
-            pad_target=self._pad_target)
-        pending = drain()
+        hw = self.image_size
+        pending, failed = self._paths(paths, (hw, hw), num_workers, on_decode_error,
+                                      self._heatmap_fn, lagged=True)
         if not pending:
-            hw = self.image_size
             out = (np.zeros((0,), np.float32), np.zeros((0, hw, hw), np.uint8))
             return out + ([],) if return_failed else out
         scores = np.concatenate([s for s, _ in pending])[:len(paths)]
@@ -399,31 +503,193 @@ class AnomalyScorer:
         """Serving throughput (img/s) on a synthetic device-resident batch:
         ``n_batches`` score calls enqueued back to back, timed to the fetch
         of their scores, after one warmup call."""
-        rng = np.random.default_rng(0)
-        imgs = self._put(rng.integers(
-            0, 256, (self.batch_size, self.image_size, self.image_size, 3),
-            dtype=np.uint8))
-        with torch.inference_mode():
-            self._score_fn(imgs).cpu()
-            t0 = time.perf_counter()
-            out = [self._score_fn(imgs) for _ in range(n_batches)]
-            s = torch.cat(out).cpu().numpy()
-        dt = time.perf_counter() - t0
-        if not np.isfinite(s).all():
-            raise RuntimeError("non-finite scores in the throughput run")
-        return self.batch_size * n_batches / dt
+        hw = self.image_size
+        return self._throughput(self._score_fn, (hw, hw), n_batches)
 
     def latency_ms(self, n_iters: int = 50) -> dict:
         """Per-request latency (host uint8 -> host scores), ms: each iteration
         copies one serving batch to the device, scores it and fetches the
         scores. Build with ``batch_size=1`` for single-image latency. Returns
         {p50_ms, p95_ms, mean_ms}."""
-        rng = np.random.default_rng(0)
-        imgs = rng.integers(0, 256, (self.batch_size, self.image_size,
-                                     self.image_size, 3), dtype=np.uint8)
+        hw = self.image_size
+        return self._latency_ms(self._score_fn, (hw, hw), n_iters)
 
-        def run_once():
-            with torch.inference_mode():
-                self._score_fn(self._put(imgs)).cpu()
 
-        return _latency_stats_ms(run_once, n_iters)
+class SegmentationPredictor(_Engine):
+    """Batched mask-prediction engine for the segmentation workloads.
+
+    The serving design of :class:`AnomalyScorer`, returning per-image class
+    maps as uint8 and a per-image mean confidence (the largest softmax
+    probability averaged over the image). Inputs may be non-square
+    (KolektorSDD's 1024x512). Construct with :meth:`from_checkpoint`,
+    :meth:`from_state_dict` or ``serve_artifact.load_artifact``.
+    """
+
+    def __init__(self, predict_fn: Callable, image_size_hw, batch_size: int, device,
+                 num_classes: Optional[int] = None, quantize: Optional[str] = None,
+                 bucket_sizes: Optional[Sequence[int]] = None, qparams=None,
+                 export_state=None):
+        super().__init__(batch_size, device, bucket_sizes, export_state)
+        self._predict_fn = predict_fn
+        self.image_size_hw = tuple(int(x) for x in image_size_hw)
+        self.num_classes = num_classes  # advisory (mask values encode classes)
+        self.quantize = quantize  # 'int8' or None (float program)
+        self.qparams = qparams  # the int8 tree, for save_qparams
+
+    @classmethod
+    def from_state_dict(cls, state_dict, *, num_classes: int,
+                        image_size_hw=(512, 512), batch_size: int = 16,
+                        precision: str = "bf16", quantize: Optional[str] = None,
+                        calib_images: Optional[np.ndarray] = None,
+                        base_features: int = 64, bilinear: bool = False,
+                        dropout: float = 0.1, fold_bn: bool = True,
+                        n_devices: Optional[int] = None, n_space: int = 1,
+                        qparams: Optional[dict] = None,
+                        calib_percentile: Optional[float] = None,
+                        bucket_sizes: Optional[Sequence[int]] = None,
+                        model_name: str = "seg_unet",
+                        deep_supervision: bool = False, heads: int = 4,
+                        tile_hw: Optional[Sequence[int]] = None,
+                        tile_overlap: int = 64,
+                        device="cuda") -> "SegmentationPredictor":
+        """Build a predictor from a segmentation model's state_dict
+        (``model_name`` 'seg_unet', 'unetpp' or 'attn_unet'; ``bilinear``
+        decoders).
+
+        ``heads`` (UNet++ with ``deep_supervision`` only): 4 serves the
+        average of the four heads; k < 4 the pruned fast mode, head X[0][k]
+        alone, whose deeper grid columns never run. int8 calibrates the full
+        grid (heads 4) on ``calib_images`` in chunks of 8, so saved qparams
+        serve any ``heads``; ``qparams`` skips calibration.
+
+        ``tile_hw`` serves images at native resolution: ``image_size_hw`` is
+        then the full input extent and the model runs at ``tile_hw`` (its
+        training shape) over a static grid of tiles overlapping by
+        ``tile_overlap`` px, blended back (``ops/tiling.py``). ``n_devices``
+        or ``n_space`` > 1 raise: sharded serving is not ported.
+        """
+        if quantize not in (None, "none", "int8"):
+            raise ValueError(f"unsupported quantize mode {quantize!r}")
+        if quantize == "int8" and model_name not in ("seg_unet", "unetpp", "attn_unet"):
+            raise ValueError(
+                f"int8 quantization is implemented for 'seg_unet', 'unetpp' "
+                f"and 'attn_unet', not {model_name!r}; serve it in bf16/f32 "
+                f"instead")
+        if heads != 4 and not (model_name == "unetpp" and deep_supervision):
+            raise ValueError(
+                "heads selects a UNet++ deep-supervision inference head; it "
+                f"requires model_name='unetpp' with deep_supervision (got "
+                f"{model_name!r}, deep_supervision={deep_supervision})")
+        if heads != 4:
+            # Printed, not logged: the serve CLIs configure no logging handlers.
+            print(f"unetpp pruned fast mode: serving the single head "
+                  f"X[0][{heads}] (not a head average; deeper grid columns "
+                  f"do not run)", flush=True)
+        _check_one_device(n_devices, n_space)
+        _normalize_buckets(bucket_sizes, batch_size)  # fail before any model work
+        device = resolve_device(device)
+        if quantize == "int8":
+            if qparams is None:
+                if calib_images is None:
+                    raise ValueError("int8 quantization needs calib_images "
+                                     "or a precomputed qparams tree")
+                qparams = quantize_from_train_state(
+                    model_name, state_dict, chunk_calibration(calib_images, 8),
+                    percentile=calib_percentile, device=device,
+                    deep_supervision=deep_supervision)
+            qparams = tree_to(qparams, device)
+            plan = build_plan(model_name, deep_supervision=deep_supervision, heads=heads)
+            qexec = _QuantExec(qparams)
+            export_state = (qexec.state, qexec.bound)
+
+            def apply_logits(images_u8):
+                return _run(qexec, eval_transform(images_u8), plan)
+        else:
+            model = _float_model(model_name, state_dict, precision, fold_bn, device,
+                                 n_classes=num_classes, bilinear=bilinear, dropout=dropout,
+                                 base_features=base_features,
+                                 deep_supervision=deep_supervision, heads=heads)
+            export_state = _module_state(model)
+
+            def apply_logits(images_u8):
+                x = eval_transform(images_u8).permute(0, 3, 1, 2)
+                return model(x).permute(0, 2, 3, 1)
+
+        logits_fn = apply_logits
+        if tile_hw is not None:
+            logits_fn = make_tiled_logits_fn(apply_logits, image_size_hw, tile_hw,
+                                             tile_overlap)
+
+        def predict_fn(images_u8):
+            preds, conf = sliced_pred_confidence(logits_fn(images_u8))
+            return preds, conf.mean(dim=(1, 2))
+
+        return cls(predict_fn, image_size_hw, batch_size, device, num_classes=num_classes,
+                   quantize="int8" if quantize == "int8" else None,
+                   bucket_sizes=bucket_sizes,
+                   qparams=qparams if quantize == "int8" else None,
+                   export_state=export_state)
+
+    @classmethod
+    def from_checkpoint(cls, checkpoint: str, **kwargs) -> "SegmentationPredictor":
+        """Load a ``.pth`` written by the seg trainers (or a reference-layout
+        state_dict); keyword arguments as :meth:`from_state_dict`."""
+        return cls.from_state_dict(load_reference_checkpoint(checkpoint), **kwargs)
+
+    def _conf_fn(self, images):
+        return self._predict_fn(images)[1]
+
+    def predict_array(self, images_u8: np.ndarray):
+        """(N, H, W, 3) uint8 -> (masks (N, H, W) uint8, mean_confidence (N,) f32)."""
+        n = len(images_u8)
+        h, w = self.image_size_hw
+        if n == 0:
+            return np.zeros((0, h, w), np.uint8), np.zeros((0,), np.float32)
+        pending = self._batches(images_u8, self._predict_fn)
+        masks = torch.cat([p for p, _ in pending]).cpu().numpy()[:n]
+        confs = torch.cat([c for _, c in pending]).cpu().numpy()[:n]
+        return masks, confs
+
+    def warmup(self) -> None:
+        """Run every serving shape once: each bucket, or the serving batch."""
+        h, w = self.image_size_hw
+        for b in (self.bucket_sizes or (self.batch_size,)):
+            self.predict_array(np.zeros((b, h, w, 3), np.uint8))
+
+    def throughput(self, n_batches: int = 10) -> float:
+        """Mask-prediction throughput (img/s) on a synthetic device-resident
+        batch, timed to the fetch of the (N,) confidences (which completes the
+        masks too)."""
+        return self._throughput(self._conf_fn, self.image_size_hw, n_batches)
+
+    def latency_ms(self, n_iters: int = 50) -> dict:
+        """Per-request latency (host uint8 -> prediction complete), ms: each
+        iteration copies one serving batch to the device, predicts and
+        fetches the confidences. Build with ``batch_size=1`` for single-image
+        latency. Returns {p50_ms, p95_ms, mean_ms}."""
+        return self._latency_ms(self._conf_fn, self.image_size_hw, n_iters)
+
+    def predict_paths(self, paths: Sequence[str], num_workers: int = 4,
+                      on_decode_error: str = "raise", return_failed: bool = False):
+        """Decode and resize image files and predict, streaming batch by batch
+        (decode overlaps device work; outputs come to the host one batch
+        behind); returns (masks (N, H, W) uint8, mean_confidences (N,)).
+
+        A corrupt file raises :class:`DecodeError` naming the path; with
+        ``on_decode_error='skip'`` it is logged, its mask zeroed and its
+        confidence NaN. With ``return_failed=True`` returns ``(masks, confs,
+        failed_indices)``."""
+        pending, failed = self._paths(paths, self.image_size_hw, num_workers,
+                                      on_decode_error, self._predict_fn, lagged=True)
+        if not pending:
+            h, w = self.image_size_hw
+            masks = np.zeros((0, h, w), np.uint8)
+            confs = np.zeros((0,), np.float32)
+            return (masks, confs, []) if return_failed else (masks, confs)
+        masks = np.concatenate([m for m, _ in pending])[:len(paths)]
+        confs = np.concatenate([c for _, c in pending])[:len(paths)]
+        if failed:
+            masks, confs = masks.copy(), confs.copy()
+            masks[np.asarray(failed)] = 0
+            confs[np.asarray(failed)] = np.nan
+        return (masks, confs, list(failed)) if return_failed else (masks, confs)
