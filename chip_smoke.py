@@ -5,7 +5,8 @@
 
 1. Builds the CUDA kernels from tpu_unet_torch/csrc (one nvcc each, in
    parallel) and prints the build time, ptxas's register and spill report and
-   a count of the tensor-core and TMA instructions in the built code.
+   a count of the tensor-core and TMA instructions in the built code; then
+   the host loader core (csrc/loader_core.cpp, g++).
 2. K1 (normalize_u8) at the serving batch (128, 256, 256, 3): kernel against
    its plain PyTorch version on the card and on the CPU, bit for bit, in
    float32 and bfloat16; both timed, beside their bounds.
@@ -113,6 +114,31 @@
    bf16 and the int8 seg engines and of the int8 scorer exported and loaded
    (MB, export and load seconds, launches through the loaded programs,
    outputs bit for bit the live engines').
+12. The host data path, the viewers and remat. Phases 8-10 decode natively
+   (the port's default resampler) without a pack (TPU_UNET_DATA_CACHE
+   empty). [native]: the loader core built with g++ into a fresh directory
+   (seconds), ms per RGB resize of 16 of phase 8's 900² PNGs to 256² and of
+   16 of phase 9's 1260 x 500 parts to 1024 x 512 with the native area
+   mode on 1 and on the default threads and with PIL BILINEAR, alone and
+   with four callers at once (as the loader's workers call it), native
+   within 1 LSB of PIL, the batch entry bit for bit the per-image calls.
+   [pack]: packs of phase 8's bottle tree and phase 9's KolektorSDD tree
+   under TMPDIR (build seconds, MB), every packed sample bit for bit the
+   direct decode, and epoch 0 of train_mvtec.train (phase 8's flags) and of
+   train_kolektorsdd's defaults on fresh datasets reading the packs, beside
+   the same epoch decoding natively without a pack and, for MVTec, with PIL
+   (and phase 8's epoch 0). [viz]: visualize_mvtec's collect half on
+   phase 8's best_model.pth (16 samples, b8), bit for bit test_mvtec's eval
+   step on the same images; visualize_seg's on phase 9's Gear checkpoint and
+   on phase 10's UNet++ at --heads 1 (16 samples, b4), predictions bit for
+   bit the bf16 SegmentationPredictor's; K1 once per batch, samples/s;
+   rendering only where matplotlib is installed. [remat]: the flagship step
+   with remat none / full_res / full and the KolektorSDD step (base 64,
+   bf16, 1024 x 512, b8) with none and full_res: ms per step (median of 10),
+   img/s, peak GB; on one step from the same state and batch, each mode's
+   loss equal to the plain step's, its BN running statistics bit for bit
+   (num_batches_tracked + 1), its parameters within the difference of two
+   plain runs or 1e-4.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit
 (nvidia-smi), and as the last line ``{"ok": true, "device": {...}}``; the
@@ -340,6 +366,13 @@ def phase_build(report):
             print(f"[build] {name}: SASS instruction counts {sass[name]}")
     report["build"] = {"wall_s": wall, "sass_counts": sass,
                        **{k: {"seconds": v["seconds"], "log": v["log"]} for k, v in res.items()}}
+    # The host loader core, before any dataset decodes with it: a build at
+    # first use would land inside phase 8's cold epoch.
+    from tpu_unet_torch.data import native
+    loader = native.build()
+    print(f"[build] the host loader core ({native.SOURCE.name}, g++): "
+          f"{loader['seconds']:.1f} s", flush=True)
+    report["build"]["loader_core"] = {"seconds": loader["seconds"], "log": loader["log"]}
 
 
 def phase_k1(torch, report):
@@ -1033,14 +1066,15 @@ def _adam_step(torch, path):
     return int(blob["optimizer_state_dict"]["state"][0]["step"])
 
 
-def phase_mvtec(torch, np, report):
+def phase_mvtec(torch, np, report, keep):
     """Phase 8: the MVTec main path at full width through the train and test
     CLIs' own functions (``train_mvtec.train``; ``test_mvtec``'s
     ``make_test_loader``, ``load_model``, ``test_model``, ``evaluate_results``,
     ``save_results``) on a synthetic category written as PNG files and read
     by ``MVTecDataset``. Only the CLIs' ``main``s are not called: their plots
-    need matplotlib, which the card's machine does not have. Returns the
-    launch counts of each leg."""
+    need matplotlib, which the card's machine does not have. The category
+    (``bottle``) and ``best_model.pth`` (``mvtec_best_model.pth``) are moved
+    to ``keep`` for phase 12. Returns the launch counts of each leg."""
     from tpu_unet_torch.cli import test_mvtec, train_mvtec
     from tpu_unet_torch.data.mvtec import MVTecDataset
     from tpu_unet_torch.ops.kernels.int8_conv import conv3x3_int8
@@ -1245,10 +1279,12 @@ def phase_mvtec(torch, np, report):
               f"run's {hist[1]['total_loss']:.5f} (rel diff {rel:.2e})", flush=True)
         out["resume"] = {"history": rhist, "adam_step": list(steps),
                          "epoch1_loss_rel_diff_vs_3_epoch_run": rel}
+        shutil.copy(best, os.path.join(keep, "mvtec_best_model.pth"))
         shutil.rmtree(os.path.join(tmp, "runs"))  # 3.6 GB of checkpoints
         torch.cuda.empty_cache()
 
         out["cpu_vs_card"] = _mvtec_cpu_vs_card(torch, np, data_root, tmp)
+        shutil.move(data_root, os.path.join(keep, "bottle"))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     report["main_path"]["mvtec"] = out
@@ -1786,7 +1822,7 @@ def _seg_cpu_vs_card(torch, np, data_root, tmp):
             "int8_base8_equal_plain": True}
 
 
-def phase_seg(torch, np, report, tmp):
+def phase_seg(torch, np, report, tmp, keep=None):
     """Phase 9: the segmentation path at full width through the seg CLIs'
     own functions (``_seg_common.train_seg``; ``make_eval_loader``,
     ``load_seg_model``, ``train/loop.py::validate_seg_epoch`` and
@@ -1819,8 +1855,11 @@ def phase_seg(torch, np, report, tmp):
     shutil.rmtree(os.path.join(tmp, "runs"))
     out["kolektorsdd"]["cpu_vs_card"] = _seg_cpu_vs_card(torch, np, ksdd_root, tmp)
 
-    _seg_dataset(torch, np, out, legs, "gear", train_gear, test_gear, gear_root, tmp,
-                 epochs=1, test_modes=(modes[0], modes[2]))
+    exp, _, _ = _seg_dataset(torch, np, out, legs, "gear", train_gear, test_gear, gear_root,
+                             tmp, epochs=1, test_modes=(modes[0], modes[2]))
+    if keep:  # for phase 12's visualize_seg
+        shutil.copy(os.path.join(exp, "checkpoints", "checkpoint_epoch_0.pth"),
+                    os.path.join(keep, "gear_seg.pth"))
     report["main_path"]["seg"] = out
     return legs
 
@@ -2043,7 +2082,7 @@ def _ext_cpu_vs_card(torch, np):
     return res
 
 
-def phase_extensions(torch, np, report, tmp):
+def phase_extensions(torch, np, report, tmp, keep=None):
     """Phase 10: the model extensions at full width. (a) UNet++ with deep
     supervision on phase 9's synthetic Gear tree through the seg CLIs'
     functions (train_gear's defaults: base 64, bf16, 512², b8, Adam 1e-3):
@@ -2062,10 +2101,14 @@ def phase_extensions(torch, np, report, tmp):
     unetpp_modes = (seg_test_modes(30, limits=EXT_MAX_DISAGREE["gear_unetpp"])
                     + seg_test_modes(6, extra=["--heads", "1"], suffix="_heads1",
                                      limits=EXT_MAX_DISAGREE["gear_unetpp_heads1"]))
-    _seg_dataset(torch, np, out, legs, "gear_unetpp", train_gear, test_gear,
-                 os.path.join(tmp, "gear"), tmp, epochs=3, test_modes=unetpp_modes,
-                 model_flags=["--model", "unetpp", "--deep_supervision"], profile_epoch=1,
-                 flops_fn=unetpp_forward_flops, checkpoint="best_model.pth")
+    exp, _, _ = _seg_dataset(torch, np, out, legs, "gear_unetpp", train_gear, test_gear,
+                             os.path.join(tmp, "gear"), tmp, epochs=3, test_modes=unetpp_modes,
+                             model_flags=["--model", "unetpp", "--deep_supervision"],
+                             profile_epoch=1, flops_fn=unetpp_forward_flops,
+                             checkpoint="best_model.pth")
+    if keep:  # for phase 12's visualize_seg
+        shutil.copy(os.path.join(exp, "checkpoints", "best_model.pth"),
+                    os.path.join(keep, "gear_unetpp.pth"))
     shutil.rmtree(os.path.join(tmp, "runs"))
     _seg_dataset(torch, np, out, legs, "kolektorsdd_attn", train_kolektorsdd, test_kolektorsdd,
                  os.path.join(tmp, "ksdd"), tmp, epochs=3,
@@ -2579,6 +2622,546 @@ def phase_serving(torch, np, report, tmp):
     return legs
 
 
+# Phase 12: the host data path (the native resampler, the packed sample
+# store), the viewers' collect halves and remat. The resize timings run over
+# 16 of phase 8's 900² bottle PNGs and 16 of phase 9's 1260 x 500 KolektorSDD
+# parts; the viewers over the first 16 test images (visualize_mvtec's and
+# visualize_seg's batch defaults, 8 and 4).
+RESIZE_IMAGES = 16
+VIZ_SAMPLES = 16
+REMAT_STEPS = 10
+
+
+def _host_ms(np, fn, items, reps=3):
+    """Median over ``reps`` passes of the host ms per item of ``fn``."""
+    passes = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for it in items:
+            fn(it)
+        passes.append(1e3 * (time.perf_counter() - t0) / len(items))
+    return float(np.median(passes))
+
+
+def _dir_mb(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(path) for f in fs) / 1e6
+
+
+def _native_leg(np, out, tmp, bottle_root, ksdd_root):
+    """[native]: a fresh g++ build, then ms per resize (native area on 1
+    and on the default threads, PIL BILINEAR) at MVTec's and KolektorSDD's
+    downscales; native within 1 LSB of PIL; the batch entry bit for bit the
+    per-image calls."""
+    import glob
+
+    from PIL import Image
+
+    from tpu_unet_torch.data import native
+
+    built = native.build(os.path.join(tmp, "native_build"))
+    threads = native._threads(0)
+    rows = {"build_s": built["seconds"], "flags": " ".join(native.CXX_FLAGS),
+            "default_threads": threads}
+    print(f"[native] g++ {' '.join(native.CXX_FLAGS)} built {native.SOURCE.name} in "
+          f"{built['seconds']:.2f} s", flush=True)
+    sets = {"mvtec_900_to_256": (sorted(glob.glob(os.path.join(
+        bottle_root, "bottle", "train", "good", "*.png")))[:RESIZE_IMAGES], (256, 256)),
+        "ksdd_1260x500_to_1024x512": (sorted(glob.glob(os.path.join(
+            ksdd_root, "kos*", "*.jpg")))[:RESIZE_IMAGES], (1024, 512))}
+    for name, (paths, (h, w)) in sets.items():
+        check(len(paths) == RESIZE_IMAGES, f"{name}: {len(paths)} images")
+        ims = []
+        for p in paths:
+            with Image.open(p) as im:
+                ims.append(im.convert("RGB"))
+        arrs = [np.asarray(im, np.uint8) for im in ims]
+        r = {"images": len(paths), "src_hw": list(arrs[0].shape[:2]), "dst_hw": [h, w],
+             "native_1_thread_ms": _host_ms(
+                 np, lambda a: native.resize_u8(a, (h, w), "area", n_threads=1), arrs),
+             "native_ms": _host_ms(np, lambda a: native.resize_u8(a, (h, w), "area"), arrs),
+             "pil_bilinear_ms": _host_ms(np, lambda im: im.resize((w, h), Image.BILINEAR),
+                                         ims)}
+        # Four callers at once, as the loader's workers call load_image_rgb:
+        # wall ms per image of native on 1 thread per call (load_image_rgb's
+        # setting), on the default threads per call, and of PIL.
+        from concurrent.futures import ThreadPoolExecutor
+        with ThreadPoolExecutor(max_workers=4) as pool:
+            for key, fn, items in (
+                    ("4_callers_native_1_thread_ms",
+                     lambda a: native.resize_u8(a, (h, w), "area", n_threads=1), arrs),
+                    ("4_callers_native_ms", lambda a: native.resize_u8(a, (h, w), "area"),
+                     arrs),
+                    ("4_callers_pil_bilinear_ms",
+                     lambda im: im.resize((w, h), Image.BILINEAR), ims)):
+                r[key] = _host_ms(np, lambda _: list(pool.map(fn, items)), [None]) / len(items)
+        stack = np.stack(arrs)
+        t0 = time.perf_counter()
+        batch = native.resize_u8_batch(stack, (h, w), "area")
+        r["native_batch_ms_per_image"] = 1e3 * (time.perf_counter() - t0) / len(arrs)
+        diff = 0
+        for i, (im, a) in enumerate(zip(ims, arrs)):
+            mine = native.resize_u8(a, (h, w), "area")
+            check(np.array_equal(batch[i], mine),
+                  f"{name}: the batch entry differs from the per-image call at image {i}")
+            pil = np.asarray(im.resize((w, h), Image.BILINEAR), np.uint8)
+            diff = max(diff, int(np.abs(mine.astype(np.int16) - pil.astype(np.int16)).max()))
+        r["max_abs_diff_vs_pil"] = diff
+        check(diff <= 1, f"{name}: native area differs from PIL BILINEAR by {diff} LSB")
+        rows[name] = r
+        print(f"[native] {name} ({r['src_hw'][0]}x{r['src_hw'][1]} -> {h}x{w} RGB, "
+              f"{len(paths)} images): native area {r['native_1_thread_ms']:.2f} ms on 1 "
+              f"thread, {r['native_ms']:.2f} ms on {threads}; batch entry "
+              f"{r['native_batch_ms_per_image']:.2f} ms per image (bit for bit the "
+              f"per-image calls); PIL BILINEAR {r['pil_bilinear_ms']:.2f} ms; 4 callers at "
+              f"once, wall ms per image: native on 1 thread per call (load_image_rgb) "
+              f"{r['4_callers_native_1_thread_ms']:.2f}, on {threads} per call "
+              f"{r['4_callers_native_ms']:.2f}, PIL {r['4_callers_pil_bilinear_ms']:.2f}; "
+              f"max |native - PIL| {diff} LSB (limit 1)", flush=True)
+    out["native"] = rows
+
+
+def _same_samples(np, name, packed, direct):
+    """Every sample of ``packed`` bit for bit ``direct``'s (decoded on 8
+    threads)."""
+    from concurrent.futures import ThreadPoolExecutor
+    check(len(packed) == len(direct), f"{name}: {len(packed)} against {len(direct)}")
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        for i, want in enumerate(pool.map(direct.load, range(len(direct)))):
+            got = packed.load(i)
+            check(set(got) == set(want), f"{name} sample {i}: keys {sorted(got)}")
+            for k, v in want.items():
+                same = (got[k] == v if isinstance(v, str) else
+                        np.asarray(got[k]).dtype == np.asarray(v).dtype
+                        and np.array_equal(np.asarray(got[k]), np.asarray(v)))
+                check(same, f"{name} sample {i}: packed {k} differs from the direct decode")
+
+
+@contextlib.contextmanager
+def _data_env(cache, use_native=True):
+    """``TPU_UNET_DATA_CACHE`` (None: no pack) and the resampler for the
+    datasets built inside."""
+    from tpu_unet_torch.data import transforms
+    before = os.environ.get("TPU_UNET_DATA_CACHE"), transforms._USE_NATIVE
+    os.environ["TPU_UNET_DATA_CACHE"] = cache or ""
+    transforms._USE_NATIVE = use_native
+    try:
+        yield
+    finally:
+        os.environ["TPU_UNET_DATA_CACHE"] = before[0] or ""
+        transforms._USE_NATIVE = before[1]
+
+
+def _mvtec_epoch0(torch, np, legs, tmp, data_root, leg, cache, use_native):
+    """Epoch 0 of ``train_mvtec.train`` (phase 8's flags, one epoch) on
+    fresh datasets; returns its train img/s and seconds."""
+    from tpu_unet_torch.cli import train_mvtec
+    from tpu_unet_torch.data.mvtec import MVTecDataset
+    from tpu_unet_torch.ops.kernels.int8_conv import conv3x3_int8
+    from tpu_unet_torch.ops.kernels.preprocess import normalize_u8
+
+    b = 16
+    args = train_mvtec.parse_args([
+        "--data_root", data_root, "--category", "bottle", "--model", "anomaly_unet",
+        "--base_features", "64", "--image_size", "256", "--batch_size", str(b),
+        "--num_workers", "4", "--device", "cuda", "--precision", "bf16", "--optimizer",
+        "adam", "--epochs", "1", "--val_freq", "1", "--save_freq", "2",
+        "--save_dir", os.path.join(tmp, "runs")])
+    with _data_env(cache, use_native):
+        train_ds = MVTecDataset(data_root, "bottle", "train", 256, is_train=True)
+        val_ds = MVTecDataset(data_root, "bottle", "test", 256, is_train=False)
+        check((train_ds._pack is not None) == bool(cache), f"{leg}: pack {train_ds._pack}")
+        spans = _Spans(torch, (normalize_u8, conv3x3_int8))
+        train_mvtec.train(args, train_ds, val_ds, torch.device("cuda"),
+                          os.path.join(tmp, "runs", leg), span=spans)
+    shutil.rmtree(os.path.join(tmp, "runs"))
+    legs[f"pack_{leg}"] = {k: spans.total("train")[k] + spans.total("validate")[k]
+                           for k in ("normalize_u8", "conv3x3_int8")}
+    tr = spans.rows["train", 0]
+    n = (len(train_ds) // b) * b
+    return {"train_s": tr["seconds"], "img_per_s": n / tr["seconds"],
+            "val_s": spans.rows["validate", 0]["seconds"]}
+
+
+def _ksdd_epoch0(torch, np, legs, tmp, data_root, leg, cache):
+    """Epoch 0 of ``train_kolektorsdd``'s defaults (one epoch) through
+    ``_seg_common.train_seg`` on fresh datasets."""
+    from tpu_unet_torch.cli import _seg_common as seg
+    from tpu_unet_torch.cli import train_kolektorsdd
+    from tpu_unet_torch.ops.kernels.int8_conv import conv3x3_int8
+    from tpu_unet_torch.ops.kernels.preprocess import normalize_u8
+
+    args = train_kolektorsdd.parse_args([
+        "--data_root", data_root, "--batch_size", str(SEG_BATCH), "--num_workers", "4",
+        "--device", "cuda", "--epochs", "1", "--val_freq", "1", "--save_freq", "1",
+        "--save_dir", os.path.join(tmp, "runs")])
+    workload = train_kolektorsdd.make_workload()
+    with _data_env(cache):
+        t0 = time.perf_counter()
+        train_ds, val_ds, test_ds, n_classes, _ = workload.make_datasets(args)
+        index_s = time.perf_counter() - t0
+        check((train_ds._pack is not None) == bool(cache), f"{leg}: pack {train_ds._pack}")
+        spans = _Spans(torch, (normalize_u8, conv3x3_int8))
+        seg.train_seg(args, workload, train_ds, val_ds, n_classes, torch.device("cuda"),
+                      os.path.join(tmp, "runs", leg), span=spans)
+    shutil.rmtree(os.path.join(tmp, "runs"))
+    legs[f"pack_{leg}"] = {k: spans.total("train")[k] + spans.total("validate")[k]
+                           for k in ("normalize_u8", "conv3x3_int8")}
+    tr = spans.rows["train", 0]
+    n = (len(train_ds) // SEG_BATCH) * SEG_BATCH
+    return {"train_s": tr["seconds"], "img_per_s": n / tr["seconds"],
+            "val_s": spans.rows["validate", 0]["seconds"], "datasets_s": index_s,
+            "datasets": (train_ds, val_ds, test_ds)}
+
+
+def _pack_leg(torch, np, out, legs, tmp, bottle_root, ksdd_root, phase8_epoch0):
+    """[pack]: packs of phase 8's bottle tree and phase 9's KolektorSDD tree
+    under TMPDIR (build seconds and MB), every packed sample bit for bit the
+    direct decode, and epoch 0 of the trainers reading the packs beside the
+    same epoch decoding natively without a pack (and, for MVTec, with PIL)."""
+    from tpu_unet_torch.data.kolektorsdd import KolektorSDDDataset
+    from tpu_unet_torch.data.mvtec import MVTecDataset
+
+    packs = os.path.join(tmp, "packs")
+    rows = {}
+    with _data_env(packs):
+        t0 = time.perf_counter()
+        train_ds = MVTecDataset(bottle_root, "bottle", "train", 256, is_train=True)
+        test_ds = MVTecDataset(bottle_root, "bottle", "test", 256, is_train=False)
+        build_s = time.perf_counter() - t0
+    check(train_ds._pack is not None and test_ds._pack is not None, "no MVTec pack")
+    mb = _dir_mb(packs)
+    for split, ds in (("train", train_ds), ("test", test_ds)):
+        _same_samples(np, f"bottle {split}", ds, MVTecDataset(
+            bottle_root, "bottle", split, 256, is_train=split == "train",
+            cache_samples=False, disk_cache_dir=None))
+    n_mvtec = len(train_ds) + len(test_ds)
+    print(f"[pack] bottle: {n_mvtec} samples packed in {build_s:.2f} s "
+          f"({n_mvtec / build_s:.1f} img/s, 8 threads), {mb:.1f} MB; every sample bit for "
+          f"bit the direct decode", flush=True)
+    epochs = {"pack": _mvtec_epoch0(torch, np, legs, tmp, bottle_root, "mvtec_pack", packs,
+                                    True),
+              "native_no_pack": _mvtec_epoch0(torch, np, legs, tmp, bottle_root,
+                                              "mvtec_native", None, True),
+              "pil_no_pack": _mvtec_epoch0(torch, np, legs, tmp, bottle_root,
+                                           "mvtec_pil", None, False)}
+    rows["mvtec"] = {"samples": n_mvtec, "build_s": build_s, "mb": mb,
+                     "epoch0": epochs, "epoch0_native_no_pack_phase8": phase8_epoch0}
+    print(f"[pack] bottle epoch 0 (train_mvtec.train, base 64, bf16, 256², b16, a fresh "
+          f"MVTecDataset): reading the pack {epochs['pack']['img_per_s']:.1f} img/s "
+          f"({epochs['pack']['train_s']:.3f} s); decoding natively without a pack "
+          f"{epochs['native_no_pack']['img_per_s']:.1f} img/s "
+          f"({epochs['native_no_pack']['train_s']:.3f} s; phase 8's epoch 0, the same decode: "
+          f"{phase8_epoch0['train_img_per_s']:.1f}); decoding with PIL "
+          f"{epochs['pil_no_pack']['img_per_s']:.1f} img/s "
+          f"({epochs['pil_no_pack']['train_s']:.3f} s)", flush=True)
+
+    before = _dir_mb(packs)
+    kp = _ksdd_epoch0(torch, np, legs, tmp, ksdd_root, "ksdd_pack", packs)
+    kmb = _dir_mb(packs) - before
+    for split, ds in zip(("train", "val", "test"), kp.pop("datasets")):
+        direct = KolektorSDDDataset(ksdd_root, split, (1024, 512), cache_samples=False,
+                                    disk_cache_dir=None)
+        _same_samples(np, f"kolektorsdd {split}", ds, direct)
+    kn = _ksdd_epoch0(torch, np, legs, tmp, ksdd_root, "ksdd_native", None)
+    kn.pop("datasets")
+    rows["kolektorsdd"] = {"samples": KSDD_PARTS, "build_s": kp["datasets_s"], "mb": kmb,
+                           "epoch0": {"pack": kp, "native_no_pack": kn}}
+    print(f"[pack] KolektorSDD: {KSDD_PARTS} samples packed in {kp['datasets_s']:.2f} s, "
+          f"{kmb:.1f} MB; every sample bit for bit the direct decode; epoch 0 "
+          f"(train_seg, SegmentationUNet base 64, bf16, 1024x512, b8): reading the pack "
+          f"{kp['img_per_s']:.1f} img/s ({kp['train_s']:.3f} s), decoding natively without "
+          f"a pack {kn['img_per_s']:.1f} img/s ({kn['train_s']:.3f} s)", flush=True)
+    out["pack"] = rows
+    return packs
+
+
+def _viz_leg(torch, np, out, legs, tmp, keep, packs):
+    """[viz]: the viewers' collect halves on phase 8's, 9's and 10's
+    checkpoints, held against ``test_mvtec``'s eval step and the bf16
+    ``SegmentationPredictor`` on the same images, with K1's launches."""
+    import importlib.util
+
+    from tpu_unet_torch.cli import test_mvtec, visualize_mvtec, visualize_seg
+    from tpu_unet_torch.data.mvtec import MVTecDataset
+    from tpu_unet_torch.ops.kernels.int8_conv import conv3x3_int8
+    from tpu_unet_torch.ops.kernels.preprocess import normalize_u8
+    from tpu_unet_torch.serve import SegmentationPredictor
+
+    dev = torch.device("cuda")
+    rows = {}
+    render = importlib.util.find_spec("matplotlib") is not None
+    with _data_env(packs):
+        # --- visualize_mvtec on phase 8's best_model.pth ---------------------
+        bottle = os.path.join(keep, "bottle")
+        ckpt = os.path.join(keep, "mvtec_best_model.pth")
+        vargs = visualize_mvtec.parse_args([
+            "--data_root", bottle, "--category", "bottle", "--checkpoint", ckpt,
+            "--max_samples", str(VIZ_SAMPLES), "--output_dir", os.path.join(tmp, "viz")])
+        normalize_u8.launches = conv3x3_int8.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        records = visualize_mvtec.collect_records(vargs, dev)
+        seconds = time.perf_counter() - t0
+        launches = {"normalize_u8": normalize_u8.launches,
+                    "conv3x3_int8": conv3x3_int8.launches}
+        legs["viz_mvtec"] = launches
+        n_batches = -(-VIZ_SAMPLES // vargs.batch_size)
+        check(len(records) == VIZ_SAMPLES and launches == {"normalize_u8": n_batches,
+                                                          "conv3x3_int8": 0},
+              f"visualize_mvtec: {len(records)} records, launches {launches}")
+        targs = test_mvtec.parse_args(["--data_root", bottle, "--checkpoint", ckpt,
+                                       "--batch_size", str(vargs.batch_size)])
+        state, step = test_mvtec.load_model(targs, dev)
+        ds = MVTecDataset(bottle, "bottle", "test", 256, is_train=False)
+        for lo in range(0, VIZ_SAMPLES, vargs.batch_size):
+            batch = [ds.load(i) for i in range(lo, lo + vargs.batch_size)]
+            ref = step(state, torch.from_numpy(np.stack([s["image"] for s in batch])).to(dev),
+                       torch.from_numpy(np.stack([s["mask"] for s in batch])).to(dev))
+            ref = {k: ref[k].cpu().numpy() for k in ("anomaly_map", "error_map",
+                                                     "reconstruction", "score", "image")}
+            for i in range(len(batch)):
+                r = records[lo + i]
+                check(r["image_path"] == batch[i]["image_path"], "visualize_mvtec order")
+                for k in ("anomaly_map", "error_map", "reconstruction", "image"):
+                    check(np.array_equal(r[k], ref[k][i]),
+                          f"visualize_mvtec {k} of sample {lo + i} differs from test_mvtec's")
+                check(r["score"] == float(ref["score"][i]),
+                      f"visualize_mvtec score of sample {lo + i} differs from test_mvtec's")
+        del state, step
+        rows["mvtec"] = {"samples": len(records), "batch": vargs.batch_size,
+                         "collect_s": seconds, "samples_per_s": len(records) / seconds,
+                         "launches": launches}
+        print(f"[viz] visualize_mvtec collect (AnomalyUNet base 64, bf16, phase 8's "
+              f"best_model.pth): {len(records)} samples at b{vargs.batch_size} in "
+              f"{seconds:.3f} s ({len(records) / seconds:.1f} samples/s, model load "
+              f"included); K1 {launches['normalize_u8']}x for {n_batches} batches; anomaly "
+              f"maps, error maps, reconstructions and scores bit for bit test_mvtec's eval "
+              f"step", flush=True)
+        if render:
+            visualize_mvtec.render(vargs, records)
+
+    # --- visualize_seg on phase 9's Gear and phase 10's UNet++ (no pack) ---------
+    with _data_env(None):
+        for name, ckpt, flags, kw in (
+                ("gear_seg_unet", "gear_seg.pth", [], {}),
+                ("gear_unetpp_heads1", "gear_unetpp.pth",
+                 ["--model", "unetpp", "--deep_supervision", "--heads", "1"],
+                 {"model_name": "unetpp", "deep_supervision": True, "heads": 1})):
+            sargs = visualize_seg.parse_args([
+                "--dataset", "gear", "--data_root", os.path.join(tmp, "gear"),
+                "--checkpoint", os.path.join(keep, ckpt), "--num_samples", str(VIZ_SAMPLES),
+                "--output_dir", os.path.join(tmp, "viz", name), *flags])
+            ds, n_classes, class_names, hw = visualize_seg.build_dataset(sargs)
+            normalize_u8.launches = conv3x3_int8.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            samples = visualize_seg.collect_samples(sargs, dev, ds)
+            seconds = time.perf_counter() - t0
+            launches = {"normalize_u8": normalize_u8.launches,
+                        "conv3x3_int8": conv3x3_int8.launches}
+            legs[f"viz_{name}"] = launches
+            n_batches = -(-VIZ_SAMPLES // sargs.batch_size)
+            check(len(samples) == VIZ_SAMPLES and launches == {"normalize_u8": n_batches,
+                                                              "conv3x3_int8": 0},
+                  f"visualize_seg {name}: {len(samples)} samples, launches {launches}")
+            predictor = SegmentationPredictor.from_checkpoint(
+                os.path.join(keep, ckpt), num_classes=n_classes, image_size_hw=hw,
+                batch_size=sargs.batch_size, precision="bf16", fold_bn=False,
+                base_features=64, device="cuda", **kw)
+            images = np.stack([ds.load(i)["image"] for i in range(VIZ_SAMPLES)])
+            masks, confs = predictor.predict_array(images)
+            preds = np.stack([s["pred"] for s in samples])
+            check(np.array_equal(preds, masks),
+                  f"visualize_seg {name}: predictions differ from the bf16 predictor's on "
+                  f"{int((preds != masks).sum())} pixels")
+            conf_rel = float(np.max(np.abs(np.array([s["conf"].mean() for s in samples])
+                                           - confs) / confs))
+            check(conf_rel < 1e-5, f"visualize_seg {name}: mean confidence off by {conf_rel}")
+            del predictor
+            torch.cuda.empty_cache()
+            rows[name] = {"samples": len(samples), "batch": sargs.batch_size,
+                          "collect_s": seconds, "samples_per_s": len(samples) / seconds,
+                          "launches": launches, "mean_conf_max_rel_vs_predictor": conf_rel}
+            print(f"[viz] visualize_seg collect {name} (base 64, bf16, {hw[0]}x{hw[1]}): "
+                  f"{len(samples)} samples at b{sargs.batch_size} in {seconds:.3f} s "
+                  f"({len(samples) / seconds:.1f} samples/s, model load included); K1 "
+                  f"{launches['normalize_u8']}x for {n_batches} batches; predictions bit "
+                  f"for bit the bf16 SegmentationPredictor's, mean confidence within "
+                  f"{conf_rel:.1e}", flush=True)
+            if render:
+                visualize_seg.render(sargs, samples, n_classes, class_names)
+    if render:
+        pngs = sum(f.endswith(".png") for _, _, fs in os.walk(os.path.join(tmp, "viz"))
+                   for f in fs)
+        check(pngs > 0, "the viewers rendered no PNG")
+        print(f"[viz] render: {pngs} PNGs", flush=True)
+    else:
+        print("[viz] render: not run on this machine (no matplotlib)", flush=True)
+    rows["rendered"] = render
+    out["viz"] = rows
+
+
+def _remat_timings(torch, np, name, make_state, make_step, batch, modes, b):
+    """ms per step (the median of ``REMAT_STEPS`` after 2 warm-up steps),
+    img/s and peak GB of each remat mode, each from a fresh state."""
+    rows = {}
+    for mode in modes:
+        state = make_state()
+        step = make_step(mode)
+
+        def run(*a, step=step):  # the seg step returns (losses, cm)
+            r = step(*a)
+            return r[0] if isinstance(r, tuple) else r
+
+        g = torch.Generator(device="cuda").manual_seed(0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _, median_ms, losses = _timed_steps(torch, np, run, state, *batch, g, warmup=2,
+                                            steps=REMAT_STEPS)
+        check(np.isfinite(losses["total_loss"]).all(), f"{name} remat {mode}: loss")
+        rows[mode] = {"median_ms": median_ms, "img_per_s": 1e3 * b / median_ms,
+                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del state
+        torch.cuda.empty_cache()
+        print(f"[remat] {name} remat={mode}: {median_ms:.2f} ms per step (median of "
+              f"{REMAT_STEPS}), {rows[mode]['img_per_s']:.1f} img/s, peak "
+              f"{rows[mode]['peak_gb']:.2f} GB", flush=True)
+    return rows
+
+
+def _remat_gate(torch, np, name, make_state, make_step, step_args, modes):
+    """One step from the same state and batch: each remat mode's loss equals
+    the plain step's exactly, its BN running statistics bit for bit (and
+    ``num_batches_tracked`` + 1), its parameters within the difference of
+    two plain runs or 1e-4, whichever is larger."""
+    def one(mode):
+        state = make_state()
+        losses = make_step(mode).with_draws(state, *step_args)
+        if isinstance(losses, tuple):
+            losses = losses[0]
+        sd = {k: v.detach().clone() for k, v in state.model.state_dict().items()}
+        del state
+        return {k: float(v) for k, v in losses.items()}, sd
+
+    (l0, sd0), (l1, sd1) = one("none"), one("none")
+
+    def param_diff(sd):
+        return max(float((sd[k].float() - sd0[k].float()).abs().max()) for k in sd0
+                   if "running" not in k and "num_batches" not in k)
+
+    plain_diff = param_diff(sd1)
+    rows = {"plain_vs_plain_param_max_abs": plain_diff}
+    for mode in modes:
+        lm, sdm = one(mode)
+        check(lm == l0, f"{name} remat={mode}: losses {lm} against the plain step's {l0}")
+        for k, v in sd0.items():
+            if "running" in k or "num_batches_tracked" in k:
+                check(torch.equal(sdm[k], v), f"{name} remat={mode}: {k} differs")
+        check(all(int(v) == 1 for k, v in sdm.items() if k.endswith("num_batches_tracked")),
+              f"{name} remat={mode}: num_batches_tracked did not rise by 1")
+        d = param_diff(sdm)
+        check(d <= max(plain_diff, 1e-4),
+              f"{name} remat={mode}: parameters differ by {d:.3g} (two plain runs: "
+              f"{plain_diff:.3g})")
+        rows[mode] = {"param_max_abs_vs_plain": d, "loss_equal": True, "bn_stats_equal": True}
+        print(f"[remat] {name} remat={mode} gate: loss {lm['total_loss']:.6f} equal to the "
+              f"plain step's, BN running statistics bit for bit, num_batches_tracked +1, "
+              f"parameters within {d:.3g} (two plain runs: {plain_diff:.3g})", flush=True)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _remat_leg(torch, np, out):
+    """[remat]: the flagship step (AnomalyUNet base 64, bf16, 256², b16,
+    Adam) with remat none / full_res / full, and the KolektorSDD step
+    (SegmentationUNet base 64, bf16, 1024 x 512, b8) with none and full_res:
+    ms per step, img/s, peak GB, and the one-step gates."""
+    from tpu_unet_torch.cli import train_kolektorsdd
+    from tpu_unet_torch.core.precision import get_policy
+    from tpu_unet_torch.models.unet import AnomalyUNet, SegmentationUNet
+    from tpu_unet_torch.train.state import create_train_state
+    from tpu_unet_torch.train.steps import (AugmentConfig, SegLossConfig,
+                                            make_anomaly_train_step, make_seg_train_step)
+
+    bf16 = get_policy("bf16")
+    rows = {}
+
+    torch.manual_seed(3)
+    sd = AnomalyUNet(base_features=64, policy=bf16, remat_full_res=True).state_dict()
+
+    def anomaly_state():
+        model = AnomalyUNet(base_features=64, policy=bf16, remat_full_res=True)
+        model.load_state_dict(sd)
+        return create_train_state(model, "adam", 1e-3, 1e-4, device="cuda")
+
+    def anomaly_step(mode):
+        return make_anomaly_train_step(aug_cfg=AugmentConfig(), remat=mode)
+
+    images = torch.from_numpy(synth_images(torch, 16, 256, 60, "cuda")).cuda()
+    masks = synth_masks(torch, 16, 256, 61, "cuda")
+    modes = ("none", "full_res", "full")
+    flagship = _remat_timings(torch, np, "flagship", anomaly_state, anomaly_step,
+                              (images, masks), modes, 16)
+    draws = anomaly_step("none").draws(16, torch.Generator(device="cuda").manual_seed(5))
+    flagship["gate"] = _remat_gate(torch, np, "flagship", anomaly_state, anomaly_step,
+                                   (images, masks, draws), modes[1:])
+    rows["flagship"] = flagship
+    del sd
+    torch.cuda.empty_cache()
+
+    h, w = 1024, 512
+    torch.manual_seed(4)
+    ksd = SegmentationUNet(n_classes=3, base_features=64, policy=bf16,
+                           remat_full_res=True).state_dict()
+    aug = train_kolektorsdd.make_workload().augment
+    loss = SegLossConfig(class_weights=(1.0, 50.0, 50.0))
+
+    def seg_state():
+        model = SegmentationUNet(n_classes=3, base_features=64, policy=bf16,
+                                 remat_full_res=True)
+        model.load_state_dict(ksd)
+        return create_train_state(model, "adam", 1e-3, 1e-4, device="cuda")
+
+    def seg_step(mode):
+        return make_seg_train_step(3, loss, aug, remat=mode)
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    seg_images = torch.randint(0, 256, (SEG_BATCH, h, w, 3), generator=g, device="cuda",
+                               dtype=torch.uint8)
+    labels = (torch.rand(SEG_BATCH, h, w, generator=g, device="cuda") > 0.995).to(torch.uint8)
+    ksdd = _remat_timings(torch, np, "kolektorsdd", seg_state, seg_step, (seg_images, labels),
+                          ("none", "full_res"), SEG_BATCH)
+    probe = seg_state()
+    augment, dropout = seg_step("none").draws(probe.model, SEG_BATCH,
+                                              torch.Generator(device="cuda").manual_seed(7))
+    del probe
+    ksdd["gate"] = _remat_gate(torch, np, "kolektorsdd", seg_state, seg_step,
+                               (seg_images, labels, augment, dropout), ("full_res",))
+    rows["kolektorsdd"] = ksdd
+    out["remat"] = rows
+
+
+def phase_host_data(torch, np, report, tmp, keep):
+    """Phase 12: the host data path, the viewers and remat. ``keep`` holds
+    phase 8's bottle tree and best checkpoint and phases 9 and 10's Gear
+    checkpoints; ``tmp`` phase 9's trees. Returns the launch counts of each
+    leg."""
+    out, legs = {}, {}
+    t0 = time.perf_counter()
+    bottle = os.path.join(keep, "bottle")
+    _native_leg(np, out, tmp, bottle, os.path.join(tmp, "ksdd"))
+    phase8_epoch0 = report["main_path"]["mvtec"]["epochs"][0]
+    packs = _pack_leg(torch, np, out, legs, tmp, bottle, os.path.join(tmp, "ksdd"),
+                      {k: phase8_epoch0[k] for k in ("train_s", "train_img_per_s")})
+    _viz_leg(torch, np, out, legs, tmp, keep, packs)
+    _remat_leg(torch, np, out)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[phase 12] {out['seconds']:.1f} s", flush=True)
+    report["main_path"]["host_data"] = out
+    return legs
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2599,12 +3182,19 @@ def main():
     launches = phase_main_path(torch, np, report)
     path_launches = {"serve": launches, **phase_train(torch, np, report)}
     phase_train_cpu_vs_card(torch, np, report)
-    path_launches.update(phase_mvtec(torch, np, report))
+    # Phases 8-10 decode without a pack (their cold epochs measure decoding);
+    # phase 12 sets its own pack directory under TMPDIR. Nothing is written
+    # under the user's cache.
+    os.environ["TPU_UNET_DATA_CACHE"] = ""
     tmp = tempfile.mkdtemp(prefix="chip_smoke_seg_")
+    keep = os.path.join(tmp, "keep")  # phases 8-10's trees and checkpoints for phase 12
+    os.makedirs(keep)
     try:
-        path_launches.update(phase_seg(torch, np, report, tmp))
-        path_launches.update(phase_extensions(torch, np, report, tmp))
+        path_launches.update(phase_mvtec(torch, np, report, keep))
+        path_launches.update(phase_seg(torch, np, report, tmp, keep))
+        path_launches.update(phase_extensions(torch, np, report, tmp, keep))
         path_launches.update(phase_serving(torch, np, report, tmp))
+        path_launches.update(phase_host_data(torch, np, report, tmp, keep))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

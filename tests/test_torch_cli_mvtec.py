@@ -20,6 +20,7 @@ import tpu_unet.cli.test_mvtec as jax_test_cli
 import tpu_unet.data.transforms as jax_transforms
 import tpu_unet.models as jmodels
 import tpu_unet_torch.cli.test_mvtec as test_cli
+import tpu_unet_torch.data.transforms as port_transforms
 from test_data import make_mvtec
 from tpu_unet.data.loader import DataLoader as JaxDataLoader
 from tpu_unet.data.mvtec import MVTecDataset as JaxMVTec
@@ -182,6 +183,7 @@ def test_test_path_matches_jax(mvtec_root, monkeypatch):
     the same weights: scores [rtol 1e-4], the threshold [rtol 1e-4]; on this
     data the predictions and every metric are equal [exact]."""
     monkeypatch.setattr(jax_transforms, "_USE_NATIVE", False)
+    monkeypatch.setattr(port_transforms, "_USE_NATIVE", False)
     torch.manual_seed(1)
     model = build_model("anomaly_unet", base_features=4)
     with torch.no_grad():  # BN statistics away from their init

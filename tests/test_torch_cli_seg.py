@@ -20,6 +20,7 @@ import tpu_unet.cli._seg_common as jax_seg_common
 import tpu_unet.cli.test_kolektorsdd as jax_test_ksdd
 import tpu_unet.cli.train_kolektorsdd as jax_train_ksdd
 import tpu_unet.data.transforms as jax_transforms
+import tpu_unet_torch.data.transforms as port_transforms
 from _torch_parity import one_torch_thread  # noqa: F401  (an autouse fixture)
 from test_data import make_gear, make_kolektorsdd
 from tpu_unet.utils.viz import overlay_segmentation as jax_overlay
@@ -41,6 +42,7 @@ HISTORY_KEYS = {"epoch", "train_miou", "total_loss", "ce_loss", "dice_loss", "va
 @pytest.fixture(autouse=True)
 def _pil_resize(monkeypatch):
     monkeypatch.setattr(jax_transforms, "_USE_NATIVE", False)
+    monkeypatch.setattr(port_transforms, "_USE_NATIVE", False)
 
 
 @pytest.fixture(scope="module")

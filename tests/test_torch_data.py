@@ -10,6 +10,7 @@ import torch
 from PIL import Image
 
 import tpu_unet.data.transforms as jax_transforms
+import tpu_unet_torch.data.transforms as port_transforms
 from test_data import make_mvtec
 from tpu_unet.data.loader import DataLoader as JaxDataLoader
 from tpu_unet.data.mvtec import MVTecDataset as JaxMVTec
@@ -22,9 +23,10 @@ from tpu_unet_torch.data.transforms import load_mask, resize_mask_array
 
 @pytest.fixture()
 def mvtec_root(tmp_path, monkeypatch):
-    # The JAX package resizes with its native resampler when it is built; the
-    # port has PIL's path only, the JAX package's own under this switch.
+    # Both packages on PIL's resampler, like against like
+    # (tests/test_torch_native.py holds the native resamplers together).
     monkeypatch.setattr(jax_transforms, "_USE_NATIVE", False)
+    monkeypatch.setattr(port_transforms, "_USE_NATIVE", False)
     root = make_mvtec(str(tmp_path), n_train=5, n_test_good=2, n_broken=3, size=40)
     # A second defect type, with an odd-shaped mask and one image lacking a mask.
     base = os.path.join(root, "bottle")
@@ -82,9 +84,18 @@ def test_available_categories_match_jax(mvtec_root):
     assert (len(train), len(test)) == (5, 7)
 
 
-def test_disk_cache_and_bad_arguments_raise(mvtec_root):
-    with pytest.raises(NotImplementedError):
-        MVTecDataset(mvtec_root, "bottle", disk_cache_dir="auto")
+def test_disk_cache_and_bad_arguments_raise(mvtec_root, tmp_path, monkeypatch):
+    """The default ``disk_cache_dir='auto'`` builds a pack under
+    ``TPU_UNET_DATA_CACHE`` whose samples equal the JAX package's direct
+    decode; bad arguments raise."""
+    assert MVTecDataset(mvtec_root, "bottle")._pack is None  # the suite's env: no pack
+    monkeypatch.setenv("TPU_UNET_DATA_CACHE", str(tmp_path / "packs"))
+    ds = MVTecDataset(mvtec_root, "bottle", "test", image_size=24, is_train=False)
+    ref = JaxMVTec(mvtec_root, "bottle", "test", image_size=24, is_train=False,
+                   disk_cache_dir=None)
+    assert ds._pack is not None and len(os.listdir(tmp_path / "packs")) == 1
+    for i in range(len(ds)):
+        _same_sample(ds.load(i), ref.load(i))
     with pytest.raises(ValueError):
         MVTecDataset(mvtec_root, "bottle", "val")
     with pytest.raises(ValueError):

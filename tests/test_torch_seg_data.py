@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 
 import tpu_unet.data.transforms as jax_transforms
+import tpu_unet_torch.data.transforms as port_transforms
 from _torch_parity import one_torch_thread  # noqa: F401  (an autouse fixture)
 from test_data import make_gear, make_kolektorsdd
 from tpu_unet.data import gear as jgear
@@ -20,9 +21,10 @@ from tpu_unet_torch.data.loader import DataLoader
 
 @pytest.fixture(autouse=True)
 def _pil_resize(monkeypatch):
-    """The JAX package resizes with its native resampler when it can build
-    it; the port with PIL, the reference's (ROADMAP section 3, note 4)."""
+    """Both packages on PIL's resampler, like against like
+    (tests/test_torch_native.py holds the native resamplers together)."""
     monkeypatch.setattr(jax_transforms, "_USE_NATIVE", False)
+    monkeypatch.setattr(port_transforms, "_USE_NATIVE", False)
 
 
 @pytest.fixture(scope="module")
@@ -140,12 +142,18 @@ def test_kolektorsdd_masks_are_clipped_and_resized(ksdd_root):
 
 
 @pytest.mark.parametrize("make", ["gear", "ksdd"])
-def test_disk_cache_is_not_ported(gear_root, ksdd_root, make):
-    with pytest.raises(NotImplementedError):
-        if make == "gear":
-            tgear.GearDataset(gear_root, "train", disk_cache_dir="auto")
-        else:
-            tksdd.KolektorSDDDataset(ksdd_root, "train", disk_cache_dir="auto")
+def test_disk_cache_is_not_ported(gear_root, ksdd_root, make, tmp_path):
+    """The packed store is ported: a pack of each dataset serves the JAX
+    package's direct decode, sample for sample."""
+    cache = str(tmp_path / "packs")
+    if make == "gear":
+        port = tgear.GearDataset(gear_root, "train", (32, 32), disk_cache_dir=cache)
+        ref = jgear.GearDataset(gear_root, "train", (32, 32), disk_cache_dir=None)
+    else:
+        port = tksdd.KolektorSDDDataset(ksdd_root, "train", (32, 16), disk_cache_dir=cache)
+        ref = jksdd.KolektorSDDDataset(ksdd_root, "train", (32, 16), disk_cache_dir=None)
+    assert port._pack is not None and len(os.listdir(cache)) == 1
+    _same_samples(port, ref)
 
 
 def test_loader_batches_uint8_labels(ksdd_root):

@@ -246,8 +246,9 @@ def test_generator_entry_point_trains():
     assert all(np.isfinite(totals)) and min(totals[1:]) < totals[0]
     with pytest.raises(ValueError):
         make_seg_train_step(3, grad_accum=3)(state, images, labels, g)  # 4 rows in 3
-    with pytest.raises(NotImplementedError):
-        make_seg_train_step(3, remat="full")
+    assert make_seg_train_step(3, remat="full").remat == "full"  # ported
+    with pytest.raises(ValueError):
+        make_seg_train_step(3, remat="some")
 
 
 def test_paired_shear_at_kolektorsdd_aspect():

@@ -28,6 +28,7 @@ from tpu_unet.train import make_anomaly_train_step as jax_train_step
 from tpu_unet.train import make_optimizer as jax_optimizer
 from tpu_unet_torch.core.precision import get_policy
 from tpu_unet_torch.models import build_model
+from tpu_unet_torch.models.unet import AnomalyUNet
 from tpu_unet_torch.ops.augment import AugmentDraws
 from tpu_unet_torch.train.state import create_train_state, num_params
 from tpu_unet_torch.train.steps import (AnomalyLossConfig, AugmentConfig,
@@ -254,8 +255,25 @@ def test_eval_step_matches_jax_with_padded_rows(one_step):
 
 @pytest.mark.parametrize("remat", ["full", "full_res"])
 def test_remat_is_not_ported(remat):
-    with pytest.raises(NotImplementedError):
-        make_anomaly_train_step(remat=remat)
+    """remat is ported: a step with it gives the plain step's losses and BN
+    statistics exactly (tests/test_torch_remat.py holds it in full); other
+    modes and grad_accum < 1 raise."""
+    img, mask = u8_batch(7)
+    draws = jax_draws(jax.random.key(7), len(img), AUG)
+    out = []
+    for mode in ("none", remat):
+        with torch.random.fork_rng():
+            torch.manual_seed(0)
+            model = AnomalyUNet(base_features=BASE, remat_full_res=True)
+        state = create_train_state(model, "sgd", LR, 1e-4, device="cpu")
+        losses = make_anomaly_train_step(LOSS, AUG, remat=mode).with_draws(state, img, mask,
+                                                                           draws)
+        out.append((losses, state.model.state_dict()))
+    (plain, sd_plain), (rem, sd_rem) = out
+    assert {k: float(v) for k, v in rem.items()} == {k: float(v) for k, v in plain.items()}
+    for k, v in sd_plain.items():
+        if "running" in k or "num_batches" in k:
+            assert torch.equal(sd_rem[k], v), k
     with pytest.raises(ValueError):
         make_anomaly_train_step(remat="some")
     with pytest.raises(ValueError):

@@ -8,10 +8,11 @@ the same index order, masks and samples).
   scrape < pitting < spalling, a higher class overwriting a lower one;
 - final ids: background 0, pitting 1, spalling 2, scrape 3; masks are uint8.
 
-The resolved mask at the training resolution is memoized per image, and
-decoded samples are kept in a RAM cache (``data/cache.py``). The JAX
-package's packed on-disk store is not ported: ``disk_cache_dir`` takes None
-only.
+Samples come from a pack on disk (``data/diskcache.py``; ``disk_cache_dir``
+'auto' by default) with the JAX package's fingerprint tag, except under
+``enable_priority_logging``, whose statistics need the live raster pass.
+Without a pack the resolved mask at the training resolution is memoized per
+image and decoded samples are kept in a RAM cache (``data/cache.py``).
 """
 
 from __future__ import annotations
@@ -22,8 +23,10 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 from PIL import Image, ImageDraw
 
+from tpu_unet_torch.data import diskcache
 from tpu_unet_torch.data.cache import SampleCache, cached_load
-from tpu_unet_torch.data.transforms import load_image_rgb, resize_mask_array
+from tpu_unet_torch.data.transforms import (load_image_rgb, resize_backend_tag,
+                                            resize_mask_array)
 
 # Raster priority, lowest -> highest (scrape, pitting, spalling), original class ids.
 CLASS_PRIORITY_ORDER = [2, 0, 1]
@@ -105,10 +108,7 @@ class GearDataset:
                  image_size: Tuple[int, int] = (512, 512),
                  enable_priority_logging: bool = False,
                  cache_masks: bool = True, cache_samples: bool = True,
-                 disk_cache_dir: Optional[str] = None):
-        if disk_cache_dir is not None:
-            raise NotImplementedError("the packed on-disk sample store is not ported "
-                                      "yet; pass disk_cache_dir=None")
+                 disk_cache_dir: Optional[str] = "auto"):
         self._cache = SampleCache() if cache_samples else None
         self.root_dir = root_dir
         self.split = split
@@ -157,6 +157,19 @@ class GearDataset:
         print(f"Classes: {self.class_names}")
         print(f"Number of classes (including background): {self.num_classes}")
 
+        # The priority statistics need the live raster pass: no pack then.
+        self._pack = None
+        root = diskcache.cache_root(disk_cache_dir)
+        if root and not enable_priority_logging:
+            fp = diskcache.fingerprint(
+                f"gear|{split}|{image_size[0]}x{image_size[1]}|{resize_backend_tag()}|mu8",
+                self.image_paths + self.label_paths)
+            self._pack = diskcache.PackedStore.open_or_build(
+                root, fp, len(self.image_paths), self._load_uncached, log=print)
+            # The pack serves every later load; the masks memoized while it
+            # was built would only hold memory.
+            self._mask_cache.clear()
+
     def __len__(self) -> int:
         return len(self.image_paths)
 
@@ -173,6 +186,8 @@ class GearDataset:
         return mask
 
     def load(self, idx: int) -> Dict:
+        if self._pack is not None:
+            return self._pack.load(idx)
         return cached_load(self._cache, idx, lambda: self._load_uncached(idx))
 
     def _load_uncached(self, idx: int) -> Dict:

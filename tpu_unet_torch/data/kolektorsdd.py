@@ -9,8 +9,9 @@ same split membership and samples).
   defect_type_2), shipped as uint8;
 - default image size (1024, 512), H x W.
 
-Decoded samples are kept in a RAM cache (``data/cache.py``); the packed
-on-disk store is not ported (``disk_cache_dir`` takes None only).
+Samples come from a pack on disk (``data/diskcache.py``; ``disk_cache_dir``
+'auto' by default) with the JAX package's fingerprint tag; without a pack
+they are decoded and kept in a RAM cache (``data/cache.py``).
 """
 
 from __future__ import annotations
@@ -22,8 +23,10 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 from PIL import Image
 
+from tpu_unet_torch.data import diskcache
 from tpu_unet_torch.data.cache import SampleCache, cached_load
-from tpu_unet_torch.data.transforms import load_image_rgb, resize_mask_array
+from tpu_unet_torch.data.transforms import (load_image_rgb, resize_backend_tag,
+                                            resize_mask_array)
 
 CLASS_NAMES = ["background", "defect_type_1", "defect_type_2"]
 NUM_CLASSES = 3
@@ -68,10 +71,7 @@ class KolektorSDDDataset:
                  image_size: Tuple[int, int] = (1024, 512),
                  train_split: float = 0.7, val_split: float = 0.15,
                  cache_samples: bool = True,
-                 disk_cache_dir: Optional[str] = None):
-        if disk_cache_dir is not None:
-            raise NotImplementedError("the packed on-disk sample store is not ported "
-                                      "yet; pass disk_cache_dir=None")
+                 disk_cache_dir: Optional[str] = "auto"):
         self._cache = SampleCache() if cache_samples else None
         self.root_dir = root_dir
         self.split = split
@@ -84,11 +84,22 @@ class KolektorSDDDataset:
         print(f"Found {len(self.image_paths)} samples in {split} split")
         print(f"Classes: {self.class_names}")
         print(f"Number of classes: {self.num_classes}")
+        self._pack = None
+        root = diskcache.cache_root(disk_cache_dir)
+        if root:
+            fp = diskcache.fingerprint(
+                f"ksdd|{split}|{image_size[0]}x{image_size[1]}|{train_split}|"
+                f"{val_split}|{resize_backend_tag()}|mu8",
+                self.image_paths + self.mask_paths)
+            self._pack = diskcache.PackedStore.open_or_build(
+                root, fp, len(self.image_paths), self._load_uncached, log=print)
 
     def __len__(self) -> int:
         return len(self.image_paths)
 
     def load(self, idx: int) -> Dict:
+        if self._pack is not None:
+            return self._pack.load(idx)
         return cached_load(self._cache, idx, lambda: self._load_uncached(idx))
 
     def _load_uncached(self, idx: int) -> Dict:

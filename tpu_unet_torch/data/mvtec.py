@@ -7,9 +7,10 @@
 - a sample is ``{image (H, W, 3) uint8, mask (H, W, 1) float32, label int32,
   anomaly_type, image_path}``.
 
-Decoded samples are kept in a RAM cache (``data/cache.py``). The JAX
-package's packed on-disk store (``data/diskcache.py``) is not ported:
-``disk_cache_dir`` takes None only.
+Decoded samples come from a pack on disk (``data/diskcache.py``) when
+``disk_cache_dir`` names one ('auto', the default: ``TPU_UNET_DATA_CACHE``,
+else ``~/.cache/tpu_unet_data``), with the JAX package's fingerprint tag;
+without a pack they are decoded and kept in a RAM cache (``data/cache.py``).
 """
 
 from __future__ import annotations
@@ -21,8 +22,9 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from tpu_unet_torch.data import diskcache
 from tpu_unet_torch.data.cache import SampleCache, cached_load
-from tpu_unet_torch.data.transforms import load_image_rgb, load_mask
+from tpu_unet_torch.data.transforms import load_image_rgb, load_mask, resize_backend_tag
 
 
 @dataclasses.dataclass
@@ -39,11 +41,8 @@ class MVTecDataset:
     def __init__(self, root_dir: str, category: str, split: str = "train",
                  image_size: int = 256, is_train: bool = True,
                  cache_samples: bool = True,
-                 disk_cache_dir: Optional[str] = None,
+                 disk_cache_dir: Optional[str] = "auto",
                  mask_resize: str = "nearest"):
-        if disk_cache_dir is not None:
-            raise NotImplementedError("the packed on-disk sample store is not ported "
-                                      "yet; pass disk_cache_dir=None")
         if mask_resize not in ("nearest", "bilinear"):
             raise ValueError(f"mask_resize must be 'nearest' or 'bilinear', "
                              f"got {mask_resize!r}")
@@ -56,6 +55,16 @@ class MVTecDataset:
         self.samples: List[MVTecSample] = []
         self._cache = SampleCache() if cache_samples else None
         self._load_index()
+        self._pack = None
+        root = diskcache.cache_root(disk_cache_dir)
+        if root:
+            paths = [s.image_path for s in self.samples] + [
+                s.mask_path for s in self.samples if s.mask_path]
+            fp = diskcache.fingerprint(
+                f"mvtec|{category}|{split}|{image_size}|{is_train}|"
+                f"{resize_backend_tag()}|mask={mask_resize}", paths)
+            self._pack = diskcache.PackedStore.open_or_build(
+                root, fp, len(self.samples), self._load_uncached, log=print)
 
     def _load_index(self):
         category_dir = os.path.join(self.root_dir, self.category)
@@ -88,6 +97,8 @@ class MVTecDataset:
         return len(self.samples)
 
     def load(self, idx: int) -> Dict:
+        if self._pack is not None:
+            return self._pack.load(idx)
         return cached_load(self._cache, idx, lambda: self._load_uncached(idx))
 
     def _load_uncached(self, idx: int) -> Dict:

@@ -1,17 +1,37 @@
 """Host-side decode and resize (counterpart of ``tpu_unet/data/transforms.py``).
 
 The host decodes and resizes to the target shape as uint8; normalization and
-augmentation run on the device. Images resize with PIL's BILINEAR filter, the
-JAX package's own path under ``TPU_UNET_NATIVE_RESIZE=0``. (Its native
-resampler is not ported.)
+augmentation run on the device.
+
+Images resize with the native area resampler (``data/native.py``: PIL
+BILINEAR's widened triangle filter, within 1 LSB of PIL's output), the JAX
+package's default. ``TPU_UNET_NATIVE_RESIZE=0`` selects PIL's BILINEAR, read
+at import as the JAX module reads it. A native library that cannot be built
+raises; nothing falls back to PIL without the switch. Masks resize with PIL
+(nearest, or the reference's bilinear raster).
 """
 
 from __future__ import annotations
 
+import os
 from typing import Tuple
 
 import numpy as np
 from PIL import Image
+
+from tpu_unet_torch.data import native
+
+_USE_NATIVE = os.environ.get("TPU_UNET_NATIVE_RESIZE", "1") == "1"
+
+
+def resize_backend_tag() -> str:
+    """The image resampler in use, as the JAX package names it
+    ('native-area-v2' | 'pil-bilinear'); disk-pack fingerprints include it,
+    so a pack never serves pixels of the other resampler."""
+    if _USE_NATIVE:
+        native.get_lib()
+        return f"native-area-v{native.EXPECTED_VERSION}"
+    return "pil-bilinear"
 
 
 def load_image_rgb(path, size_hw: Tuple[int, int]) -> np.ndarray:
@@ -22,6 +42,13 @@ def load_image_rgb(path, size_hw: Tuple[int, int]) -> np.ndarray:
         h, w = size_hw
         if im.size == (w, h):  # PIL size is (W, H)
             return np.asarray(im, dtype=np.uint8)
+        if _USE_NATIVE:
+            # One thread per image: the callers decode several images at once
+            # on threads of their own (the loader, the pack's build, serving),
+            # and a resize that starts threads of its own under them runs
+            # slower than PIL's (chip_smoke.py phase 12, [native]). The
+            # pixels do not depend on the thread count.
+            return native.resize_u8(np.asarray(im, np.uint8), (h, w), "area", n_threads=1)
         return np.asarray(im.resize((w, h), Image.BILINEAR), dtype=np.uint8)
 
 

@@ -21,30 +21,87 @@ mode it normalizes by the batch's biased variance and moves the running
 statistics by 0.1 (torch's convention; flax ``momentum=0.9``) towards the
 batch mean and the *biased* batch variance, where ``nn.BatchNorm2d`` would
 take the unbiased one. Eval mode is ``nn.BatchNorm2d``'s own forward.
+
+Rematerialization (the train steps' ``remat``): ``DoubleConv``, ``Down`` and
+``Up`` take a ``remat_tag``; under :func:`remat_scope` of that tag a block
+runs under :func:`checkpoint`, which keeps only its inputs and recomputes the
+rest in the backward. The recomputation runs in :func:`recomputing` mode, in
+which a train-mode BatchNorm normalizes by the batch statistics as before and
+leaves its running statistics alone, so they move once per step, as flax's
+functional ``batch_stats`` do under ``jax.checkpoint``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from tpu_unet_torch.core.precision import DEFAULT_POLICY, Policy
 from tpu_unet_torch.ops.resize import upsample2x_bilinear_align_corners
 
 
+_STATE = threading.local()  # per thread: the remat scope's tag, recomputing
+
+
+def recomputing() -> bool:
+    """Whether this thread is recomputing a checkpointed forward."""
+    return getattr(_STATE, "recomputing", False)
+
+
+@contextlib.contextmanager
+def _recompute_mode():
+    before = recomputing()
+    _STATE.recomputing = True
+    try:
+        yield
+    finally:
+        _STATE.recomputing = before
+
+
+def checkpoint(fn, *args):
+    """``fn(*args)``, keeping ``args`` and recomputing the rest in the
+    backward (``torch.utils.checkpoint``, non-reentrant) in
+    :func:`recomputing` mode."""
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False,
+        context_fn=lambda: (contextlib.nullcontext(), _recompute_mode()))
+
+
+@contextlib.contextmanager
+def remat_scope(tag: Optional[str]):
+    """Blocks built with ``remat_tag == tag`` run under :func:`checkpoint`
+    inside this scope (in this thread)."""
+    before = getattr(_STATE, "tag", None)
+    _STATE.tag = tag
+    try:
+        yield
+    finally:
+        _STATE.tag = before
+
+
+def _remat(tag: Optional[str]) -> bool:
+    return tag is not None and getattr(_STATE, "tag", None) == tag
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` whose train mode updates ``running_var`` with the
-    biased batch variance, as flax does. Statistics are float32 (the
-    policy's ``norm_dtype``); parameter and buffer names are unchanged."""
+    biased batch variance, as flax does, and not at all while
+    :func:`recomputing`. Statistics are float32 (the policy's
+    ``norm_dtype``); parameter and buffer names are unchanged."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
         out, mean, invstd = torch.native_batch_norm(
             x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+        if recomputing():
+            return out
         with torch.no_grad():
             self.num_batches_tracked.add_(1)
             f = (1.0 / float(self.num_batches_tracked) if self.momentum is None
@@ -77,10 +134,11 @@ class DoubleConv(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int,
                  mid_channels: Optional[int] = None,
-                 policy: Policy = DEFAULT_POLICY):
+                 policy: Policy = DEFAULT_POLICY, remat_tag: Optional[str] = None):
         super().__init__()
         mid = mid_channels if mid_channels is not None else out_channels
         self.policy = policy
+        self.remat_tag = remat_tag
         self.double_conv = nn.Sequential(
             nn.Conv2d(in_channels, mid, 3, padding=1, bias=False),
             BatchNorm2d(mid),
@@ -91,6 +149,11 @@ class DoubleConv(nn.Module):
         )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if _remat(self.remat_tag):
+            return checkpoint(self._forward, x)
+        return self._forward(x)
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in (0, 3):
             y = conv_bn(self.double_conv[i], self.double_conv[i + 1], x, self.policy, padding=1)
             x = F.relu(y).to(self.policy.compute_dtype)
@@ -98,13 +161,15 @@ class DoubleConv(nn.Module):
 
 
 class Down(nn.Module):
-    """2x2 max-pool (stride 2) followed by DoubleConv."""
+    """2x2 max-pool (stride 2) followed by DoubleConv (which takes the
+    ``remat_tag``: the pooled input is kept)."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 policy: Policy = DEFAULT_POLICY):
+                 policy: Policy = DEFAULT_POLICY, remat_tag: Optional[str] = None):
         super().__init__()
         self.maxpool_conv = nn.Sequential(
-            nn.MaxPool2d(2), DoubleConv(in_channels, out_channels, policy=policy))
+            nn.MaxPool2d(2),
+            DoubleConv(in_channels, out_channels, policy=policy, remat_tag=remat_tag))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.maxpool_conv(x)
@@ -119,13 +184,17 @@ class Up(nn.Module):
     DoubleConv narrows to ``in_channels // 2`` in the middle, as the
     reference's does. ``attention=True`` gates the skip through an
     :class:`~tpu_unet_torch.models.attention.AttentionGate` (``att``) before
-    the upsample; the gating signal is the coarse x1.
+    the upsample; the gating signal is the coarse x1. Under its
+    ``remat_tag`` the whole block (upsample, pad, concat and DoubleConv) is
+    checkpointed; x1 and the skip are kept.
     """
 
     def __init__(self, in_channels: int, out_channels: int, bilinear: bool = False,
-                 policy: Policy = DEFAULT_POLICY, attention: bool = False):
+                 policy: Policy = DEFAULT_POLICY, attention: bool = False,
+                 remat_tag: Optional[str] = None):
         super().__init__()
         self.policy = policy
+        self.remat_tag = remat_tag
         skip = in_channels // 2
         if attention:
             from tpu_unet_torch.models.attention import AttentionGate
@@ -138,6 +207,11 @@ class Up(nn.Module):
             self.conv = DoubleConv(in_channels, out_channels, policy=policy)
 
     def forward(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+        if _remat(self.remat_tag):
+            return checkpoint(self._forward, x1, x2)
+        return self._forward(x1, x2)
+
+    def _forward(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
         cd = self.policy.compute_dtype
         if hasattr(self, "att"):
             x2 = self.att(x1, x2)

@@ -11,6 +11,10 @@
 
 In train mode (``model.train()``) BatchNorm normalizes by batch statistics
 and updates its running statistics as flax does (``models/blocks.py``).
+``SegmentationUNet`` and ``AnomalyUNet`` take ``remat_full_res``, which tags
+the full- and half-resolution rows (``inc``, ``down1`` and each decoder's
+``up3`` and ``up4``) for a train step built with ``remat='full_res'``, as the
+JAX models do; the parameters are the same.
 
 Inputs and outputs are NCHW. Attribute names are the reference state_dict's
 (``inc``, ``down1``..``down4``, ``up1``..``up4`` or ``up1_recon``/``up1_seg``..,
@@ -54,6 +58,15 @@ class _Ladder(nn.Module):
                                          (4 * b, 2 * b // factor), (2 * b, b)), start=1):
             self.add_module(f"up{i}{suffix}", Up(cin, cout, self.bilinear, self.policy,
                                                  attention=self.attention))
+
+    def _tag_full_res(self, suffixes) -> None:
+        """Tag the full- and half-resolution rows 'full_res': ``inc``,
+        ``down1`` and ``up3``/``up4`` of each decoder (``suffixes``)."""
+        self.inc.remat_tag = "full_res"
+        self.down1.maxpool_conv[1].remat_tag = "full_res"
+        for suffix in suffixes:
+            for i in (3, 4):
+                getattr(self, f"up{i}{suffix}").remat_tag = "full_res"
 
     def _encode(self, x: torch.Tensor):
         x1 = self.inc(self.policy.cast_to_compute(x))
@@ -121,15 +134,18 @@ class SegmentationUNet(BottleneckDropout, UNet):
     """UNet for multi-class segmentation, with channel dropout (Dropout2d,
     reference model.py:130,146) on the bottleneck x5 only (see
     :class:`BottleneckDropout`). ``attention=True`` gates the decoder's
-    skips (``models/attention.py::AttentionUNet``)."""
+    skips (``models/attention.py::AttentionUNet``). ``remat_full_res`` tags
+    the full- and half-resolution rows for targeted remat."""
 
     def __init__(self, n_channels: int = 3, n_classes: int = 4,
                  bilinear: bool = False, dropout: float = 0.1,
                  policy: Policy = DEFAULT_POLICY, base_features: int = 64,
-                 attention: bool = False):
+                 attention: bool = False, *, remat_full_res: bool = False):
         super().__init__(n_channels, n_classes, bilinear, policy, base_features, attention)
         self.dropout = dropout
         self.bottleneck_channels = self.down4.maxpool_conv[1].double_conv[3].out_channels
+        if remat_full_res:
+            self._tag_full_res([""])
 
     def forward(self, x: torch.Tensor, keep: Optional[torch.Tensor] = None) -> torch.Tensor:
         skips = self._encode(x)
@@ -139,15 +155,19 @@ class SegmentationUNet(BottleneckDropout, UNet):
 
 class AnomalyUNet(_Ladder):
     """Dual-decoder UNet: ``forward`` returns ``(reconstruction, anomaly_map)``,
-    sigmoid-activated (N, 3, H, W) and (N, 1, H, W)."""
+    sigmoid-activated (N, 3, H, W) and (N, 1, H, W). ``remat_full_res``
+    tags the full- and half-resolution rows for targeted remat."""
 
     def __init__(self, n_channels: int = 3, bilinear: bool = False,
-                 policy: Policy = DEFAULT_POLICY, base_features: int = 64):
+                 policy: Policy = DEFAULT_POLICY, base_features: int = 64,
+                 remat_full_res: bool = False):
         super().__init__(n_channels, base_features, bilinear, policy)
         self._add_decoder("_recon")
         self._add_decoder("_seg")
         self.outc_recon = OutConv(base_features, n_channels, policy=policy)
         self.outc_seg = OutConv(base_features, 1, policy=policy)
+        if remat_full_res:
+            self._tag_full_res(["_recon", "_seg"])
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         skips = self._encode(x)

@@ -31,6 +31,7 @@ from tpu_unet_torch.losses.anomaly import combined_anomaly_loss
 from tpu_unet_torch.losses.segmentation import combined_segmentation_loss
 from tpu_unet_torch.metrics.anomaly import anomaly_error_map, anomaly_score
 from tpu_unet_torch.metrics.confusion import confusion_matrix_batch
+from tpu_unet_torch.models.blocks import checkpoint, remat_scope
 from tpu_unet_torch.ops.augment import (AugmentDraws, eval_transform,
                                         sample_augment_draws, train_transform)
 from tpu_unet_torch.ops.seg_head import sliced_argmax
@@ -95,6 +96,21 @@ def _as_tensor(x, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(x).to(device)
 
 
+REMAT_MODES = ("none", "full_res", "full")
+
+
+def _remat_call(remat: str, fn, *args):
+    """``fn(*args)`` under the step's ``remat`` mode: 'full_res' checkpoints
+    the blocks the model tagged 'full_res' (``models/blocks.py``; a model
+    without tags runs as under 'none'), 'full' checkpoints the whole of
+    ``fn`` (JAX's plain ``jax.checkpoint``). Recomputed BatchNorms leave
+    their running statistics alone, so they move once, as in the plain step."""
+    if remat == "full":
+        return checkpoint(fn, *args)
+    with remat_scope("full_res" if remat == "full_res" else None):
+        return fn(*args)
+
+
 def _forward_anomaly(model, img: torch.Tensor, dual_decoder: bool):
     """Model on NHWC ``img`` -> NHWC (reconstruction, anomaly map).
     ``dual_decoder=False``: a plain UNet's sigmoid(logits) is the map and the
@@ -112,11 +128,12 @@ class AnomalyTrainStep:
     :func:`make_anomaly_train_step`."""
 
     def __init__(self, loss_cfg: AnomalyLossConfig, aug_cfg: AugmentConfig,
-                 dual_decoder: bool, grad_accum: int):
+                 dual_decoder: bool, grad_accum: int, remat: str = "none"):
         self.loss_cfg = loss_cfg
         self.aug_cfg = aug_cfg
         self.dual_decoder = dual_decoder
         self.grad_accum = grad_accum
+        self.remat = remat
 
     def draws(self, n: int, generator: torch.Generator) -> List[AugmentDraws]:
         """One draw set per microbatch of a batch of ``n``."""
@@ -157,7 +174,8 @@ class AnomalyTrainStep:
             # Masks may ship as uint8; the geometric step is nearest on masks,
             # so the cast after it is exact.
             m = m.to(torch.float32)
-            recon, amap = _forward_anomaly(model, img, self.dual_decoder)
+            recon, amap = _remat_call(
+                self.remat, lambda x: _forward_anomaly(model, x, self.dual_decoder), img)
             ld = combined_anomaly_loss(recon, amap, img, m, **self.loss_cfg.kwargs())
             ld["total_loss"].backward()
             losses.append({k: v.detach() for k, v in ld.items()})
@@ -185,21 +203,21 @@ def make_anomaly_train_step(loss_cfg: AnomalyLossConfig = AnomalyLossConfig(),
     them); the gradient sum is divided by G and one update runs. The losses
     are the mean over microbatches.
 
-    ``remat`` other than 'none' is not ported: recomputing the forward in the
-    backward (``torch.utils.checkpoint``) would update the BN running
-    statistics twice.
+    ``remat`` trades compute for activation memory: 'full_res' recomputes
+    in the backward the blocks that the model tagged (``AnomalyUNet(...,
+    remat_full_res=True)``: the full- and half-resolution rows), 'full' the
+    whole forward; 'none' keeps every activation. The losses, the BN running
+    statistics and, up to the backward's own rounding, the update are the
+    plain step's.
     """
     _check_step_flags(grad_accum, remat)
-    return AnomalyTrainStep(loss_cfg, aug_cfg, dual_decoder, grad_accum)
+    return AnomalyTrainStep(loss_cfg, aug_cfg, dual_decoder, grad_accum, remat)
 
 
 def _check_step_flags(grad_accum: int, remat: str) -> None:
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
-    if remat in ("full_res", "full"):
-        raise NotImplementedError(f"remat={remat!r} is not ported: a recomputed "
-                                  "forward would update the BN running statistics twice")
-    if remat != "none":
+    if remat not in REMAT_MODES:
         raise ValueError(f"remat must be 'none'|'full_res'|'full', got {remat!r}")
 
 
@@ -289,12 +307,14 @@ class SegTrainStep:
     built by :func:`make_seg_train_step`."""
 
     def __init__(self, num_classes: int, loss_cfg: SegLossConfig,
-                 aug_cfg: AugmentConfig, with_confusion: bool, grad_accum: int):
+                 aug_cfg: AugmentConfig, with_confusion: bool, grad_accum: int,
+                 remat: str = "none"):
         self.num_classes = num_classes
         self.loss_cfg = loss_cfg
         self.aug_cfg = aug_cfg
         self.with_confusion = with_confusion
         self.grad_accum = grad_accum
+        self.remat = remat
 
     def _check_batch(self, n: int) -> None:
         if n % self.grad_accum:
@@ -349,7 +369,8 @@ class SegTrainStep:
             img, lbl = train_transform(img_u8, lbl[..., None], d.to(device),
                                        **self.aug_cfg.transform_kwargs())
             lbl = lbl[..., 0].to(torch.int64)
-            logits = _seg_logits(model, img, None if keep is None else keep.to(device))
+            keep = None if keep is None else keep.to(device)
+            logits = _remat_call(self.remat, lambda x, k=keep: _seg_logits(model, x, k), img)
             ld, logits = _seg_train_losses(logits, lbl, self.loss_cfg)
             ld["total_loss"].backward()
             losses.append({k: v.detach() for k, v in ld.items()})
@@ -386,11 +407,13 @@ def make_seg_train_step(num_classes: int, loss_cfg: SegLossConfig = SegLossConfi
     augment draws and dropout mask and its own batch statistics (the running
     statistics chain through them); the gradient sum is divided by G, one
     update runs, the losses are the microbatches' mean and the confusion
-    matrices their sum. ``remat`` other than 'none' is not ported (see
-    :func:`make_anomaly_train_step`).
+    matrices their sum. ``remat`` 'full_res' (the blocks that
+    ``SegmentationUNet(..., remat_full_res=True)`` tags; UNet++ and the
+    attention UNet have no tags) or 'full' recomputes activations in the
+    backward, as in :func:`make_anomaly_train_step`.
     """
     _check_step_flags(grad_accum, remat)
-    return SegTrainStep(num_classes, loss_cfg, aug_cfg, with_confusion, grad_accum)
+    return SegTrainStep(num_classes, loss_cfg, aug_cfg, with_confusion, grad_accum, remat)
 
 
 def make_seg_eval_step(num_classes: int, loss_cfg: SegLossConfig = SegLossConfig()):
