@@ -139,6 +139,22 @@
    loss equal to the plain step's, its BN running statistics bit for bit
    (num_batches_tracked + 1), its parameters within the difference of two
    plain runs or 1e-4.
+13. Data parallelism on the one card ([dp] lines). The flagship step at
+   world size 1 over NCCL (sync BatchNorm, the gradient all-reduce) beside
+   the plain step, timed in turns and profiled, its first-step loss equal
+   to the plain step's (DP_LOSS_RTOL). Two ranks sharing cuda:0 over gloo
+   (tpu_unet_torch.parallel.mesh.launch; NCCL refuses two ranks on one
+   GPU): one f32 SGD step on a global batch of 16 against the world-size-1
+   step (DP_UPDATE_TOL, DP_STAT_TOL); the flagship step's ms and state
+   bytes per rank; a checkpoint written by rank 0; test_mvtec's int8 path
+   on phase 8's checkpoint, K1 and K2 counted per rank, the gathered
+   scores and AUROC bit for bit one process's under rank 0's qparams. FSDP
+   runs in a launch of its own and is held against plain DP when gloo
+   runs it on CUDA tensors (on an H100 with torch 2.11 a rank died of
+   SIGSEGV at full width: the leg is then reported as refused). The 2-rank
+   checkpoint loads strict at world size 1 and resumes; AnomalyScorer int8
+   b128 with devices=("cuda:0", "cuda:0") scores bit for bit one engine.
+   These are ranks sharing one card: no number is a scaling figure.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit
 (nvidia-smi), and as the last line ``{"ok": true, "device": {...}}``; the
@@ -292,6 +308,7 @@ def _train_category(kernel_name):
                       (("conv",), "cuDNN conv, other"),
                       (("gemm",), "shear matmuls (cuBLAS)"),
                       (("adam", "sgd"), "optimizer"),
+                      (("nccl",), "NCCL collectives"),
                       (("batch_norm", "batchnorm"), "BatchNorm"),
                       (("elementwise", "reduce", "copy", "cat", "index", "where", "fill",
                         "max_pool", "pool", "sigmoid", "clamp"), "elementwise / policy glue")):
@@ -3162,6 +3179,398 @@ def phase_host_data(torch, np, report, tmp, keep):
     return legs
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: data parallelism on the one card
+# ---------------------------------------------------------------------------
+
+# Phase 13's tolerances. The flagship step's loss at world size 1 over NCCL
+# (sync BN, the gradient all-reduce) against the plain step on the same batch
+# and draws, bf16: relative. The 2-rank f32 SGD step (and FSDP's) against the
+# world-size-1 step: the update's relative L2 error over every parameter
+# (``_update_err``), and the BN statistics' largest |difference| over each
+# leaf's largest |value|. Reordered float32 sums (two ranks' partial sums;
+# cuDNN's algorithms at batch 8 against 16, NCHW under FSDP against
+# channels_last) move single leaves' gradients by up to 2% where a max-pool
+# window's values tie or a value sits at ReLU's edge (ROADMAP §3, note 8), so
+# the update is held as a whole.
+DP_LOSS_RTOL = 5e-3
+DP_UPDATE_TOL = 5e-3
+DP_STAT_TOL = 2.5e-5
+DP_STEPS = 5
+
+
+def _dp_batch(torch, b=16, size=256):
+    """Phase 13's global batch: seeded textures and masks on the current
+    card, the same in every process."""
+    images = torch.from_numpy(synth_images(torch, b, size, 130, "cuda")).cuda()
+    return images, synth_masks(torch, b, size, 131, "cuda")
+
+
+def _dp_state(torch, precision, opt, lr, group_mesh=None, fsdp=False):
+    """AnomalyUNet base 64 from seed 3 (the same weights in every process),
+    placed on ``group_mesh`` when given; (state, group)."""
+    from tpu_unet_torch.core.precision import get_policy
+    from tpu_unet_torch.models import build_model
+    from tpu_unet_torch.parallel.fsdp import shard_state
+    from tpu_unet_torch.parallel.mesh import group_of
+    from tpu_unet_torch.train.state import create_train_state
+
+    torch.manual_seed(3)
+    model = build_model("anomaly_unet", base_features=64, policy=get_policy(precision))
+    state = create_train_state(model, opt, lr, 1e-4, device="cuda")
+    return shard_state(group_mesh, state, fsdp=fsdp), group_of(group_mesh)
+
+
+def _dp_step_ms(torch, step, state, images, masks, g, sync=None):
+    """Mean ms of DP_STEPS train steps after 2 warm-up ones, host clock to a
+    synchronize (``sync()``, a barrier across ranks, after it)."""
+    for _ in range(2):
+        step(state, images, masks, g)
+    torch.cuda.synchronize()
+    if sync:
+        sync()
+    t0 = time.perf_counter()
+    for _ in range(DP_STEPS):
+        step(state, images, masks, g)
+    torch.cuda.synchronize()
+    if sync:
+        sync()
+    return (time.perf_counter() - t0) * 1e3 / DP_STEPS
+
+
+def _cpu_state_dict(state):
+    from tpu_unet_torch.train.checkpoint import _full
+    return {k: v.detach().to("cpu", copy=True)
+            for k, v in _full(state.model.state_dict()).items()}
+
+
+def _dp_sgd(torch, mesh, local, fsdp):
+    """One f32 SGD step (lr 1e-2) from seed 3 on this rank's rows of phase
+    13's batch under the global batch's draws: rank 0's state and losses."""
+    from tpu_unet_torch.train.steps import AugmentConfig, make_anomaly_train_step
+
+    state, group = _dp_state(torch, "f32", "sgd", 1e-2, mesh, fsdp)
+    step = make_anomaly_train_step(aug_cfg=AugmentConfig(), group=group)
+    draws = step.draws(len(local[0]), torch.Generator(device="cuda").manual_seed(0))
+    losses = step.with_draws(state, *local, draws)
+    return _cpu_state_dict(state), {k: float(v) for k, v in losses.items()}
+
+
+def _dp_flagship(torch, mesh, local, fsdp, ckpt=None):
+    """The flagship step (bf16 Adam) on this rank's rows: ms per step and
+    the state's bytes per rank; ``ckpt``: then a checkpoint there (every rank
+    joins, rank 0 writes)."""
+    import torch.distributed as dist
+
+    from tpu_unet_torch.parallel.fsdp import (jax_placement_bytes, per_device_state_bytes,
+                                              sharded_fraction)
+    from tpu_unet_torch.train.checkpoint import CheckpointWriter
+    from tpu_unet_torch.train.steps import AugmentConfig, make_anomaly_train_step
+
+    state, group = _dp_state(torch, "bf16", "adam", 1e-3, mesh, fsdp)
+    step = make_anomaly_train_step(aug_cfg=AugmentConfig(), group=group)
+    ms = _dp_step_ms(torch, step, state, *local, torch.Generator(device="cuda").manual_seed(1),
+                     sync=dist.barrier)
+    out = {"step_ms": ms, "state_bytes": per_device_state_bytes(state),
+           "jax_placement_bytes": jax_placement_bytes(state, dist.get_world_size()),
+           "sharded_fraction": sharded_fraction(state), "adam_steps": state.step}
+    if ckpt:
+        with CheckpointWriter() as writer:
+            writer.save(state, 3, 0.0, ckpt)
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dp_setup(torch):
+    import torch.distributed as dist
+
+    from tpu_unet_torch.parallel.mesh import make_mesh, shard_batch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return make_mesh(dist.get_world_size(), device_type="cuda"), shard_batch(_dp_batch(torch))
+
+
+def _fsdp_rank():
+    """FSDP on one of two ranks sharing the card over gloo: the f32 SGD step
+    and the flagship step's ms and bytes. No check runs here: the caller
+    holds the results against plain DP."""
+    import torch
+
+    mesh, local = _dp_setup(torch)
+    state, losses = _dp_sgd(torch, mesh, local, fsdp=True)
+    return {"sgd": state, "sgd_losses": losses,
+            "timing": _dp_flagship(torch, mesh, local, fsdp=True)}
+
+
+def _dp_rank(keep, work):
+    """Phase 13 on one of two ranks sharing the card over gloo: the f32 SGD
+    step, the flagship bf16 Adam step timed with a checkpoint written, and
+    test_mvtec's int8 path on phase 8's checkpoint. Returns what rank 0
+    gathered."""
+    import torch
+    import torch.distributed as dist
+
+    from tpu_unet_torch.cli import test_mvtec
+    from tpu_unet_torch.data.mvtec import MVTecDataset
+    from tpu_unet_torch.ops.kernels.int8_conv import conv3x3_int8
+    from tpu_unet_torch.ops.kernels.preprocess import normalize_u8
+
+    mesh, local = _dp_setup(torch)
+    say = print if dist.get_rank() == 0 else (lambda *a, **k: None)
+    out = {}
+    out["sgd"], out["sgd_losses"] = _dp_sgd(torch, mesh, local, fsdp=False)
+    say("[dp] rank 0: the f32 SGD step ran", flush=True)
+    out["timing"] = {"dp": _dp_flagship(torch, mesh, local, fsdp=False,
+                                        ckpt=os.path.join(work, "dp_adam.pth"))}
+    say("[dp] rank 0: the flagship steps ran and the checkpoint is written", flush=True)
+
+    # test_mvtec's functions in --quantize int8 over both ranks.
+    flags = ["--data_root", os.path.join(keep, "bottle"), "--category", "bottle",
+             "--base_features", "64", "--image_size", "256", "--batch_size", "16",
+             "--num_workers", "4", "--device", "cuda", "--precision", "bf16",
+             "--quantize", "int8", "--calib_samples", "64",
+             "--checkpoint", os.path.join(keep, "mvtec_best_model.pth")]
+    targs = test_mvtec.parse_args(flags + ["--output_dir", os.path.join(work, "test")])
+    test_ds = MVTecDataset(targs.data_root, "bottle", "test", 256, is_train=False)
+    train_ds = MVTecDataset(targs.data_root, "bottle", "train", 256, is_train=True)
+    dev = torch.device("cuda")
+    normalize_u8.launches = conv3x3_int8.launches = 0
+    loader = test_mvtec.make_test_loader(targs, test_ds, dev)
+    state, eval_step = test_mvtec.load_model(targs, dev, train_ds)
+    t0 = time.perf_counter()
+    res = test_mvtec.test_model(eval_step, state, loader)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    ev = test_mvtec.evaluate_results(res, targs.pixel_thresholds, targs.threshold)
+    counts = {"normalize_u8": normalize_u8.launches, "conv3x3_int8": conv3x3_int8.launches}
+    per_rank = [None] * dist.get_world_size()
+    dist.all_gather_object(per_rank, {"launches": counts, "test_model_s": t1 - t0})
+    from tpu_unet_torch.ops.quantize import tree_to
+    out["test"] = {"scores": res["anomaly_scores"], "paths": res["image_paths"],
+                   "auroc": ev["image_metrics"]["auroc"], "per_rank": per_rank,
+                   "n_batches": len(loader), "qparams": tree_to(eval_step.qparams, "cpu")}
+    return out
+
+
+def phase_dp(torch, np, report, keep):
+    """Phase 13: data parallelism on the one card. The flagship step at world
+    size 1 over NCCL against the plain step; two ranks sharing the card over
+    gloo (the f32 SGD step against world size 1, FSDP where gloo takes its
+    collectives, the flagship step's ms and per-rank bytes, a checkpoint,
+    test_mvtec's int8 path on phase 8's checkpoint against one process);
+    the 2-rank checkpoint resumed at world size 1; AnomalyScorer int8 with
+    two replicas on the card against one. Returns the launch counts."""
+    import torch.distributed as dist
+
+    from tpu_unet_torch.cli import test_mvtec
+    from tpu_unet_torch.cli._seg_common import QuantizedEvalStep
+    from tpu_unet_torch.data.mvtec import MVTecDataset
+    from tpu_unet_torch.ops.quantize import make_quantized_anomaly_eval_step, tree_to
+    from tpu_unet_torch.parallel.mesh import _free_port, launch, make_mesh
+    from tpu_unet_torch.serve import AnomalyScorer
+    from tpu_unet_torch.train.checkpoint import load_checkpoint
+    from tpu_unet_torch.train.steps import AugmentConfig, make_anomaly_train_step
+
+    out, legs = {}, {}
+    smi = nvidia_smi_line()
+    label = (f"one card ({smi}); ranks share it: not a scaling figure")
+    images, masks = _dp_batch(torch)
+    b = len(images)
+
+    # --- 13.1: world size 1 over NCCL against the plain step ------------------
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1, device_type="cuda")
+        plain, _ = _dp_state(torch, "bf16", "adam", 1e-3)
+        dp, group = _dp_state(torch, "bf16", "adam", 1e-3, mesh)
+        plain_step = make_anomaly_train_step(aug_cfg=AugmentConfig())
+        dp_step = make_anomaly_train_step(aug_cfg=AugmentConfig(), group=group)
+        draws = plain_step.draws(b, torch.Generator(device="cuda").manual_seed(0))
+        _zero_launches()
+        l_plain = float(plain_step.with_draws(plain, images, masks, draws)["total_loss"])
+        l_dp = float(dp_step.with_draws(dp, images, masks, draws)["total_loss"])
+        check(abs(l_dp - l_plain) <= DP_LOSS_RTOL * abs(l_plain),
+              f"world-size-1 DP loss {l_dp} vs plain {l_plain}")
+        times = {}
+        for name, st, s in (("plain", plain, plain_step), ("dp_nccl_ws1", dp, dp_step),
+                            ("dp_nccl_ws1_again", dp, dp_step), ("plain_again", plain,
+                                                                 plain_step)):
+            times[name] = _dp_step_ms(torch, s, st, images, masks,
+                                      torch.Generator(device="cuda").manual_seed(1))
+        prof = device_breakdown(torch, lambda: dp_step(
+            dp, images, masks, torch.Generator(device="cuda").manual_seed(1)), n_calls=3,
+            top=12, category=_train_category)
+        legs["dp_train_ws1_nccl"] = _launches()
+        check(legs["dp_train_ws1_nccl"] == {"normalize_u8": 0, "conv3x3_int8": 0},
+              f"the DP train step launched {legs['dp_train_ws1_nccl']}")
+        del plain, dp
+        torch.cuda.empty_cache()
+        # The world-size-1 f32 SGD step the two ranks are held against.
+        ref, group = _dp_state(torch, "f32", "sgd", 1e-2, mesh)
+        before = _cpu_state_dict(ref)
+        step = make_anomaly_train_step(aug_cfg=AugmentConfig(), group=group)
+        ref_losses = step.with_draws(ref, images, masks, step.draws(
+            b, torch.Generator(device="cuda").manual_seed(0)))
+        ref_sd = _cpu_state_dict(ref)
+        del ref
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    cost = 100 * (0.5 * (times["dp_nccl_ws1"] + times["dp_nccl_ws1_again"])
+                  / (0.5 * (times["plain"] + times["plain_again"])) - 1)
+    print(f"[dp] flagship step (AnomalyUNet base 64, bf16, 256², b{b}, Adam) at world size 1 "
+          f"over NCCL (sync BN, gradient all-reduce): {times['dp_nccl_ws1']:.3f} / "
+          f"{times['dp_nccl_ws1_again']:.3f} ms per step against the plain step's "
+          f"{times['plain']:.3f} / {times['plain_again']:.3f} ms in this phase (phase 6: "
+          f"{report['train']['step_ms']:.3f} ms), {cost:+.1f}%; first-step loss "
+          f"{l_dp:.6f} vs plain {l_plain:.6f} (rel {abs(l_dp - l_plain) / l_plain:.2e}, "
+          f"tol {DP_LOSS_RTOL}); {label}", flush=True)
+    print(f"[profile] DP step at world size 1, 3 steps back to back, per step: device busy "
+          f"{prof['device_busy_ms']:.3f} ms of {prof['wall_ms']:.3f} ms wall (profiled), idle "
+          f"share {prof['idle_share']:.4f}; by category: "
+          + ", ".join(f"{c} {ms:.3f} ms" for c, ms in
+                      sorted(prof["by_category_ms"].items(), key=lambda kv: -kv[1])),
+          flush=True)
+    for k, ms, n in prof["top_kernels_ms"]:
+        print(f"[profile]   {ms:9.3f} ms  x{n:<4d} {k}")
+    out["ws1_nccl"] = {"step_ms": times, "dp_cost_pct": cost, "loss_dp": l_dp,
+                       "loss_plain": l_plain, "device_breakdown": prof}
+
+    # --- 13.2 / 13.3: two ranks sharing the card over gloo -------------------
+    work = tempfile.mkdtemp(prefix="chip_smoke_dp_", dir=keep)
+    t0 = time.perf_counter()
+    r0 = launch(_dp_rank, (keep, work), devices=["cuda:0", "cuda:0"], backend="gloo")
+    launch_s = time.perf_counter() - t0
+    # Does gloo run FSDP2's reduce-scatters and all-gathers on CUDA tensors at
+    # full width? A launch of its own, whose ranks check nothing: one that
+    # gloo fails raises or dies of a signal, which means no. Its results are
+    # held against plain DP below.
+    from torch.multiprocessing import ProcessExitedException, ProcessRaisedException
+    fsdp, fsdp_refused = None, None
+    try:
+        fsdp = launch(_fsdp_rank, (), devices=["cuda:0", "cuda:0"], backend="gloo")
+    except (ProcessExitedException, ProcessRaisedException) as e:
+        fsdp_refused = " ".join(str(e).split())[-240:]
+    errs = (_update_err(r0["sgd"], ref_sd, before), _state_dict_errs(r0["sgd"], ref_sd)[1])
+    check(errs[0] <= DP_UPDATE_TOL and errs[1] <= DP_STAT_TOL,
+          f"2-rank f32 SGD step vs world size 1: the update {errs[0]:.2e} (tol "
+          f"{DP_UPDATE_TOL}), BN statistics {errs[1]:.2e} (tol {DP_STAT_TOL})")
+    for k, v in r0["sgd_losses"].items():
+        check(abs(v - float(ref_losses[k])) <= 1e-5 * abs(float(ref_losses[k])) + 1e-7,
+              f"2-rank f32 loss {k} {v} vs world size 1 {float(ref_losses[k])}")
+    print(f"[dp] two ranks sharing cuda:0 over gloo, one f32 SGD step (base 64, 256², global "
+          f"batch {b}, 8 per rank) against world size 1 on the same batch and draws: the "
+          f"update {errs[0]:.2e} (rel L2, tol {DP_UPDATE_TOL}), BN statistics {errs[1]:.2e} of "
+          f"each leaf's largest (tol {DP_STAT_TOL}); losses within 1e-5; launch and run "
+          f"{launch_s:.1f} s", flush=True)
+    fsdp_errs = None
+    if fsdp is not None:
+        r0["timing"]["fsdp"] = fsdp["timing"]
+        fsdp_errs = (_update_err(fsdp["sgd"], r0["sgd"], before),
+                     _state_dict_errs(fsdp["sgd"], r0["sgd"])[1])
+        check(fsdp_errs[0] <= DP_UPDATE_TOL and fsdp_errs[1] <= DP_STAT_TOL,
+              f"FSDP vs DP on two ranks: the update {fsdp_errs[0]:.2e}, BN statistics "
+              f"{fsdp_errs[1]:.2e}")
+        print(f"[dp] --fsdp on the same batch: the update {fsdp_errs[0]:.2e} (rel L2), BN "
+              f"statistics {fsdp_errs[1]:.2e} against the DP step (tol {DP_UPDATE_TOL}, "
+              f"{DP_STAT_TOL})", flush=True)
+    else:
+        print(f"[dp] --fsdp: gloo does not run FSDP2 on CUDA tensors at full width (the "
+              f"FSDP launch's ranks ended: ...{fsdp_refused}); the 2-rank FSDP leg runs in "
+              f"the CPU tests only "
+              f"(tests/test_torch_parallel_state.py)", flush=True)
+    for name, t in r0["timing"].items():
+        print(f"[dp] flagship step bf16 Adam, {name}, 2 ranks sharing cuda:0 (gloo), global "
+              f"batch {b}: {t['step_ms']:.3f} ms per step; state {t['state_bytes'] / 1e6:.1f} "
+              f"MB per rank (the JAX placement {t['jax_placement_bytes'] / 1e6:.1f} MB), "
+              f"sharded fraction {t['sharded_fraction']:.4f}; {label}", flush=True)
+
+    # test_mvtec int8 on two ranks against one process, bit for bit.
+    test = r0["test"]
+    n_batches = test["n_batches"]
+    for part in test["per_rank"]:
+        c = part["launches"]
+        want = {"normalize_u8": n_batches + 64 // 16, "conv3x3_int8": 26 * n_batches}
+        check(c == want, f"DP test int8 rank launched {c} (want {want})")
+    for i, part in enumerate(test["per_rank"]):
+        legs[f"dp_test_int8_rank{i}"] = part["launches"]
+    flags = ["--data_root", os.path.join(keep, "bottle"), "--category", "bottle",
+             "--base_features", "64", "--image_size", "256", "--batch_size", "16",
+             "--num_workers", "4", "--device", "cuda", "--precision", "bf16",
+             "--checkpoint", os.path.join(keep, "mvtec_best_model.pth"),
+             "--output_dir", os.path.join(work, "test1")]
+    targs = test_mvtec.parse_args(flags)
+    test_ds = MVTecDataset(targs.data_root, "bottle", "test", 256, is_train=False)
+    dev = torch.device("cuda")
+    state, _ = test_mvtec.load_model(targs, dev)
+    # Rank 0's qparams (every rank takes them): a calibration on CUDA can
+    # differ by an ulp from process to process.
+    eval_step = QuantizedEvalStep(make_quantized_anomaly_eval_step(),
+                                  tree_to(test["qparams"], dev))
+    one = test_mvtec.test_model(eval_step, state, test_mvtec.make_test_loader(targs, test_ds,
+                                                                              dev))
+    ev = test_mvtec.evaluate_results(one, targs.pixel_thresholds, targs.threshold)
+    del state, eval_step
+    check(test["paths"] == one["image_paths"], "DP test: image order differs")
+    check(np.array_equal(test["scores"], one["anomaly_scores"]),
+          "DP test int8 scores differ from one process's")
+    check(test["auroc"] == ev["image_metrics"]["auroc"], "DP test AUROC differs")
+    print(f"[dp] test_mvtec --quantize int8 on phase 8's best_model.pth over 2 gloo ranks: "
+          f"{len(test['scores'])} scores bit for bit one process's, AUROC "
+          f"{test['auroc']:.6f} identical; per rank K1 "
+          f"{test['per_rank'][0]['launches']['normalize_u8']}x, K2 "
+          f"{test['per_rank'][0]['launches']['conv3x3_int8']}x for {n_batches} batches of 8 "
+          f"rows (+ 4 calibration chunks); test_model "
+          + "/".join(f"{p['test_model_s']:.2f}" for p in test["per_rank"]) + " s", flush=True)
+
+    # --- 13.4: the 2-rank .pth at world size 1 --------------------------------
+    pth = os.path.join(work, "dp_adam.pth")
+    state, _ = _dp_state(torch, "bf16", "adam", 1e-3)
+    state, epoch, _ = load_checkpoint(state, pth)
+    adam = int(next(iter(state.optimizer.state.values()))["step"])
+    want_steps = r0["timing"]["dp"]["adam_steps"]
+    check(epoch == 3 and adam == want_steps, f"resumed epoch {epoch}, Adam step {adam}")
+    make_anomaly_train_step(aug_cfg=AugmentConfig())(
+        state, images, masks, torch.Generator(device="cuda").manual_seed(2))
+    adam2 = int(next(iter(state.optimizer.state.values()))["step"])
+    check(adam2 == want_steps + 1, f"Adam step after resuming {adam2}")
+    print(f"[dp] the 2-rank checkpoint ({os.path.getsize(pth) / 1e6:.0f} MB, written by rank "
+          f"0) loads strict at world size 1: epoch {epoch}, Adam step {adam} -> {adam2} "
+          f"after one more step", flush=True)
+    del state
+    torch.cuda.empty_cache()
+
+    # --- 13.5: AnomalyScorer int8 b128 with two replicas on the card ---------
+    sd = warm_anomaly_state_dict(torch)
+    calib = synth_images(torch, 32, 256, 140, "cuda")
+    single = AnomalyScorer.from_state_dict(sd, quantize="int8", calib_images=calib,
+                                           batch_size=128, device="cuda")
+    double = AnomalyScorer.from_state_dict(sd, quantize="int8", qparams=single.qparams,
+                                           batch_size=128, devices=("cuda:0", "cuda:0"))
+    served = synth_images(torch, 256, 256, 141, "cuda")
+    want = single.score_array(served)
+    _zero_launches()
+    got = double.score_array(served)
+    legs["dp_serve_int8_2_replicas"] = _launches()
+    check(legs["dp_serve_int8_2_replicas"] == {"normalize_u8": 4, "conv3x3_int8": 72},
+          f"2 replicas, 2 batches launched {legs['dp_serve_int8_2_replicas']}")
+    check(np.array_equal(got, want), "2 replicas' int8 scores differ from one engine's")
+    print(f"[dp] AnomalyScorer int8 b128 with devices=('cuda:0', 'cuda:0'): 256 scores bit "
+          f"for bit the single engine's; K1 2x and K2 36x per batch (one per replica)",
+          flush=True)
+    out.update(two_ranks={"sgd_update_err": errs[0], "sgd_stat_err": errs[1],
+                          "fsdp_refused": fsdp_refused, "fsdp_errs": fsdp_errs,
+                          "timing": r0["timing"], "launch_s": launch_s,
+                          "test_auroc": test["auroc"], "test_per_rank": test["per_rank"]},
+               resume={"epoch": epoch, "adam_step": [adam, adam2]}, nvidia_smi=smi)
+    report["main_path"]["dp"] = out
+    shutil.rmtree(work, ignore_errors=True)
+    return legs
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3195,6 +3604,7 @@ def main():
         path_launches.update(phase_extensions(torch, np, report, tmp, keep))
         path_launches.update(phase_serving(torch, np, report, tmp))
         path_launches.update(phase_host_data(torch, np, report, tmp, keep))
+        path_launches.update(phase_dp(torch, np, report, keep))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

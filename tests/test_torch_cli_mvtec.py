@@ -249,27 +249,57 @@ def bilinear_run(mvtec_root, tmp_path_factory):
     ["--coordinator_address", "localhost:1234"], ["--num_processes", "2"],
     ["--process_id", "0"], ["--bilinear"]])
 def test_unported_train_flags_raise(mvtec_root, tmp_path, bilinear_run, flag):
-    """Multi-device flags raise NotImplementedError before anything is
-    written; ``--bilinear`` trains an AnomalyUNet whose decoders have no
-    transposed conv (the reference's bilinear layout, loaded strict)."""
+    """The multi-device flags are ported (tests/test_torch_parallel_*.py run
+    them on two ranks); here their parsing and refusals, before anything is
+    written: ``--n_devices 2`` plans 2 ranks and refuses a global batch
+    that does not split over them (and over ``--grad_accum``); ``--fsdp``
+    on one device warns and trains whole; ``--n_model`` still raises
+    NotImplementedError, naming slice 10; a half-specified multi-host
+    launch and ``--multihost`` outside torchrun or SLURM raise ValueError.
+    ``--bilinear`` trains an AnomalyUNet whose decoders have no transposed
+    conv (the reference's bilinear layout, loaded strict)."""
     if flag == ["--bilinear"]:
         sd = torch.load(bilinear_run, weights_only=True)["model_state_dict"]
         assert not any(k.endswith(".up.weight") for k in sd)
         build_model("anomaly_unet", base_features=4, bilinear=True).load_state_dict(
             sd, strict=True)
         return
-    with pytest.raises(NotImplementedError):
-        _train(mvtec_root, tmp_path, *flag)
+    if flag == ["--fsdp"]:
+        with pytest.warns(UserWarning, match="--fsdp requested on one device"):
+            exp = _train(mvtec_root, tmp_path, *flag, "--epochs", "1")
+        assert "checkpoint_epoch_0.pth" in os.listdir(os.path.join(exp, "checkpoints"))
+        return
+    if flag[0] == "--n_devices":
+        args = train_mvtec.parse_args(["--device", "cpu", *flag])
+        assert args.n_devices == 2 and train_mvtec.check_flags(args) == 2
+        for bad in (["--batch_size", "3"], ["--batch_size", "4", "--grad_accum", "4"]):
+            with pytest.raises(SystemExit, match="2 ranks"):
+                _train(mvtec_root, tmp_path, *flag, *bad)
+    elif flag[0] == "--n_model":
+        with pytest.raises(NotImplementedError, match="slice 10"):
+            _train(mvtec_root, tmp_path, *flag)
+    else:
+        match = "coordinator_address" if flag[0] == "--num_processes" else (
+            "torchrun" if flag == ["--multihost"] else "num_processes")
+        with pytest.raises(ValueError, match=match):
+            _train(mvtec_root, tmp_path, *flag)
     assert not os.listdir(tmp_path)
 
 
 @pytest.mark.parametrize("flag", [["--n_devices", "2"], ["--bilinear"]])
 def test_unported_test_flags_raise(mvtec_root, tmp_path, bilinear_run, flag):
-    """``--n_devices`` raises NotImplementedError; ``--bilinear`` evaluates
-    the bilinear checkpoint end to end (6 test images scored)."""
+    """``--n_devices`` is ported (tests/test_torch_parallel_cli_mvtec.py
+    tests on two ranks): a batch that does not split over the ranks raises
+    SystemExit, and on ``cuda`` without a GPU the ranks do not fall back to
+    the CPU. ``--bilinear`` evaluates the bilinear checkpoint end to end (6
+    test images scored)."""
     if flag[0] == "--n_devices":
-        with pytest.raises(NotImplementedError):
-            _test(mvtec_root, "x.pth", tmp_path, *flag)
+        with pytest.raises(SystemExit, match="2 ranks"):
+            _test(mvtec_root, "x.pth", tmp_path, *flag, "--batch_size", "3")
+        with pytest.raises(RuntimeError, match="cuda"):
+            test_cli.main(["--data_root", mvtec_root, "--checkpoint", "x.pth",
+                           "--output_dir", str(tmp_path), *flag])
+        assert not os.listdir(tmp_path)
         return
     ev = _test(mvtec_root, bilinear_run, tmp_path, "--precision", "f32", *flag)
     with open(tmp_path / "bottle_test_results" / "detailed_results.json") as f:

@@ -266,37 +266,69 @@ def variant_runs(ksdd_root, tmp_path_factory):
     ["--coordinator_address", "localhost:1234"], ["--num_processes", "2"],
     ["--process_id", "0"], ["--bilinear"], ["--deep_supervision"]])
 def test_unported_train_flags_raise(ksdd_root, tmp_path, variant_runs, flag):
-    """Multi-device flags raise NotImplementedError before anything is
-    written. ``--bilinear`` trains (a checkpoint with no transposed conv and
-    the reference's bilinear widths); ``--deep_supervision`` without
-    ``--model unetpp`` raises the JAX package's ValueError, also before
-    anything is written."""
+    """The data-parallel flags are ported (tests/test_torch_parallel_cli_seg.py
+    trains on two ranks); here their parsing and refusals, before anything
+    is written: ``--n_devices 2`` plans 2 ranks and refuses a global batch
+    that does not split over them; ``--fsdp`` on one device warns and
+    trains whole; ``--n_space`` and ``--n_model`` still raise
+    NotImplementedError, naming slice 10; a half-specified multi-host
+    launch and ``--multihost`` outside torchrun or SLURM raise ValueError.
+    ``--bilinear`` trains (a checkpoint with no transposed conv and the
+    reference's bilinear widths); ``--deep_supervision`` without ``--model
+    unetpp`` raises the JAX package's ValueError, also before anything is
+    written."""
     if flag == ["--bilinear"]:
         sd = torch.load(variant_runs("bilinear"), weights_only=True)["model_state_dict"]
         assert not any(k.endswith(".up.weight") for k in sd)
         build_model("seg_unet", n_classes=3, base_features=4, bilinear=True).load_state_dict(
             sd, strict=True)
         return
-    with pytest.raises(ValueError if flag == ["--deep_supervision"] else NotImplementedError):
-        _train(ksdd_root, tmp_path, *flag)
+    if flag == ["--fsdp"]:
+        with pytest.warns(UserWarning, match="--fsdp requested on one device"):
+            exp = _train(ksdd_root, tmp_path, *flag, "--epochs", "1")
+        assert "checkpoint_epoch_0.pth" in os.listdir(os.path.join(exp, "checkpoints"))
+        return
+    if flag[0] == "--n_devices":
+        args = train_kolektorsdd.parse_args(["--device", "cpu", *flag])
+        assert args.n_devices == 2 and seg.check_train_flags(args) == 2
+        with pytest.raises(SystemExit, match="2 ranks"):
+            _train(ksdd_root, tmp_path, *flag, "--batch_size", "3")
+    elif flag[0] in ("--n_space", "--n_model"):
+        with pytest.raises(NotImplementedError, match="slice 10"):
+            _train(ksdd_root, tmp_path, *flag)
+    elif flag == ["--deep_supervision"]:
+        with pytest.raises(ValueError):
+            _train(ksdd_root, tmp_path, *flag)
+    else:
+        match = "coordinator_address" if flag[0] == "--num_processes" else (
+            "torchrun" if flag == ["--multihost"] else "num_processes")
+        with pytest.raises(ValueError, match=match):
+            _train(ksdd_root, tmp_path, *flag)
     assert not os.listdir(tmp_path)
 
 
 @pytest.mark.parametrize("flag", [["--n_devices", "2"], ["--n_space", "2"], ["--bilinear"],
                                   ["--heads", "2"], ["--model", "unetpp"]])
 def test_unported_test_flags_raise(ksdd_root, tmp_path, variant_runs, flag):
-    """Multi-device flags raise NotImplementedError; ``--heads`` without
-    UNet++'s deep supervision raises the JAX package's ValueError. The
-    bilinear decoder and UNet++ (pruned to head X[0][2]) now evaluate their
-    checkpoints end to end."""
+    """``--n_devices`` is ported (tests/test_torch_parallel_cli_seg.py
+    evaluates on two ranks): a batch that does not split over the ranks
+    raises SystemExit. ``--n_space`` still raises NotImplementedError,
+    naming slice 10; ``--heads`` without UNet++'s deep supervision raises
+    the JAX package's ValueError. The bilinear decoder and UNet++ (pruned
+    to head X[0][2]) evaluate their checkpoints end to end."""
     if flag == ["--bilinear"]:
         summary = _test(ksdd_root, variant_runs("bilinear"), tmp_path, *flag)
     elif flag == ["--model", "unetpp"]:
         summary = _test(ksdd_root, variant_runs("unetpp_ds"), tmp_path, *flag,
                         "--deep_supervision", "--heads", "2")
     else:
-        with pytest.raises(ValueError if flag[0] == "--heads" else NotImplementedError):
-            _test(ksdd_root, "x.pth", tmp_path, *flag)
+        if flag[0] == "--n_devices":
+            with pytest.raises(SystemExit, match="2 ranks"):
+                _test(ksdd_root, "x.pth", tmp_path, *flag, "--batch_size", "3")
+        else:
+            with pytest.raises(ValueError if flag[0] == "--heads" else NotImplementedError,
+                               match="heads" if flag[0] == "--heads" else "slice 10"):
+                _test(ksdd_root, "x.pth", tmp_path, *flag)
         return
     assert _json(tmp_path, "evaluation_results.json")["overall_metrics"] == \
         summary["overall_metrics"]

@@ -129,7 +129,7 @@ def test_serve_seg_tiles_int8_qparams_and_artifact(seg_ckpt, tmp_path):
     (["--checkpoint", "CKPT", "--tile_height", "32"], SystemExit),   # without --tile_width
     (["--checkpoint", "CKPT", "--export_artifact", "X", "--artifact_platforms", "tpu,cpu"],
      SystemExit),
-    (["--checkpoint", "CKPT", "--n_devices", "2"], NotImplementedError),
+    (["--checkpoint", "CKPT", "--n_devices", "3"], ValueError),      # batch 4 over 3 replicas
     (["--checkpoint", "CKPT", "--n_space", "2"], NotImplementedError),
     (["--checkpoint", "CKPT", "--n_space", "2", "--export_artifact", "X"], SystemExit),
     (["--checkpoint", "CKPT", "--bucket_sizes", "8"], SystemExit),  # above --batch_size 4
@@ -178,8 +178,15 @@ def test_serve_mvtec_export_and_artifact(anomaly_ckpt, tmp_path):
                           "--precision", "f32"])
     with pytest.raises(SystemExit, match="exactly one"):
         serve_mvtec.main(flags + ["--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 7"):
-        serve_mvtec.main(["--checkpoint", pth, "--n_devices", "2"] + flags + BASE)
+    # --n_devices: one replica per device (here two on the CPU), each batch
+    # split between them; a batch that does not split raises.
+    two = serve_mvtec.main(["--checkpoint", pth, "--precision", "f32", "--n_devices", "2",
+                            "--output", str(tmp_path / "c.json")] + flags + BASE)
+    assert list(two["scores"]) == list(first["scores"])
+    np.testing.assert_allclose(list(two["scores"].values()), list(first["scores"].values()),
+                               rtol=1e-5)
+    with pytest.raises(ValueError, match="divisible"):
+        serve_mvtec.main(["--checkpoint", pth, "--n_devices", "3"] + flags + BASE)
 
 
 def _png(arr):

@@ -205,8 +205,12 @@ def test_heads_validation_pruned_notice_and_multi_device(capsys):
     SegmentationPredictor.from_state_dict(sd, model_name="unetpp", deep_supervision=True,
                                           heads=2, device="cpu", **KW)
     assert "pruned fast mode: serving the single head X[0][2]" in capsys.readouterr().out
-    for flags in ({"n_devices": 2}, {"n_space": 2}):
-        with pytest.raises(NotImplementedError, match="item 7"):
+    two = SegmentationPredictor.from_state_dict(sd, model_name="unetpp", deep_supervision=True,
+                                                device="cpu", n_devices=2, **KW)
+    assert two.devices == [torch.device("cpu")] * 2  # one replica each
+    for flags, error, match in (({"n_devices": 3}, ValueError, "divisible"),
+                                ({"n_space": 2}, NotImplementedError, "slice 10")):
+        with pytest.raises(error, match=match):
             SegmentationPredictor.from_state_dict(sd, model_name="unetpp",
                                                   deep_supervision=True, device="cpu",
                                                   **KW, **flags)

@@ -209,8 +209,12 @@ def test_viewers_default_to_cuda(gear_root, tmp_path):
         visualize_seg.main([*_seg_flags("gear", gear_root), "--checkpoint", "x.pth"])
     with pytest.raises(RuntimeError, match="cuda"):
         visualize_mvtec.main(["--checkpoint", "x.pth"])
-    with pytest.raises(NotImplementedError):
-        visualize_mvtec.main(["--n_devices", "2", *CPU])
+    # --n_devices: no CPU carry-on without a GPU; on the CPU a batch that
+    # does not split over the ranks raises.
+    with pytest.raises(RuntimeError, match="cuda"):
+        visualize_mvtec.main(["--n_devices", "2", "--checkpoint", "x.pth"])
+    with pytest.raises(SystemExit, match="2 ranks"):
+        visualize_mvtec.main(["--n_devices", "2", "--batch_size", "3", *CPU])
 
 
 @pytest.mark.parametrize("dataset", ["gear", "kolektorsdd"])

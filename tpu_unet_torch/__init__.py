@@ -9,7 +9,8 @@ It covers MVTec anomaly serving (``serve.AnomalyScorer``, ``cli.serve_mvtec``)
 in f32, bf16 and int8, and training and testing (``train``, ``data``,
 ``cli.train_mvtec``, ``cli.test_mvtec``, ``cli.sweep_mvtec``), and the Gear
 and KolektorSDD segmentation workloads (``cli.train_gear``,
-``cli.test_gear``, ``cli.train_kolektorsdd``, ``cli.test_kolektorsdd``). Public
+``cli.test_gear``, ``cli.train_kolektorsdd``, ``cli.test_kolektorsdd``), data-parallel across
+GPUs (``parallel``: one process per GPU, ``--n_devices``, FSDP2). Public
 functions keep the JAX package's layout: NHWC
 uint8 images in, ``(N,)`` float32 scores out. Entry points run on ``cuda``
 unless the caller passes ``device="cpu"``, and raise when ``cuda`` is asked

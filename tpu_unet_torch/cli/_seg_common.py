@@ -16,6 +16,13 @@ runs in functions that take the datasets and a device: :func:`train_seg`
 for training; :func:`make_eval_loader`, :func:`load_seg_model`,
 ``train/loop.py::validate_seg_epoch`` and :func:`save_seg_results` for
 evaluation. Entry points run on ``cuda`` unless ``--device cpu``.
+
+Data parallelism (``--n_devices``, ``--fsdp``, the multi-host flags, or a
+torchrun launch): :func:`run_seg_training` and :func:`run_seg_evaluation`
+run their work on every rank (``parallel/mesh.py::launch``); the loaders
+give each rank its rows of the global ``--batch_size``, the steps reduce
+over the group, and rank 0 logs and writes. ``--n_space`` and ``--n_model``
+wait for slice 10 of the port.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import logging
 import os
 import time
 from typing import Callable, ContextManager, Optional, Tuple
@@ -35,6 +43,10 @@ from tpu_unet_torch.core.precision import get_policy
 from tpu_unet_torch.data.loader import DataLoader, to_device
 from tpu_unet_torch.models import build_model
 from tpu_unet_torch.models.unet import ATTN_NAMES, UNETPP_NAMES, check_model_flags
+from tpu_unet_torch.parallel.fsdp import shard_state
+from tpu_unet_torch.parallel.mesh import (broadcast_tensors, check_batch, cli_world, group_of,
+                                          is_main_process, launch, make_mesh, not_ported,
+                                          synced_timestamp, world_size)
 from tpu_unet_torch.train.checkpoint import CheckpointWriter, load_checkpoint, load_params
 from tpu_unet_torch.train.interrupt import (INTERRUPT_EXIT_CODE, GracefulInterrupt,
                                             interrupt_checkpoint_path)
@@ -48,6 +60,8 @@ from tpu_unet_torch.utils.logging import setup_logging
 
 @dataclasses.dataclass
 class Workload:
+    """A seg dataset's driver hooks; module-level functions, so that a
+    workload pickles to data-parallel ranks."""
     name: str                      # experiment prefix: 'gear_seg' or 'kolektorsdd'
     make_datasets: Callable        # (args) -> (train, val, test, num_classes, class_names)
     image_size_hw: Callable        # (args) -> (H, W)
@@ -84,36 +98,42 @@ def cli_device(name: str) -> torch.device:
     return resolve_device("cuda" if name == "auto" else name)
 
 
-def _check_not_ported(multi_device_flags) -> None:
-    """NotImplementedError for multi-device runs, which are not ported."""
-    used = [flag for flag, on in multi_device_flags.items() if on]
-    if used:
-        raise NotImplementedError(f"{', '.join(used)}: multi-device runs are not "
-                                  "ported yet; the port runs on one device")
-
-
-def check_train_flags(args) -> None:
-    if args.grad_accum < 1 or args.batch_size % args.grad_accum != 0:
-        raise SystemExit(f"--batch_size {args.batch_size} must be a positive "
-                         f"multiple of --grad_accum {args.grad_accum}")
-    _check_not_ported({
-        "--n_devices": (args.n_devices or 1) > 1, "--n_space": args.n_space > 1,
-        "--fsdp": args.fsdp, "--n_model": args.n_model > 1, "--multihost": args.multihost,
-        "--coordinator_address": args.coordinator_address is not None,
-        "--num_processes": args.num_processes is not None,
-        "--process_id": args.process_id is not None})
+def check_train_flags(args) -> int:
+    """The run's world size (joining a launched group); NotImplementedError
+    for ``--n_space``/``--n_model`` > 1, SystemExit for a ``--batch_size``
+    that does not split over the ranks and ``--grad_accum``."""
+    for flag in ("n_space", "n_model"):
+        if getattr(args, flag) > 1:
+            raise not_ported(f"--{flag}")
     check_model_flags(args.model, args.deep_supervision)
+    world = cli_world(args, cli_device(args.device).type)
+    check_batch(args.batch_size, world, args.grad_accum)
+    return world
 
 
-def check_eval_flags(args) -> None:
-    _check_not_ported({"--n_devices": (args.n_devices or 1) > 1,
-                       "--n_space": args.n_space > 1})
+def check_eval_flags(args) -> int:
+    """As :func:`check_train_flags` for the evaluators (``--n_devices``)."""
+    if args.n_space > 1:
+        raise not_ported("--n_space")
     check_model_flags(args.model, args.deep_supervision, args.heads)
+    world = cli_world(args, cli_device(args.device).type)
+    check_batch(args.batch_size, world)
+    return world
 
 
-def _device_line(device: torch.device) -> str:
-    return f"Device: {device}" + (f" ({torch.cuda.get_device_name(device)})"
-                                  if device.type == "cuda" else "")
+def _logger(output_dirs, experiment_dir: str) -> logging.Logger:
+    """The experiment's logger on rank 0; a disabled one on other ranks."""
+    if is_main_process():
+        return setup_logging(output_dirs["logs"], os.path.basename(experiment_dir))
+    quiet = logging.getLogger("tpu_unet_torch.quiet_rank")
+    quiet.disabled = True
+    return quiet
+
+
+def _device_line(device: torch.device, world: int = 1) -> str:
+    return (f"Device: {device}" + (f" ({torch.cuda.get_device_name(device)})"
+                                   if device.type == "cuda" else "")
+            + (f", {world} data-parallel ranks" if world > 1 else ""))
 
 
 # ---------------------------------------------------------------------------
@@ -121,24 +141,35 @@ def _device_line(device: torch.device) -> str:
 # ---------------------------------------------------------------------------
 
 def run_seg_training(args, workload: Workload):
-    """The trainer: flag checks, device, datasets, then :func:`train_seg`.
-    Returns the experiment directory; exits with code 75 after SIGTERM."""
-    check_train_flags(args)
+    """The trainer: flag checks, device, datasets, then :func:`train_seg`
+    on every rank. Returns the experiment directory (None on ranks other
+    than 0); exits with code 75 after SIGTERM."""
+    world = check_train_flags(args)
     device = cli_device(args.device)
-    if args.debug_nans:
-        torch.autograd.set_detect_anomaly(True)
-    print(_device_line(device))
-    train_ds, val_ds, _, num_classes, _ = workload.make_datasets(args)
-    if args.debug:
-        print(f"DEBUG MODE: Limiting dataset to {args.debug_samples} samples")
-        train_ds = _Subset(train_ds, args.debug_samples, args.seed)
-        val_ds = _Subset(val_ds, args.debug_samples, args.seed + 1)
-    experiment_name = f"{workload.name}_{args.model}_{time.strftime('%Y%m%d_%H%M%S')}"
+    if is_main_process():
+        print(_device_line(device, world))
+    experiment_name = f"{workload.name}_{args.model}_{synced_timestamp()}"
     experiment_dir = os.path.join(args.save_dir, experiment_name)
-    results = train_seg(args, workload, train_ds, val_ds, num_classes, device, experiment_dir)
+    results = launch(_train_rank, (args, workload, experiment_dir),
+                     n_devices=args.n_devices, device_type=device.type)
+    if not is_main_process():
+        return None
     if results["interrupted"]:
         raise SystemExit(INTERRUPT_EXIT_CODE)  # EX_TEMPFAIL: requeue me
     return experiment_dir
+
+
+def _train_rank(args, workload: Workload, experiment_dir: str) -> dict:
+    device = cli_device(args.device)
+    if args.debug_nans:
+        torch.autograd.set_detect_anomaly(True)
+    train_ds, val_ds, _, num_classes, _ = workload.make_datasets(args)
+    if args.debug:
+        if is_main_process():
+            print(f"DEBUG MODE: Limiting dataset to {args.debug_samples} samples")
+        train_ds = _Subset(train_ds, args.debug_samples, args.seed)
+        val_ds = _Subset(val_ds, args.debug_samples, args.seed + 1)
+    return train_seg(args, workload, train_ds, val_ds, num_classes, device, experiment_dir)
 
 
 def train_seg(args, workload: Workload, train_ds, val_ds, num_classes: int,
@@ -155,13 +186,18 @@ def train_seg(args, workload: Workload, train_ds, val_ds, num_classes: int,
     ``checkpoint_writes`` (each write's path, bytes and seconds).
     ``span(name, epoch)``, if given, returns a context manager entered
     around each epoch's ``"train"`` and ``"validate"`` passes.
+
+    Under a process group every rank calls it with its device; the state is
+    placed on the data mesh after any resume and rank 0 logs and writes.
     """
     span = span or (lambda name, epoch: contextlib.nullcontext())
+    main_rank = is_main_process()
     output_dirs = create_output_dirs(experiment_dir)
-    logger = setup_logging(output_dirs["logs"], os.path.basename(experiment_dir))
+    logger = _logger(output_dirs, experiment_dir)
     logger.info(f"Experiment directory: {experiment_dir}")
-    with open(os.path.join(experiment_dir, "args.json"), "w") as f:
-        json.dump(vars(args), f, indent=2)
+    if main_rank:
+        with open(os.path.join(experiment_dir, "args.json"), "w") as f:
+            json.dump(vars(args), f, indent=2)
     logger.info(f"Train samples: {len(train_ds)}, Val samples: {len(val_ds)}, "
                 f"classes: {num_classes}")
 
@@ -169,7 +205,8 @@ def train_seg(args, workload: Workload, train_ds, val_ds, num_classes: int,
     to_dev = lambda b: to_device(b, device)  # noqa: E731
     train_loader = DataLoader(train_ds, args.batch_size, shuffle=True, seed=args.seed,
                               drop_last=len(train_ds) >= args.batch_size,
-                              num_workers=args.num_workers, transform=to_dev)
+                              num_workers=args.num_workers, grad_accum=args.grad_accum,
+                              transform=to_dev)
     val_loader = DataLoader(val_ds, args.batch_size, pad_last=True,
                             num_workers=args.num_workers, transform=to_dev)
 
@@ -183,15 +220,6 @@ def train_seg(args, workload: Workload, train_ds, val_ds, num_classes: int,
     total_params = num_params(state)
     logger.info(f"Total parameters: {total_params:,}")
 
-    class_weights = parse_class_weights(args.class_weights, num_classes)
-    loss_cfg = SegLossConfig(ce_weight=args.ce_weight, dice_weight=args.dice_weight,
-                             focal_weight=args.focal_weight, class_weights=class_weights)
-    augment = dataclasses.replace(workload.augment, rotation_mode=args.rotation_mode,
-                                  color_jitter_random_order=args.color_jitter_random_order)
-    train_step = make_seg_train_step(num_classes, loss_cfg, augment,
-                                     grad_accum=args.grad_accum)
-    eval_step = make_seg_eval_step(num_classes, loss_cfg)
-
     start_epoch = 0
     if args.resume:
         state, last_epoch, _ = load_checkpoint(state, args.resume)
@@ -199,6 +227,18 @@ def train_seg(args, workload: Workload, train_ds, val_ds, num_classes: int,
         # The loader's shuffle-epoch counter: a resumed run sees the same
         # per-epoch sample order as an uninterrupted one.
         train_loader.epoch = start_epoch
+    mesh = make_mesh(world_size(), device_type=device.type)  # None in one process
+    state = shard_state(mesh, state, fsdp=args.fsdp)
+    group = group_of(mesh)
+
+    class_weights = parse_class_weights(args.class_weights, num_classes)
+    loss_cfg = SegLossConfig(ce_weight=args.ce_weight, dice_weight=args.dice_weight,
+                             focal_weight=args.focal_weight, class_weights=class_weights)
+    augment = dataclasses.replace(workload.augment, rotation_mode=args.rotation_mode,
+                                  color_jitter_random_order=args.color_jitter_random_order)
+    train_step = make_seg_train_step(num_classes, loss_cfg, augment,
+                                     grad_accum=args.grad_accum, group=group)
+    eval_step = make_seg_eval_step(num_classes, loss_cfg, group=group)
 
     logger.info("Starting training...")
     train_losses, val_losses = [], []
@@ -263,7 +303,8 @@ def train_seg(args, workload: Workload, train_ds, val_ds, num_classes: int,
             dt = time.time() - t0
             logger.info(msg + f" ({dt:.1f}s)")
             history["epoch_seconds"] = round(dt, 3)
-            append_jsonl(history, history_path)  # live, crash-surviving record
+            if main_rank:
+                append_jsonl(history, history_path)  # live, crash-surviving record
 
             if epoch % args.save_freq == 0 or epoch == args.epochs - 1:
                 ckpt_writer.save(state, epoch, train_metrics.get("total_loss", 0.0),
@@ -281,7 +322,8 @@ def train_seg(args, workload: Workload, train_ds, val_ds, num_classes: int,
         "interrupted": interrupted_at is not None,
         "args": vars(args),
     }
-    save_json(results, os.path.join(output_dirs["results"], "training_results.json"))
+    if main_rank:
+        save_json(results, os.path.join(output_dirs["results"], "training_results.json"))
     if interrupted_at is not None:
         logger.info(f"Training interrupted (SIGTERM) during epoch "
                     f"{interrupted_at}; partial results saved to: {experiment_dir}")
@@ -300,30 +342,45 @@ def run_seg_evaluation(args, workload: Workload, split: str = "test"):
     """The evaluator: flag checks, device, datasets, the evaluation
     (:func:`make_eval_loader`, :func:`load_seg_model`, ``validate_seg_epoch``,
     :func:`save_seg_results`), then the confusion-matrix PNG and, with
-    ``--save_predictions``, the prediction panels. Returns the summary."""
-    check_eval_flags(args)
+    ``--save_predictions``, the prediction panels. Returns the summary (None
+    on ranks other than 0). Under ``--n_devices`` every rank evaluates its
+    rows and rank 0 writes."""
+    world = check_eval_flags(args)
     device = cli_device(args.device)
-    print(_device_line(device))
+    if is_main_process():
+        print(_device_line(device, world))
+    summary = launch(_eval_rank, (args, workload, split), n_devices=args.n_devices,
+                     device_type=device.type)
+    return summary if is_main_process() else None
+
+
+def _eval_rank(args, workload: Workload, split: str):
+    device = cli_device(args.device)
+    main_rank = is_main_process()
     train_ds, val_ds, test_ds, num_classes, class_names = workload.make_datasets(args)
     ds = {"train": train_ds, "val": val_ds, "test": test_ds}[split]
     if args.debug:
         ds = _Subset(ds, args.debug_samples, 0)
-    print(f"Eval samples ({split}): {len(ds)}")
+    if main_rank:
+        print(f"Eval samples ({split}): {len(ds)}")
 
     loader = make_eval_loader(args, ds, device)
     state, eval_step, loss_cfg = load_seg_model(args, num_classes, device, train_ds)
     losses, cm = validate_seg_epoch(state, eval_step, loader, num_classes,
                                     ignore_index=loss_cfg.ignore_index)
-    summary = save_seg_results(args, losses, cm, class_names)
-    cm.plot_confusion_matrix(class_names,
-                             os.path.join(args.output_dir, "confusion_matrix.png"))
+    summary = None
+    if main_rank:
+        summary = save_seg_results(args, losses, cm, class_names)
+        cm.plot_confusion_matrix(class_names,
+                                 os.path.join(args.output_dir, "confusion_matrix.png"))
     if args.save_predictions:
         _save_prediction_panels(state, eval_step, loader, class_names, args.output_dir)
     return summary
 
 
 def make_eval_loader(args, ds, device: torch.device) -> DataLoader:
-    """The evaluated split's loader: padded last batch, batches on ``device``."""
+    """The evaluated split's loader: padded last batch, batches on ``device``
+    (this rank's rows of each)."""
     return DataLoader(ds, args.batch_size, pad_last=True, num_workers=args.num_workers,
                       transform=lambda b: to_device(b, device))
 
@@ -341,7 +398,9 @@ def int8_arch(model: str) -> str:
 
 
 def load_seg_model(args, num_classes: int, device: torch.device, calib_ds=None):
-    """``(state, eval_step, loss_cfg)`` for ``--checkpoint`` on ``device``:
+    """``(state, eval_step, loss_cfg)`` for ``--checkpoint`` on ``device``
+    (the step reduces its losses and matrix over the process group, if
+    any):
     BN folded with ``--fold_bn``; ``--heads k < 4`` evaluates UNet++'s
     deep-supervision head X[0][k] alone (the full parameter tree is built
     and loaded). With ``--quantize int8`` the step is the int8 one (K2 for
@@ -354,37 +413,41 @@ def load_seg_model(args, num_classes: int, device: torch.device, calib_ds=None):
                         policy=get_policy(args.precision), base_features=args.base_features,
                         deep_supervision=args.deep_supervision, heads=heads)
     state = create_train_state(model, "adam", 1e-3, 0.0, device=device)
-    print(f"Loading checkpoint: {args.checkpoint}")
+    say = print if is_main_process() else (lambda *a, **k: None)
+    say(f"Loading checkpoint: {args.checkpoint}")
     state = load_params(state, args.checkpoint)
     if args.fold_bn:
         from tpu_unet_torch.ops.fold_bn import fold_batchnorm
         fold_batchnorm(state.model)
-        print("BatchNorm folded into conv weights for inference")
+        say("BatchNorm folded into conv weights for inference")
     if heads != 4:
-        print(f"Pruned fast mode: evaluating head X[0][{heads}] only")
+        say(f"Pruned fast mode: evaluating head X[0][{heads}] only")
 
+    group = group_of(make_mesh(world_size(), device_type=device.type))
     loss_cfg = SegLossConfig(class_weights=parse_class_weights(args.class_weights,
                                                                num_classes))
     if args.quantize != "int8":
-        return state, make_seg_eval_step(num_classes, loss_cfg), loss_cfg
+        return state, make_seg_eval_step(num_classes, loss_cfg, group=group), loss_cfg
     arch = int8_arch(args.model)
     from tpu_unet_torch.ops.quantize import (chunk_calibration, make_quantized_seg_eval_step,
                                              quantize_from_train_state)
     n_calib = min(len(calib_ds), args.calib_samples)
     calib_imgs = np.stack([calib_ds.load(i)["image"] for i in range(n_calib)])
-    qparams = quantize_from_train_state(arch, state.model.state_dict(),
-                                        chunk_calibration(calib_imgs, 8),
-                                        percentile=args.calib_percentile, device=device,
-                                        deep_supervision=args.deep_supervision)
-    print(f"int8 quantized inference (calibrated on {n_calib} train images)")
+    qparams = broadcast_tensors(  # rank 0's calibration on every rank
+        quantize_from_train_state(arch, state.model.state_dict(),
+                                  chunk_calibration(calib_imgs, 8),
+                                  percentile=args.calib_percentile, device=device,
+                                  deep_supervision=args.deep_supervision), group)
+    say(f"int8 quantized inference (calibrated on {n_calib} train images)")
     qstep = make_quantized_seg_eval_step(num_classes, loss_cfg, arch=arch,
-                                         deep_supervision=args.deep_supervision, heads=heads)
+                                         deep_supervision=args.deep_supervision, heads=heads,
+                                         group=group)
     return state, QuantizedEvalStep(qstep, qparams), loss_cfg
 
 
 class QuantizedEvalStep:
-    """An int8 seg eval step over its ``qparams``, with the float step's
-    signature (the state is not read)."""
+    """An int8 eval step (seg, or MVTec's in ``test_mvtec``) over its
+    ``qparams``, with the float step's signature (the state is not read)."""
 
     def __init__(self, qstep, qparams):
         self.qstep, self.qparams = qstep, qparams
@@ -430,7 +493,8 @@ def save_seg_results(args, losses: dict, cm, class_names) -> dict:
 def _save_prediction_panels(state, eval_step, loader, class_names, output_dir,
                             max_batches: int = 5, per_batch: int = 4):
     """Up to 4 panels (image, ground truth, prediction) for each of the first
-    5 batches (matplotlib)."""
+    5 batches (matplotlib). Every rank runs the batches (the step reduces
+    over the group); rank 0 draws its rows."""
     from tpu_unet_torch.ops.augment import eval_transform
     from tpu_unet_torch.utils.viz import _plt, denormalize_image
 
@@ -439,6 +503,8 @@ def _save_prediction_panels(state, eval_step, loader, class_names, output_dir,
         if batch_idx >= max_batches:
             break
         _, preds, _ = eval_step(state, batch["image"], batch["mask"])
+        if not is_main_process():
+            continue
         preds = preds.cpu().numpy()
         images = eval_transform(batch["image"]).cpu().numpy()
         masks = batch["mask"].cpu().numpy()

@@ -74,8 +74,8 @@ def parse_args(argv=None):
     p.add_argument("--base_features", type=int, default=64)
     p.add_argument("--bilinear", action="store_true")
     p.add_argument("--n_devices", type=int, default=None,
-                   help="Shard each serving batch over this many devices (not "
-                        "ported: more than 1 raises)")
+                   help="Split each serving batch over this many replicas, one "
+                        "per GPU (on the CPU all share it)")
     p.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
     p.add_argument("--output", type=str, default="scores.json")
     return p.parse_args(argv), p

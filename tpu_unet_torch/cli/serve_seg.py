@@ -74,11 +74,11 @@ def parse_args(argv=None):
     p.add_argument("--base_features", type=int, default=64)
     p.add_argument("--bilinear", action="store_true")
     p.add_argument("--n_devices", type=int, default=None,
-                   help="Shard each batch over this many devices (not ported: "
-                        "more than 1 raises)")
+                   help="Split each batch over this many replicas, one per GPU "
+                        "(on the CPU all share it)")
     p.add_argument("--n_space", type=int, default=1,
-                   help="Shard image height over this many devices (not "
-                        "ported: more than 1 raises)")
+                   help="Shard image height over this many devices (waits for "
+                        "slice 10 of the port: more than 1 raises)")
     p.add_argument("--tile_height", type=int, default=None,
                    help="Serve NATIVE-resolution images by tiling: run the "
                         "model at tile_height x tile_width (its training "

@@ -41,7 +41,8 @@ def parse_args(argv=None):
     parser.add_argument("--precision", type=str, default="bf16", choices=["bf16", "f32"])
     parser.add_argument("--base_features", type=int, default=64)
     parser.add_argument("--n_devices", type=int, default=None,
-                        help="Data-parallel devices (not ported yet: 1 only)")
+                        help="Data-parallel ranks of each train and test run "
+                             "(passed through)")
     parser.add_argument("--device", type=str, default="cuda", choices=["auto", "cuda", "cpu"])
     parser.add_argument("--debug", action="store_true")
     parser.add_argument("--debug_samples", type=int, default=20)

@@ -56,9 +56,11 @@ def add_eval_args(parser, class_weights, output_dir):
     parser.add_argument("--debug_samples", type=int, default=50)
     parser.add_argument("--precision", type=str, default="bf16", choices=["bf16", "f32"])
     parser.add_argument("--n_devices", type=int, default=None,
-                        help="Data-parallel devices (not ported yet: 1 only)")
+                        help="Data-parallel ranks, one per GPU (default: all "
+                             "visible GPUs; 1 on the CPU)")
     parser.add_argument("--n_space", type=int, default=1,
-                        help="Shard image height over devices (not ported yet: 1 only)")
+                        help="Shard image height over devices (waits for slice 10 "
+                             "of the port: 1 only)")
     parser.add_argument("--base_features", type=int, default=64)
     parser.add_argument("--fold_bn", action="store_true",
                         help="Fold BatchNorm into conv weights for inference")

@@ -14,6 +14,10 @@ conv through kernel K2. ``main`` runs :func:`make_test_loader`,
 :func:`save_results`, then plots.
 
 Runs on ``cuda`` (``--device auto`` means ``cuda``) unless ``--device cpu``.
+``--n_devices N`` evaluates data-parallel on N local ranks (one per GPU; on
+the CPU N gloo ranks): each rank runs its rows of every ``--batch_size``
+batch (K1, and K2 under int8, on every rank), :func:`test_model` gathers
+the rows in the global order and rank 0 writes.
 
 Example:
   python -m tpu_unet_torch.cli.test_mvtec --data_root datasets/mvtec --category bottle \\
@@ -23,18 +27,23 @@ Example:
 from __future__ import annotations
 
 import argparse
+import builtins
 import os
 from collections import defaultdict
 
 import numpy as np
 import torch
 
+from tpu_unet_torch.cli._seg_common import QuantizedEvalStep
 from tpu_unet_torch.cli.train_mvtec import _Subset, cli_device
 from tpu_unet_torch.core.precision import get_policy
 from tpu_unet_torch.data.loader import DataLoader, to_device
 from tpu_unet_torch.data.mvtec import MVTecDataset, get_available_categories
 from tpu_unet_torch.metrics import calculate_metrics, get_optimal_threshold
 from tpu_unet_torch.models import build_model
+from tpu_unet_torch.parallel.collectives import gather_batches, gather_objects
+from tpu_unet_torch.parallel.mesh import (broadcast_tensors, check_batch, cli_world, group_of,
+                                          is_main_process, launch, make_mesh, world_size)
 from tpu_unet_torch.train.checkpoint import load_params
 from tpu_unet_torch.train.state import create_train_state
 from tpu_unet_torch.train.steps import make_anomaly_eval_step
@@ -66,7 +75,8 @@ def parse_args(argv=None):
     # Extras of the JAX package
     parser.add_argument("--precision", type=str, default="bf16", choices=["bf16", "f32"])
     parser.add_argument("--n_devices", type=int, default=None,
-                        help="Data-parallel devices (not ported yet: 1 only)")
+                        help="Data-parallel ranks, one per GPU (default: all "
+                             "visible GPUs; 1 on the CPU)")
     parser.add_argument("--base_features", type=int, default=64)
     parser.add_argument("--fold_bn", action="store_true",
                         help="Fold BatchNorm into conv weights for inference")
@@ -92,7 +102,8 @@ def test_model(eval_step, state, loader) -> dict:
     ``loader`` yields batches already on the state's device (its transform
     is ``to_device``, as in :func:`make_test_loader`); the outputs stay there
     until the loader is drained, then come to the host in one go. Padded rows
-    are dropped.
+    are dropped. Under data parallelism every rank's rows are gathered, in
+    the global batch order, so each rank returns the whole test set's.
     """
     device = state.device
     acc = defaultdict(list)
@@ -111,10 +122,14 @@ def test_model(eval_step, state, loader) -> dict:
         acc["anomaly_scores"].append(out["score"])
         anomaly_types.append(batch["anomaly_type"])
         image_paths.append(batch["image_path"])
-    valid = torch.cat(acc.pop("valid")).cpu().numpy()
-    results = {k: torch.cat(v).cpu().numpy()[valid] for k, v in acc.items()}
-    results["anomaly_types"] = [t for t, ok in zip(sum(anomaly_types, []), valid) if ok]
-    results["image_paths"] = [p for p, ok in zip(sum(image_paths, []), valid) if ok]
+    nb = len(image_paths)
+    valid = gather_batches(torch.cat(acc.pop("valid")).cpu().numpy(), nb)
+    results = {k: gather_batches(torch.cat(v).cpu().numpy(), nb)[valid]
+               for k, v in acc.items()}
+    results["anomaly_types"] = [t for t, ok in zip(gather_objects(sum(anomaly_types, []), nb),
+                                                   valid) if ok]
+    results["image_paths"] = [p for p, ok in zip(gather_objects(sum(image_paths, []), nb),
+                                                 valid) if ok]
     return results
 
 
@@ -189,21 +204,23 @@ def save_results(results, evaluation, output_dir, args):
     print(f"Detailed results saved to: {os.path.join(output_dir, 'detailed_results.json')}")
 
 
-def quantized_eval_step(state, calib_images: np.ndarray, percentile=None):
+def quantized_eval_step(state, calib_images: np.ndarray, percentile=None, group=None):
     """int8 eval step over ``state``'s weights (folded or not), calibrated on
-    ``calib_images`` in chunks of 16; the signature of the float eval step."""
+    ``calib_images`` in chunks of 16; the signature of the float eval step.
+    ``group``: the data-parallel group its loss scalars reduce over; every
+    rank calibrates and takes rank 0's qparams."""
     from tpu_unet_torch.ops.quantize import (chunk_calibration,
                                              make_quantized_anomaly_eval_step,
                                              quantize_from_train_state)
-    qparams = quantize_from_train_state(
+    qparams = broadcast_tensors(quantize_from_train_state(
         "anomaly_unet", state.model.state_dict(), chunk_calibration(calib_images, 16),
-        percentile=percentile, device=state.device)
-    qstep = make_quantized_anomaly_eval_step()
-    return lambda _state, images, masks, valid=None: qstep(qparams, images, masks, valid)
+        percentile=percentile, device=state.device), group)
+    return QuantizedEvalStep(make_quantized_anomaly_eval_step(group=group), qparams)
 
 
 def make_test_loader(args, test_ds, device: torch.device) -> DataLoader:
-    """The test split's loader: padded last batch, batches sent to ``device``."""
+    """The test split's loader: padded last batch, batches (this rank's rows
+    of each) sent to ``device``."""
     return DataLoader(test_ds, args.batch_size, pad_last=True,
                       num_workers=args.num_workers,
                       transform=lambda b: to_device(b, device))
@@ -212,16 +229,20 @@ def make_test_loader(args, test_ds, device: torch.device) -> DataLoader:
 def load_model(args, device: torch.device, calib_ds=None):
     """``(state, eval_step)`` for ``--checkpoint`` on ``device``: BN folded
     with ``--fold_bn``; with ``--quantize int8`` the step is the int8 one,
-    calibrated on the first ``--calib_samples`` images of ``calib_ds``."""
+    calibrated on the first ``--calib_samples`` images of ``calib_ds``
+    (every rank calibrates alike). The step reduces its loss scalars over
+    the process group, if any."""
+    say = print if is_main_process() else (lambda *a, **k: None)
     model = build_model(args.model, n_channels=3, n_classes=1, bilinear=args.bilinear,
                         policy=get_policy(args.precision), base_features=args.base_features)
     state = create_train_state(model, "adam", 1e-3, 0.0, device=device)
-    print(f"Loading checkpoint: {args.checkpoint}")
+    say(f"Loading checkpoint: {args.checkpoint}")
     state = load_params(state, args.checkpoint)
     if args.fold_bn:
         from tpu_unet_torch.ops.fold_bn import fold_batchnorm
         fold_batchnorm(state.model)
-        print("BatchNorm folded into conv weights for inference")
+        say("BatchNorm folded into conv weights for inference")
+    group = group_of(make_mesh(world_size(), device_type=device.type))
 
     if args.quantize == "int8":
         if args.model != "anomaly_unet":
@@ -229,32 +250,45 @@ def load_model(args, device: torch.device, calib_ds=None):
                              "modes; bilinear upsamples run as float islands)")
         n_calib = min(len(calib_ds), args.calib_samples)
         calib_imgs = np.stack([calib_ds.load(i)["image"] for i in range(n_calib)])
-        eval_step = quantized_eval_step(state, calib_imgs, args.calib_percentile)
-        print(f"int8 quantized inference (calibrated on {n_calib} train images)")
+        eval_step = quantized_eval_step(state, calib_imgs, args.calib_percentile, group)
+        say(f"int8 quantized inference (calibrated on {n_calib} train images)")
     else:
-        eval_step = make_anomaly_eval_step(dual_decoder=(args.model == "anomaly_unet"))
+        eval_step = make_anomaly_eval_step(dual_decoder=(args.model == "anomaly_unet"),
+                                           group=group)
     return state, eval_step
 
 
 def main(argv=None):
     args = parse_args(argv)
-    if (args.n_devices or 1) > 1:
-        raise NotImplementedError("--n_devices: multi-device evaluation is not ported "
-                                  "yet; the port runs on one device")
     device = cli_device(args.device)
-    print(f"Device: {device}"
-          + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
-    print(f"Testing category: {args.category}")
+    world = cli_world(args, device.type)
+    check_batch(args.batch_size, world)
+    main_rank = is_main_process()
+    say = print if main_rank else (lambda *a, **k: None)
+    say(f"Device: {device}"
+        + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else "")
+        + (f", {world} data-parallel ranks" if world > 1 else ""))
+    say(f"Testing category: {args.category}")
 
     available = get_available_categories(args.data_root)
     if args.category not in available:
-        print(f"Category '{args.category}' not found!")
-        print(f"Available categories: {available}")
+        say(f"Category '{args.category}' not found!")
+        say(f"Available categories: {available}")
         return None
 
     output_dir = os.path.join(args.output_dir, f"{args.category}_test_results")
-    os.makedirs(output_dir, exist_ok=True)
+    if main_rank:
+        os.makedirs(output_dir, exist_ok=True)
+    evaluation = launch(_test_rank, (args, output_dir), n_devices=args.n_devices,
+                        device_type=device.type)
+    return evaluation if main_rank else None
 
+
+def _test_rank(args, output_dir: str) -> dict:
+    """``main``'s work on one rank (or the one process): every rank tests
+    its rows; rank 0 prints, writes and plots. Returns the evaluation."""
+    device = cli_device(args.device)
+    print = builtins.print if is_main_process() else (lambda *a, **k: None)  # noqa: A001
     test_ds = MVTecDataset(args.data_root, args.category, "test",
                            args.image_size, is_train=False,
                            mask_resize=args.mask_resize)
@@ -270,6 +304,8 @@ def main(argv=None):
     results = test_model(eval_step, state, loader)
     print("Evaluating results...")
     evaluation = evaluate_results(results, args.pixel_thresholds, args.threshold)
+    if not is_main_process():
+        return evaluation
 
     print("\n" + "=" * 50)
     print("TEST RESULTS")

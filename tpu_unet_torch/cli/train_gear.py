@@ -59,9 +59,11 @@ def add_common_args(parser):
     # Extras of the JAX package
     parser.add_argument("--precision", type=str, default="bf16", choices=["bf16", "f32"])
     parser.add_argument("--n_devices", type=int, default=None,
-                        help="Data-parallel devices (not ported yet: 1 only)")
+                        help="Data-parallel ranks, one per GPU (default: all "
+                             "visible GPUs; 1 on the CPU)")
     parser.add_argument("--n_space", type=int, default=1,
-                        help="Shard image height over devices (not ported yet: 1 only)")
+                        help="Shard image height over devices (waits for slice 10 "
+                             "of the port: 1 only)")
     parser.add_argument("--base_features", type=int, default=64)
     parser.add_argument("--debug_nans", action="store_true",
                         help="torch.autograd.set_detect_anomaly (fail fast on NaN)")
@@ -80,17 +82,19 @@ def add_common_args(parser):
                              "--batch_size is the EFFECTIVE batch, run as "
                              "grad_accum sequential microbatches")
     parser.add_argument("--fsdp", action="store_true",
-                        help="Shard params and optimizer state (not ported yet)")
+                        help="Shard params and optimizer state over the data ranks "
+                             "(FSDP2)")
     parser.add_argument("--n_model", type=int, default=1,
-                        help="Tensor parallelism over channels (not ported yet: 1 only)")
+                        help="Tensor parallelism over channels (waits for slice 10 "
+                             "of the port: 1 only)")
     parser.add_argument("--multihost", action="store_true",
-                        help="Multi-host launch (not ported yet)")
+                        help="Join a torchrun or SLURM launch from its environment")
     parser.add_argument("--coordinator_address", type=str, default=None,
-                        help="Manual multi-host launch (not ported yet)")
+                        help="Manual multi-host launch: host:port of rank 0")
     parser.add_argument("--num_processes", type=int, default=None,
-                        help="Manual multi-host launch (not ported yet)")
+                        help="Manual multi-host launch: total process count")
     parser.add_argument("--process_id", type=int, default=None,
-                        help="Manual multi-host launch (not ported yet)")
+                        help="Manual multi-host launch: this process's index")
 
 
 def parse_args(argv=None):
@@ -105,17 +109,22 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
-def make_workload() -> Workload:
-    def make_datasets(args):
-        from tpu_unet_torch.data.gear import get_datasets
-        size = (args.image_size, args.image_size)
-        train, val, test, num_classes = get_datasets(args.data_root, size)
-        return train, val, test, num_classes, ["background"] + train.class_names
+def _datasets(args):
+    from tpu_unet_torch.data.gear import get_datasets
+    train, val, test, num_classes = get_datasets(args.data_root, _size_hw(args))
+    return train, val, test, num_classes, ["background"] + train.class_names
 
+
+def _size_hw(args):
+    return (args.image_size, args.image_size)
+
+
+def make_workload() -> Workload:
+    # Module-level functions: a workload is pickled to data-parallel ranks.
     return Workload(
         name="gear_seg",
-        make_datasets=make_datasets,
-        image_size_hw=lambda args: (args.image_size, args.image_size),
+        make_datasets=_datasets,
+        image_size_hw=_size_hw,
         # The reference's Gear augment, applied to image and mask together.
         augment=AugmentConfig(degrees=10.0, brightness=0.2, contrast=0.2,
                               saturation=0.2, hue=0.1),

@@ -37,18 +37,23 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
-def make_workload() -> Workload:
-    def make_datasets(args):
-        from tpu_unet_torch.data.kolektorsdd import CLASS_NAMES, get_datasets
-        size = (args.image_height, args.image_width)
-        train, val, test, num_classes = get_datasets(
-            args.data_root, size, args.train_split, args.val_split)
-        return train, val, test, num_classes, list(CLASS_NAMES)
+def _datasets(args):
+    from tpu_unet_torch.data.kolektorsdd import CLASS_NAMES, get_datasets
+    train, val, test, num_classes = get_datasets(
+        args.data_root, _size_hw(args), args.train_split, args.val_split)
+    return train, val, test, num_classes, list(CLASS_NAMES)
 
+
+def _size_hw(args):
+    return (args.image_height, args.image_width)
+
+
+def make_workload() -> Workload:
+    # Module-level functions: a workload is pickled to data-parallel ranks.
     return Workload(
         name="kolektorsdd",
-        make_datasets=make_datasets,
-        image_size_hw=lambda args: (args.image_height, args.image_width),
+        make_datasets=_datasets,
+        image_size_hw=_size_hw,
         # The reference's KolektorSDD augment, applied to image and mask together.
         augment=AugmentConfig(degrees=5.0, brightness=0.1, contrast=0.1,
                               saturation=0.1, hue=0.05),

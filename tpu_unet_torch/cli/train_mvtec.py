@@ -14,6 +14,12 @@ and exits with code 75; ``--resume <file>`` continues from a checkpoint.
 the plot: it takes the datasets and returns the results.
 
 Runs on ``cuda`` (``--device auto`` means ``cuda``) unless ``--device cpu``.
+``--n_devices N`` trains data-parallel on N local ranks (one per GPU; on the
+CPU N gloo ranks), ``--fsdp`` shards the parameters and Adam moments, and
+``--multihost`` (torchrun or SLURM) or ``--coordinator_address``/
+``--num_processes``/``--process_id`` join a group launched by hand; under
+torchrun the group is joined without a flag. ``--batch_size`` is the global
+batch. Rank 0 prints and writes.
 
 Examples:
   python -m tpu_unet_torch.cli.train_mvtec --data_root datasets/mvtec --category bottle
@@ -24,6 +30,7 @@ Examples:
 from __future__ import annotations
 
 import argparse
+import builtins
 import contextlib
 import json
 import os
@@ -38,6 +45,10 @@ from tpu_unet_torch.core.precision import get_policy
 from tpu_unet_torch.data.loader import DataLoader, to_device
 from tpu_unet_torch.data.mvtec import MVTecDataset, get_available_categories
 from tpu_unet_torch.models import build_model
+from tpu_unet_torch.parallel.fsdp import shard_state
+from tpu_unet_torch.parallel.mesh import (check_batch, cli_world, group_of, is_main_process,
+                                          launch, make_mesh, not_ported, synced_timestamp,
+                                          world_size)
 from tpu_unet_torch.train.checkpoint import CheckpointWriter, load_checkpoint
 from tpu_unet_torch.train.interrupt import (INTERRUPT_EXIT_CODE, GracefulInterrupt,
                                             interrupt_checkpoint_path)
@@ -115,7 +126,8 @@ def parse_args(argv=None):
     parser.add_argument("--precision", type=str, default="bf16", choices=["bf16", "f32"],
                         help="Compute precision policy (params stay f32)")
     parser.add_argument("--n_devices", type=int, default=None,
-                        help="Data-parallel devices (not ported yet: 1 only)")
+                        help="Data-parallel ranks, one per GPU (default: all "
+                             "visible GPUs; 1 on the CPU)")
     parser.add_argument("--base_features", type=int, default=64,
                         help="Width of the first UNet stage (reference: 64)")
     parser.add_argument("--profile_dir", type=str, default=None,
@@ -130,17 +142,19 @@ def parse_args(argv=None):
                              "grad_accum sequential microbatches of "
                              "batch_size/grad_accum")
     parser.add_argument("--fsdp", action="store_true",
-                        help="Shard params and optimizer state (not ported yet)")
+                        help="Shard params and optimizer state over the data ranks "
+                             "(FSDP2)")
     parser.add_argument("--n_model", type=int, default=1,
-                        help="Tensor parallelism over channels (not ported yet: 1 only)")
+                        help="Tensor parallelism over channels (waits for slice 10 "
+                             "of the port: 1 only)")
     parser.add_argument("--multihost", action="store_true",
-                        help="Multi-host launch (not ported yet)")
+                        help="Join a torchrun or SLURM launch from its environment")
     parser.add_argument("--coordinator_address", type=str, default=None,
-                        help="Manual multi-host launch (not ported yet)")
+                        help="Manual multi-host launch: host:port of rank 0")
     parser.add_argument("--num_processes", type=int, default=None,
-                        help="Manual multi-host launch (not ported yet)")
+                        help="Manual multi-host launch: total process count")
     parser.add_argument("--process_id", type=int, default=None,
-                        help="Manual multi-host launch (not ported yet)")
+                        help="Manual multi-host launch: this process's index")
     parser.add_argument("--rotation_mode", type=str, default="per_batch_shear",
                         choices=["per_sample", "per_sample_shear", "per_batch_shear"],
                         help="Rotation augmentation: one angle per batch through "
@@ -153,54 +167,41 @@ def parse_args(argv=None):
     return parser.parse_args(argv)
 
 
-def check_not_ported(args) -> None:
-    """Raise NotImplementedError for the flags whose paths are not ported:
-    multi-device training (queued with multi-GPU)."""
-    multi = {"--n_devices": (args.n_devices or 1) > 1, "--fsdp": args.fsdp,
-             "--n_model": args.n_model > 1, "--multihost": args.multihost,
-             "--coordinator_address": args.coordinator_address is not None,
-             "--num_processes": args.num_processes is not None,
-             "--process_id": args.process_id is not None}
-    used = [flag for flag, on in multi.items() if on]
-    if used:
-        raise NotImplementedError(f"{', '.join(used)}: multi-device training is not "
-                                  "ported yet; the port trains on one device")
+def check_flags(args) -> int:
+    """The run's world size (:func:`~tpu_unet_torch.parallel.mesh.cli_world`,
+    joining a launched group); NotImplementedError for ``--n_model`` > 1,
+    SystemExit for a batch that does not split over the ranks and
+    ``--grad_accum``."""
+    if args.n_model > 1:
+        raise not_ported("--n_model")
+    device_type = cli_device(args.device).type
+    world = cli_world(args, device_type)
+    check_batch(args.batch_size, world, args.grad_accum)
+    return world
 
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.grad_accum < 1 or args.batch_size % args.grad_accum != 0:
-        raise SystemExit(f"--batch_size {args.batch_size} must be a positive "
-                         f"multiple of --grad_accum {args.grad_accum}")
-    check_not_ported(args)
+    world = check_flags(args)
     device = cli_device(args.device)
-    if args.debug_nans:
-        torch.autograd.set_detect_anomaly(True)
-
-    print(f"Device: {device}"
-          + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else ""))
-    print(f"Training category: {args.category}")
+    say = print if is_main_process() else (lambda *a, **k: None)
+    say(f"Device: {device}"
+        + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else "")
+        + (f", {world} data-parallel ranks" if world > 1 else ""))
+    say(f"Training category: {args.category}")
 
     available = get_available_categories(args.data_root)
     if args.category not in available:
-        print(f"Category '{args.category}' not found!")
-        print(f"Available categories: {available}")
+        say(f"Category '{args.category}' not found!")
+        say(f"Available categories: {available}")
         return None
 
-    experiment_name = f"{args.category}_{args.model}_{time.strftime('%Y%m%d_%H%M%S')}"
+    experiment_name = f"{args.category}_{args.model}_{synced_timestamp()}"
     experiment_dir = os.path.join(args.save_dir, experiment_name)
-
-    print("Creating data loaders...")
-    train_ds = MVTecDataset(args.data_root, args.category, "train",
-                            args.image_size, is_train=True)
-    val_ds = MVTecDataset(args.data_root, args.category, "test",
-                          args.image_size, is_train=False)
-    if args.debug:
-        print(f"DEBUG MODE: Limiting dataset to {args.debug_samples} samples")
-        train_ds = _Subset(train_ds, args.debug_samples, args.seed)
-        val_ds = _Subset(val_ds, args.debug_samples, args.seed + 1)
-
-    results = train(args, train_ds, val_ds, device, experiment_dir)
+    results = launch(_train_rank, (args, experiment_dir), n_devices=args.n_devices,
+                     device_type=device.type)
+    if not is_main_process():
+        return None
     if results["train_losses"] or results["val_losses"]:
         plot_training_curves(results["train_losses"], results["val_losses"],
                              os.path.join(experiment_dir, "results", "training_curves.png"))
@@ -213,6 +214,25 @@ def main(argv=None):
     print(f"Best validation loss: {best:.4f}" if best is not None else "No validation ran")
     print(f"Results saved to: {experiment_dir}")
     return experiment_dir
+
+
+def _train_rank(args, experiment_dir: str) -> dict:
+    """One rank's (or the one process's) part of ``main``: the datasets and
+    :func:`train` on this rank's device."""
+    device = cli_device(args.device)
+    say = print if is_main_process() else (lambda *a, **k: None)
+    if args.debug_nans:
+        torch.autograd.set_detect_anomaly(True)
+    say("Creating data loaders...")
+    train_ds = MVTecDataset(args.data_root, args.category, "train",
+                            args.image_size, is_train=True)
+    val_ds = MVTecDataset(args.data_root, args.category, "test",
+                          args.image_size, is_train=False)
+    if args.debug:
+        say(f"DEBUG MODE: Limiting dataset to {args.debug_samples} samples")
+        train_ds = _Subset(train_ds, args.debug_samples, args.seed)
+        val_ds = _Subset(val_ds, args.debug_samples, args.seed + 1)
+    return train(args, train_ds, val_ds, device, experiment_dir)
 
 
 def train(args, train_ds, val_ds, device: torch.device, experiment_dir: str,
@@ -229,12 +249,20 @@ def train(args, train_ds, val_ds, device: torch.device, experiment_dir: str,
     bytes and seconds). ``span(name, epoch)``, if given, returns a context
     manager entered around each epoch's ``"train"`` and ``"validate"``
     passes, e.g. to time them or to read counters.
+
+    Under a process group (``--n_devices``, torchrun) every rank calls it
+    with its device: the loaders give each rank its rows, the state is
+    placed on the data mesh (``--fsdp`` shards it) after any resume, and
+    only rank 0 prints and writes; every rank returns the results.
     """
     span = span or (lambda name, epoch: contextlib.nullcontext())
+    main_rank = is_main_process()
+    print = builtins.print if main_rank else (lambda *a, **k: None)  # noqa: A001
     output_dirs = create_output_dirs(experiment_dir)
     print(f"Experiment directory: {experiment_dir}")
-    with open(os.path.join(experiment_dir, "args.json"), "w") as f:
-        json.dump(vars(args), f, indent=2)
+    if main_rank:
+        with open(os.path.join(experiment_dir, "args.json"), "w") as f:
+            json.dump(vars(args), f, indent=2)
     print(f"Train samples: {len(train_ds)}")
     print(f"Validation samples: {len(val_ds)}")
 
@@ -243,7 +271,7 @@ def train(args, train_ds, val_ds, device: torch.device, experiment_dir: str,
     # augment. Validation keeps float32 (--mask_resize bilinear values).
     train_loader = DataLoader(train_ds, args.batch_size, shuffle=True, seed=args.seed,
                               drop_last=len(train_ds) >= args.batch_size,
-                              num_workers=args.num_workers,
+                              num_workers=args.num_workers, grad_accum=args.grad_accum,
                               transform=lambda b: to_device(b, device, mask_dtype=np.uint8))
     val_loader = DataLoader(val_ds, args.batch_size, pad_last=True,
                             num_workers=args.num_workers,
@@ -259,6 +287,17 @@ def train(args, train_ds, val_ds, device: torch.device, experiment_dir: str,
     total_params = num_params(state)
     print(f"Total parameters: {total_params:,}")
 
+    start_epoch = 0
+    if args.resume:
+        state, last_epoch, _ = load_checkpoint(state, args.resume)
+        start_epoch = last_epoch + 1
+        # The loader's shuffle-epoch counter: a resumed run sees the same
+        # per-epoch sample order as an uninterrupted one.
+        train_loader.epoch = start_epoch
+    mesh = make_mesh(world_size(), device_type=device.type)  # None in one process
+    state = shard_state(mesh, state, fsdp=args.fsdp)
+    group = group_of(mesh)
+
     loss_cfg = AnomalyLossConfig(
         recon_weight=args.recon_weight,
         seg_weight=args.seg_weight,
@@ -269,17 +308,9 @@ def train(args, train_ds, val_ds, device: torch.device, experiment_dir: str,
         loss_cfg,
         AugmentConfig(rotation_mode=args.rotation_mode,
                       color_jitter_random_order=args.color_jitter_random_order),
-        dual_decoder=dual, grad_accum=args.grad_accum)
-    eval_step = make_anomaly_eval_step(loss_cfg, dual_decoder=dual)
+        dual_decoder=dual, grad_accum=args.grad_accum, group=group)
+    eval_step = make_anomaly_eval_step(loss_cfg, dual_decoder=dual, group=group)
     scheduler = LRScheduler(args.scheduler, args.learning_rate, args.epochs)
-
-    start_epoch = 0
-    if args.resume:
-        state, last_epoch, _ = load_checkpoint(state, args.resume)
-        start_epoch = last_epoch + 1
-        # The loader's shuffle-epoch counter: a resumed run sees the same
-        # per-epoch sample order as an uninterrupted one.
-        train_loader.epoch = start_epoch
 
     # Training loop
     print("Starting training...")
@@ -359,7 +390,8 @@ def train(args, train_ds, val_ds, device: torch.device, experiment_dir: str,
                                  os.path.join(output_dirs["checkpoints"],
                                               f"checkpoint_epoch_{epoch}.pth"))
 
-            append_jsonl(history, history_path)  # live, crash-surviving record
+            if main_rank:
+                append_jsonl(history, history_path)  # live, crash-surviving record
             print(f"Epoch time: {time.time() - epoch_start:.2f}s")
 
     finally:
@@ -375,7 +407,8 @@ def train(args, train_ds, val_ds, device: torch.device, experiment_dir: str,
         "args": vars(args),
         "checkpoint_writes": ckpt_writer.writes,
     }
-    save_json(results, os.path.join(output_dirs["results"], "training_results.json"))
+    if main_rank:
+        save_json(results, os.path.join(output_dirs["results"], "training_results.json"))
     return results
 
 

@@ -34,6 +34,8 @@ from tpu_unet_torch.core.precision import get_policy
 from tpu_unet_torch.data.loader import DataLoader, to_device
 from tpu_unet_torch.data.mvtec import MVTecDataset
 from tpu_unet_torch.models import build_model
+from tpu_unet_torch.parallel.collectives import gather_objects
+from tpu_unet_torch.parallel.mesh import check_batch, cli_world, is_main_process, launch
 from tpu_unet_torch.train.checkpoint import find_best_checkpoint, load_params
 from tpu_unet_torch.train.state import create_train_state
 from tpu_unet_torch.train.steps import make_anomaly_eval_step
@@ -59,7 +61,8 @@ def parse_args(argv=None):
     parser.add_argument("--max_samples", type=int, default=16)
     parser.add_argument("--precision", type=str, default="bf16", choices=["bf16", "f32"])
     parser.add_argument("--n_devices", type=int, default=None,
-                        help="Data-parallel devices (not ported yet: 1 only)")
+                        help="Data-parallel ranks, one per GPU (default: all "
+                             "visible GPUs; 1 on the CPU)")
     parser.add_argument("--base_features", type=int, default=64)
     parser.add_argument("--interactive", action="store_true",
                         help="open the Previous/Next/Info matplotlib browser "
@@ -186,7 +189,9 @@ def collect_records(args, device: torch.device, ds=None) -> List[Dict]:
     order: the eval step's ``image``, ``anomaly_map``, ``reconstruction``,
     ``error_map`` and ``score`` with the sample's mask, label, type and path,
     on the host. ``ds`` defaults to the category's test split. The eval step
-    runs once per batch of ``--batch_size``; no matplotlib."""
+    runs once per batch of ``--batch_size``; no matplotlib. Under data
+    parallelism each rank runs its rows of the same batches and every rank
+    returns the gathered records, in the loader's global order."""
     if ds is None:
         ds = MVTecDataset(args.data_root, args.category, "test", args.image_size,
                           is_train=False)
@@ -194,10 +199,10 @@ def collect_records(args, device: torch.device, ds=None) -> List[Dict]:
                         transform=lambda b: to_device(b, device))
     state = load_state(args, device)
     eval_step = make_anomaly_eval_step(dual_decoder=(args.model == "anomaly_unet"))
-    records: List[Dict] = []
-    for batch in loader:
-        if len(records) >= args.max_samples:
-            break
+    n_batches = min(len(loader), -(-args.max_samples // args.batch_size))
+    per_batch: List[List[Dict]] = []
+    for _, batch in zip(range(n_batches), loader):
+        records: List[Dict] = []
         out = eval_step(state, batch["image"], batch["mask"])
         host = {k: out[k].cpu().numpy() for k in
                 ("image", "anomaly_map", "reconstruction", "error_map", "score")}
@@ -206,7 +211,7 @@ def collect_records(args, device: torch.device, ds=None) -> List[Dict]:
         valid = (batch["valid"].cpu().numpy().astype(bool) if "valid" in batch
                  else np.ones(len(labels), bool))
         for i in range(len(valid)):
-            if not valid[i] or len(records) >= args.max_samples:
+            if not valid[i]:
                 continue
             records.append({
                 "image": host["image"][i],
@@ -219,7 +224,9 @@ def collect_records(args, device: torch.device, ds=None) -> List[Dict]:
                 "anomaly_type": batch["anomaly_type"][i],
                 "image_path": batch["image_path"][i],
             })
-    return records
+        per_batch.append(records)
+    gathered = gather_objects(per_batch, len(per_batch))
+    return [r for records in gathered for r in records][:args.max_samples]
 
 
 def render(args, records: List[Dict]):
@@ -256,19 +263,24 @@ def render(args, records: List[Dict]):
     return args.output_dir
 
 
+def _collect_rank(args) -> List[Dict]:
+    return collect_records(args, cli_device(args.device))
+
+
 def main(argv=None):
     args = parse_args(argv)
-    if (args.n_devices or 1) > 1:
-        raise NotImplementedError("--n_devices: multi-device runs are not ported yet; "
-                                  "the port runs on one device")
     device = cli_device(args.device)
+    check_batch(args.batch_size, cli_world(args, device.type))
     args.checkpoint = args.checkpoint or discover_checkpoint(args.outputs_dir,
                                                              args.category, args.model)
     if args.checkpoint is None:
         print(f"No checkpoint found under {args.outputs_dir} for '{args.category}'")
         return None
-    print(f"Using checkpoint: {args.checkpoint}")
-    return render(args, collect_records(args, device))
+    if is_main_process():
+        print(f"Using checkpoint: {args.checkpoint}")
+    records = launch(_collect_rank, (args,), n_devices=args.n_devices,
+                     device_type=device.type)
+    return render(args, records) if is_main_process() else None
 
 
 if __name__ == "__main__":

@@ -42,6 +42,8 @@ from tpu_unet_torch.models import build_model
 from tpu_unet_torch.models.unet import check_model_flags
 from tpu_unet_torch.ops.augment import eval_transform
 from tpu_unet_torch.ops.seg_head import sliced_pred_confidence
+from tpu_unet_torch.parallel.collectives import gather_objects
+from tpu_unet_torch.parallel.mesh import check_batch, cli_world, is_main_process, launch
 from tpu_unet_torch.train.checkpoint import load_params
 from tpu_unet_torch.train.state import create_train_state
 from tpu_unet_torch.utils.viz import _plt, denormalize_image, overlay_segmentation
@@ -96,7 +98,8 @@ def parse_args(argv=None):
     parser.add_argument("--alpha", type=float, default=0.5, help="Overlay opacity")
     parser.add_argument("--precision", type=str, default="bf16", choices=["bf16", "f32"])
     parser.add_argument("--n_devices", type=int, default=None,
-                        help="Data-parallel devices (not ported yet: 1 only)")
+                        help="Data-parallel ranks, one per GPU (default: all "
+                             "visible GPUs; 1 on the CPU)")
     parser.add_argument("--base_features", type=int, default=64)
     return parser.parse_args(argv)
 
@@ -153,21 +156,25 @@ def collect_samples(args, device: torch.device, ds=None) -> List[Dict]:
     loader = DataLoader(ds, args.batch_size, pad_last=True, num_workers=args.num_workers,
                         transform=lambda b: to_device(b, device))
     model = load_model(args, num_classes, device)
-    samples: List[Dict] = []
-    for batch in loader:
-        if len(samples) >= args.num_samples:
-            break
+    n_batches = min(len(loader), -(-args.num_samples // args.batch_size))
+    per_batch: List[List[Dict]] = []
+    for _, batch in zip(range(n_batches), loader):
+        samples: List[Dict] = []
         preds, conf, images = (t.cpu().numpy() for t in infer(model, batch["image"]))
         masks = batch["mask"].cpu().numpy()
         valid = (batch["valid"].cpu().numpy().astype(bool) if "valid" in batch
                  else np.ones(len(images), bool))
         for i in range(len(images)):
-            if not valid[i] or len(samples) >= args.num_samples:
+            if not valid[i]:
                 continue
             samples.append({"image": images[i], "mask": masks[i], "pred": preds[i],
                             "conf": conf[i],
                             "stem": os.path.basename(batch["image_path"][i]).split(".")[0]})
-    print(f"Collected {len(samples)} samples for visualization")
+        per_batch.append(samples)
+    samples = [s for part in gather_objects(per_batch, len(per_batch)) for s in part]
+    samples = samples[:args.num_samples]
+    if is_main_process():
+        print(f"Collected {len(samples)} samples for visualization")
     return samples
 
 
@@ -262,16 +269,19 @@ def render(args, samples: List[Dict], num_classes: int, class_names) -> str:
     return output_dir
 
 
+def _collect_rank(args) -> List[Dict]:
+    return collect_samples(args, cli_device(args.device))
+
+
 def main(argv=None):
     args = parse_args(argv)
-    if (args.n_devices or 1) > 1:
-        raise NotImplementedError("--n_devices: multi-device runs are not ported yet; "
-                                  "the port runs on one device")
     check_model_flags(args.model, args.deep_supervision, args.heads)
     device = cli_device(args.device)
-    ds, num_classes, class_names, _ = build_dataset(args)
-    samples = collect_samples(args, device, ds)
-    return render(args, samples, num_classes, class_names)
+    check_batch(args.batch_size, cli_world(args, device.type))
+    _, num_classes, class_names, _ = build_dataset(args)
+    samples = launch(_collect_rank, (args,), n_devices=args.n_devices,
+                     device_type=device.type)
+    return render(args, samples, num_classes, class_names) if is_main_process() else None
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
 """Prefetching batch loader: host threads decode while the device computes
-(counterpart of ``tpu_unet/data/loader.py``, single process).
+(counterpart of ``tpu_unet/data/loader.py``).
 
 A thread pool (PIL decode releases the GIL) assembles whole batches inside a
 bounded in-flight window. Numeric fields are stacked into contiguous arrays,
@@ -7,6 +7,11 @@ string fields (paths, anomaly types) stay host lists. The last partial batch
 is either dropped (training) or zero-padded to the full batch with a
 ``valid`` mask (evaluation). The shuffled order of an epoch comes from
 ``np.random.default_rng(seed + epoch)``, so it is the JAX loader's.
+
+Under data parallelism every rank computes the same global index batches
+and assembles only its rows: the JAX loader's contiguous block of process
+r, or with ``grad_accum`` G its block of each of the G microbatches in turn
+(``parallel/mesh.py::batch_rows``), which is what the train steps expect.
 
 :func:`to_device` is the host-to-device transform: each numeric array goes
 through a fresh pinned host tensor and a non-blocking copy, so the copy
@@ -21,6 +26,8 @@ from typing import Callable, Dict, Iterator, Optional
 
 import numpy as np
 import torch
+
+from tpu_unet_torch.parallel.mesh import batch_rows, rank, world_size
 
 
 def _collate(samples, valid: Optional[np.ndarray] = None) -> Dict:
@@ -90,14 +97,30 @@ class DataLoader:
       prefetch: batches kept in flight ahead of the consumer.
       transform: optional function applied to each assembled batch on the
         consumer's thread (e.g. ``lambda b: to_device(b, "cuda")``).
+      process_count, process_index: ranks of the data-parallel run and this
+        one's index; default from ``torch.distributed`` (1 and 0 without a
+        process group). ``batch_size`` is the global batch.
+      grad_accum: microbatches of each global batch; a rank's rows are its
+        block of each microbatch in turn.
     """
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = False, seed: int = 0,
                  drop_last: bool = False, pad_last: bool = False,
                  num_workers: int = 8, prefetch: int = 2,
-                 transform: Optional[Callable[[Dict], Dict]] = None):
+                 transform: Optional[Callable[[Dict], Dict]] = None,
+                 process_count: Optional[int] = None,
+                 process_index: Optional[int] = None, grad_accum: int = 1):
         if drop_last and pad_last:
             raise ValueError("drop_last and pad_last are mutually exclusive")
+        if process_count is None:
+            process_count, process_index = world_size(), rank()
+        if batch_size % (process_count * grad_accum) != 0:
+            raise ValueError(f"global batch_size {batch_size} not divisible by "
+                             f"process_count {process_count} x grad_accum {grad_accum}")
+        self.process_count = process_count
+        self.process_index = process_index or 0
+        self.local_rows = batch_rows(batch_size, grad_accum, process_count,
+                                     self.process_index)
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -132,6 +155,10 @@ class DataLoader:
                 if self.pad_last:
                     idxs = np.concatenate(
                         [idxs, np.full(self.batch_size - len(idxs), -1, idxs.dtype)])
+                elif self.process_count > 1:
+                    raise ValueError(
+                        "multi-process loading needs drop_last or pad_last to keep "
+                        "the global batch divisible across processes")
                 elif not self._warned_ragged:
                     self._warned_ragged = True
                     warnings.warn(
@@ -142,6 +169,8 @@ class DataLoader:
         return batches
 
     def _assemble(self, idxs: np.ndarray) -> Dict:
+        if self.process_count > 1:
+            idxs = idxs[self.local_rows]  # this rank decodes its rows only
         samples = [self.dataset.load(int(i)) if i >= 0 else None for i in idxs]
         template = next((s for s in samples if s is not None), None)
         if template is None:  # a batch that is entirely padding

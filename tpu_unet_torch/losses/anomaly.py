@@ -22,7 +22,8 @@ _EPS = 1e-7  # representable next to 1.0 in float32 (1 - 1e-12 rounds to 1.0)
 
 def binary_focal_loss(probs: torch.Tensor, targets: torch.Tensor,
                       alpha: float = 0.25, gamma: float = 2.0,
-                      sample_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      sample_weight: Optional[torch.Tensor] = None,
+                      group=None) -> torch.Tensor:
     """Focal loss on probabilities, the probability clipped to [1e-7, 1 - 1e-7].
 
     The clip, not ``F.binary_cross_entropy``'s clamp of the log at -100, is
@@ -33,14 +34,14 @@ def binary_focal_loss(probs: torch.Tensor, targets: torch.Tensor,
     t = targets.to(torch.float32)
     bce = -(t * torch.log(p) + (1.0 - t) * torch.log(1.0 - p))
     pt = torch.exp(-bce)
-    return weighted_mean(alpha * (1.0 - pt) ** gamma * bce, sample_weight)
+    return weighted_mean(alpha * (1.0 - pt) ** gamma * bce, sample_weight, group)
 
 
 def mse_loss(pred: torch.Tensor, target: torch.Tensor,
-             sample_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+             sample_weight: Optional[torch.Tensor] = None, group=None) -> torch.Tensor:
     pred = pred.to(torch.float32)
     target = target.to(torch.float32)
-    return weighted_mean((pred - target) ** 2, sample_weight)
+    return weighted_mean((pred - target) ** 2, sample_weight, group)
 
 
 def combined_anomaly_loss(
@@ -55,6 +56,7 @@ def combined_anomaly_loss(
     focal_gamma: float = 2.0,
     recon_loss_type: str = "mse",
     sample_weight: Optional[torch.Tensor] = None,
+    group=None,
 ) -> Dict[str, torch.Tensor]:
     """Combined anomaly loss; every input NHWC (mask (N, H, W, 1) binary).
 
@@ -62,18 +64,22 @@ def combined_anomaly_loss(
     ``image`` as given, the *normalized* image in the train step (the
     reference does the same). ``recon_loss_type``: 'mse' or 'ssim'.
     ``sample_weight``: optional (N,) weights; binary weights exclude padded
-    rows. Returns ``{'total_loss', 'recon_loss', 'seg_loss'}``.
+    rows. ``group``: a data-parallel process group whose global batch the
+    weighted means cover (``losses/reduction.py``). Returns
+    ``{'total_loss', 'recon_loss', 'seg_loss'}``.
     """
     if recon_loss_type == "mse":
-        recon_loss = mse_loss(reconstruction, image, sample_weight=sample_weight)
+        recon_loss = mse_loss(reconstruction, image, sample_weight=sample_weight,
+                              group=group)
     elif recon_loss_type == "ssim":
         per_image = 1.0 - ssim(reconstruction.to(torch.float32),
                                image.to(torch.float32), size_average=False)
-        recon_loss = weighted_mean(per_image, sample_weight)
+        recon_loss = weighted_mean(per_image, sample_weight, group)
     else:
         raise ValueError(f"Unknown recon_loss_type: {recon_loss_type!r}")
 
     seg_loss = binary_focal_loss(anomaly_map, mask, alpha=focal_alpha,
-                                 gamma=focal_gamma, sample_weight=sample_weight)
+                                 gamma=focal_gamma, sample_weight=sample_weight,
+                                 group=group)
     total = recon_weight * recon_loss + seg_weight * seg_loss
     return {"total_loss": total, "recon_loss": recon_loss, "seg_loss": seg_loss}

@@ -4,6 +4,15 @@
 A binary ``sample_weight`` of shape (N,) excludes the zero-padded rows of a
 fixed-shape eval batch: every reduction then equals the same loss computed
 over the valid rows only.
+
+Under a data-parallel process group (``group``) each rank holds its rows of
+the global batch. A loss that is a ratio of global sums is not the mean of
+the ranks' ratios, and neither is its gradient, so a rank's loss is its own
+numerator over the group's denominator times W
+(:func:`global_denominator`): the mean of the ranks' losses is the global
+loss, and the mean of their gradients (what the train steps all-reduce) is
+its gradient. A plain mean needs no exchange, since every rank holds as
+many rows.
 """
 
 from __future__ import annotations
@@ -11,10 +20,23 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 
-def weighted_mean(x: torch.Tensor,
-                  sample_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+def global_denominator(den: torch.Tensor, group=None) -> torch.Tensor:
+    """``max(den, 1e-12)`` of the global batch over W: ``den`` summed over
+    the ranks of ``group`` (no gradient flows through it: no denominator
+    depends on the parameters), clipped as the JAX package clips, divided by
+    the world size. ``max(den, 1e-12)`` without a group."""
+    if group is None:
+        return torch.clamp(den, min=1e-12)
+    total = den.detach().clone()
+    dist.all_reduce(total, group=group)
+    return torch.clamp(total, min=1e-12) / dist.get_world_size(group)
+
+
+def weighted_mean(x: torch.Tensor, sample_weight: Optional[torch.Tensor] = None,
+                  group=None) -> torch.Tensor:
     """Mean of per-sample values x (N, ...) under (N,) sample weights, in float32.
 
     With ``sample_weight=None`` this is ``x.mean()``. With binary weights it
@@ -26,4 +48,4 @@ def weighted_mean(x: torch.Tensor,
         return x.mean()
     w = sample_weight.to(torch.float32)
     per_sample = x.mean(dim=tuple(range(1, x.dim()))) if x.dim() > 1 else x
-    return (per_sample * w).sum() / torch.clamp(w.sum(), min=1e-12)
+    return (per_sample * w).sum() / global_denominator(w.sum(), group)

@@ -13,7 +13,9 @@ package's layout; every term runs in float32, whatever the logits' dtype.
 Out-of-range labels: CE clips the label into [0, C - 1] before it reads the
 logit (then masks ``ignore_index``), Dice one-hot-encodes it as a zero row.
 A (N,) ``sample_weight`` of 0/1 keeps the padded rows of an eval batch out
-of every term.
+of every term. Under a data-parallel ``group`` every ratio divides by the
+global batch's denominator (``losses/reduction.py``), the class-weighted
+CE's ``sum(w[y_i])`` included.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from typing import Dict, Optional, Sequence
 
 import torch
 
-from tpu_unet_torch.losses.reduction import weighted_mean
+from tpu_unet_torch.losses.reduction import global_denominator, weighted_mean
 from tpu_unet_torch.ops.augment import device_constant
 from tpu_unet_torch.ops.seg_head import SMALL_C_MAX
 
@@ -47,7 +49,8 @@ def _per_pixel_ce(logits: torch.Tensor, labels: torch.Tensor,
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        class_weights: Optional[Sequence[float]] = None,
                        ignore_index: Optional[int] = None,
-                       sample_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+                       sample_weight: Optional[torch.Tensor] = None,
+                       group=None) -> torch.Tensor:
     """Weighted softmax cross entropy with torch's F.cross_entropy mean."""
     ce, valid = _per_pixel_ce(logits, labels, ignore_index)
     if sample_weight is not None:
@@ -58,8 +61,8 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
         w = device_constant(tuple(float(x) for x in class_weights), torch.float32,
                             logits.device)
         w_y = w[torch.clamp(labels, 0, len(class_weights) - 1).long()]
-        return torch.sum(ce * w_y) / torch.clamp(torch.sum(w_y * valid), min=1e-12)
-    return torch.sum(ce) / torch.clamp(torch.sum(valid), min=1e-12)
+        return torch.sum(ce * w_y) / global_denominator(torch.sum(w_y * valid), group)
+    return torch.sum(ce) / global_denominator(torch.sum(valid), group)
 
 
 def _one_hot(labels: torch.Tensor, num_classes: int) -> torch.Tensor:
@@ -69,24 +72,24 @@ def _one_hot(labels: torch.Tensor, num_classes: int) -> torch.Tensor:
 
 
 def dice_loss(probs: torch.Tensor, labels: torch.Tensor, smooth: float = 1e-8,
-              sample_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+              sample_weight: Optional[torch.Tensor] = None, group=None) -> torch.Tensor:
     """Dice loss on softmax probabilities (N, H, W, C) against labels (N, H, W)."""
     probs = probs.to(torch.float32)
     one_hot = _one_hot(labels, probs.shape[-1])
     intersection = torch.sum(probs * one_hot, dim=(1, 2))  # (N, C)
     union = torch.sum(probs, dim=(1, 2)) + torch.sum(one_hot, dim=(1, 2))
     dice = (2.0 * intersection + smooth) / (union + smooth)
-    return 1.0 - weighted_mean(dice, sample_weight)
+    return 1.0 - weighted_mean(dice, sample_weight, group)
 
 
 def focal_loss(logits: torch.Tensor, labels: torch.Tensor, alpha: float = 1.0,
                gamma: float = 2.0, ignore_index: Optional[int] = None,
-               sample_weight: Optional[torch.Tensor] = None) -> torch.Tensor:
+               sample_weight: Optional[torch.Tensor] = None, group=None) -> torch.Tensor:
     """Multi-class focal loss (CE-based): the mean over all pixels, zeros at
     ignored ones (the reference's reduction='none' then .mean())."""
     ce, _ = _per_pixel_ce(logits, labels, ignore_index)
     pt = torch.exp(-ce)
-    return weighted_mean(alpha * (1.0 - pt) ** gamma * ce, sample_weight)
+    return weighted_mean(alpha * (1.0 - pt) ** gamma * ce, sample_weight, group)
 
 
 def _combined_unsliced(logits: torch.Tensor, labels: torch.Tensor, *,
@@ -94,7 +97,7 @@ def _combined_unsliced(logits: torch.Tensor, labels: torch.Tensor, *,
                        focal_weight: float = 0.0,
                        class_weights: Optional[Sequence[float]] = None,
                        ignore_index: Optional[int] = None,
-                       sample_weight: Optional[torch.Tensor] = None
+                       sample_weight: Optional[torch.Tensor] = None, group=None
                        ) -> Dict[str, torch.Tensor]:
     """The per-term losses composed on (N, H, W, C) tensors: the oracle of
     the sliced path and the path for C > SMALL_C_MAX."""
@@ -102,17 +105,17 @@ def _combined_unsliced(logits: torch.Tensor, labels: torch.Tensor, *,
     out: Dict[str, torch.Tensor] = {}
     if ce_weight > 0:
         ce = cross_entropy_loss(logits, labels, class_weights, ignore_index,
-                                sample_weight=sample_weight)
+                                sample_weight=sample_weight, group=group)
         out["ce_loss"] = ce
         total = total + ce_weight * ce
     if dice_weight > 0:
         d = dice_loss(torch.softmax(logits.to(torch.float32), dim=-1), labels,
-                      sample_weight=sample_weight)
+                      sample_weight=sample_weight, group=group)
         out["dice_loss"] = d
         total = total + dice_weight * d
     if focal_weight > 0:
         f = focal_loss(logits, labels, ignore_index=ignore_index,
-                       sample_weight=sample_weight)
+                       sample_weight=sample_weight, group=group)
         out["focal_loss"] = f
         total = total + focal_weight * f
     out["total_loss"] = total
@@ -123,7 +126,8 @@ def _combined_sliced(logits: torch.Tensor, labels: torch.Tensor, *,
                      ce_weight: float, dice_weight: float, focal_weight: float,
                      class_weights: Optional[Sequence[float]],
                      ignore_index: Optional[int],
-                     sample_weight: Optional[torch.Tensor]) -> Dict[str, torch.Tensor]:
+                     sample_weight: Optional[torch.Tensor], group=None
+                     ) -> Dict[str, torch.Tensor]:
     """CE, Dice and focal from the C channel slices of the logits, each an
     (N, H, W) plane: the JAX package's small-C path, the same shifted
     log-sum-exp arithmetic as the unsliced one."""
@@ -170,9 +174,9 @@ def _combined_sliced(logits: torch.Tensor, labels: torch.Tensor, *,
             w_y = w[0] * ce_masks[0]
             for c in range(1, num_classes):
                 w_y = w_y + w[c] * ce_masks[c]
-            ce = torch.sum(ce_v * w_y) / torch.clamp(torch.sum(w_y * val), min=1e-12)
+            ce = torch.sum(ce_v * w_y) / global_denominator(torch.sum(w_y * val), group)
         else:
-            ce = torch.sum(ce_v) / torch.clamp(torch.sum(val), min=1e-12)
+            ce = torch.sum(ce_v) / global_denominator(torch.sum(val), group)
         out["ce_loss"] = ce
         total = total + ce_weight * ce
 
@@ -184,13 +188,13 @@ def _combined_sliced(logits: torch.Tensor, labels: torch.Tensor, *,
             inter = torch.sum(p_c * dice_masks[c], dim=(1, 2))
             union = torch.sum(p_c, dim=(1, 2)) + torch.sum(dice_masks[c], dim=(1, 2))
             dice_cols.append((2.0 * inter + smooth) / (union + smooth))
-        d = 1.0 - weighted_mean(torch.stack(dice_cols, dim=-1), sample_weight)
+        d = 1.0 - weighted_mean(torch.stack(dice_cols, dim=-1), sample_weight, group)
         out["dice_loss"] = d
         total = total + dice_weight * d
 
     if focal_weight > 0:
         pt = torch.exp(-ce_pp)
-        f = weighted_mean(1.0 * (1.0 - pt) ** 2.0 * ce_pp, sample_weight)
+        f = weighted_mean(1.0 * (1.0 - pt) ** 2.0 * ce_pp, sample_weight, group)
         out["focal_loss"] = f
         total = total + focal_weight * f
 
@@ -203,8 +207,8 @@ def combined_segmentation_loss(logits: torch.Tensor, labels: torch.Tensor, *,
                                focal_weight: float = 0.0,
                                class_weights: Optional[Sequence[float]] = None,
                                ignore_index: Optional[int] = None,
-                               sample_weight: Optional[torch.Tensor] = None
-                               ) -> Dict[str, torch.Tensor]:
+                               sample_weight: Optional[torch.Tensor] = None,
+                               group=None) -> Dict[str, torch.Tensor]:
     """Weighted CE + Dice + focal, each term gated on its weight being > 0;
     returns the terms and ``total_loss``, float32 0-dim tensors.
 
@@ -214,7 +218,7 @@ def combined_segmentation_loss(logits: torch.Tensor, labels: torch.Tensor, *,
     """
     kw = dict(ce_weight=ce_weight, dice_weight=dice_weight, focal_weight=focal_weight,
               class_weights=class_weights, ignore_index=ignore_index,
-              sample_weight=sample_weight)
+              sample_weight=sample_weight, group=group)
     num_classes = logits.shape[-1]
     if (2 <= num_classes <= SMALL_C_MAX and logits.dim() == 4
             and (class_weights is None or len(class_weights) == num_classes)):

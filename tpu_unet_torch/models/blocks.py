@@ -38,6 +38,7 @@ import threading
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 import torch.utils.checkpoint
@@ -93,24 +94,92 @@ class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` whose train mode updates ``running_var`` with the
     biased batch variance, as flax does, and not at all while
     :func:`recomputing`. Statistics are float32 (the policy's
-    ``norm_dtype``); parameter and buffer names are unchanged."""
+    ``norm_dtype``); parameter and buffer names are unchanged.
+
+    With a ``process_group`` (:func:`sync_batchnorm`) train mode takes the
+    statistics of the global batch, as flax's BatchNorm does over a
+    'data'-sharded batch (:class:`_GlobalBatchNorm`: an all-reduce of (sum
+    x, sum x^2, count) in float32 and its derivative, the biased variance in
+    flax's form E[x^2] - E[x]^2), and the running statistics move by the
+    global values."""
+
+    process_group = None  # not a parameter or buffer: state_dicts keep their names
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        out, mean, invstd = torch.native_batch_norm(
-            x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+        if self.process_group is not None:
+            out, mean, var = self._global_batch_norm(x)
+        else:
+            out, mean, invstd = torch.native_batch_norm(
+                x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+            # The kernel saved 1 / sqrt(var + eps); var is recovered from it.
+            var = None if recomputing() else \
+                invstd.detach().double().pow(-2).sub(self.eps).clamp(min=0).float()
         if recomputing():
             return out
         with torch.no_grad():
             self.num_batches_tracked.add_(1)
             f = (1.0 / float(self.num_batches_tracked) if self.momentum is None
                  else self.momentum)
-            # The kernel saved 1 / sqrt(var + eps); var is recovered from it.
-            var = invstd.double().pow(-2).sub(self.eps).clamp(min=0).float()
-            self.running_mean.mul_(1.0 - f).add_(mean, alpha=f)
-            self.running_var.mul_(1.0 - f).add_(var, alpha=f)
+            self.running_mean.mul_(1.0 - f).add_(mean.detach(), alpha=f)
+            self.running_var.mul_(1.0 - f).add_(var.detach(), alpha=f)
         return out
+
+    def _global_batch_norm(self, x: torch.Tensor):
+        return _GlobalBatchNorm.apply(x, self.weight, self.bias, self.eps, self.process_group)
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Train-mode BatchNorm over a process group's global batch, in float32.
+
+    Forward: one all-reduce of (sum x, sum x^2, count), the biased variance
+    as flax takes it, E[x^2] - E[x]^2, and the normalization as a fused
+    inference-mode batch norm. Backward: the all-reduce differentiated, one
+    all-reduce of (sum dy, sum dy (x - mean)), so each rank's input gradient
+    carries the other ranks' terms: dx = w invstd (dy - mean_g(dy) - (x -
+    mean) invstd^2 mean_g(dy (x - mean))). The weight and bias gradients are
+    the rank's own sums, which the train step averages with the others.
+    Returns (out, mean, var); the statistics carry no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, group):
+        c = x.shape[1]
+        stats = torch.cat([x.sum(dim=(0, 2, 3)), (x * x).sum(dim=(0, 2, 3)),
+                           x.new_full((1,), x.numel() // c)])
+        dist.all_reduce(stats, group=group)
+        n = stats[2 * c]
+        mean = stats[:c] / n
+        var = torch.clamp(stats[c:2 * c] / n - mean * mean, min=0.0)
+        out = F.batch_norm(x, mean, var, weight, bias, False, 0.0, eps)
+        ctx.save_for_backward(x, weight, mean, torch.rsqrt(var + eps), n)
+        ctx.group = group
+        ctx.mark_non_differentiable(mean, var)
+        return out, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, weight, mean, invstd, n = ctx.saved_tensors
+        c = x.shape[1]
+        shape = (1, c, 1, 1)
+        xmu = x - mean.view(shape)
+        sums = torch.cat([dy.sum(dim=(0, 2, 3)), (dy * xmu).sum(dim=(0, 2, 3))])
+        grad_weight, grad_bias = sums[c:] * invstd, sums[:c].clone()
+        dist.all_reduce(sums, group=ctx.group)
+        k = invstd * weight
+        # dy k - mean_g(dy) k - xmu invstd^2 mean_g(dy xmu) k, in two fused passes
+        dx = torch.addcmul((-sums[:c] / n * k).view(shape), dy, k.view(shape))
+        dx = torch.addcmul(dx, xmu, (sums[c:] / n * invstd * invstd * k).view(shape), value=-1)
+        return dx, grad_weight, grad_bias, None, None
+
+
+def sync_batchnorm(model: nn.Module, group) -> nn.Module:
+    """Give every :class:`BatchNorm2d` of ``model`` the process group whose
+    global batch its train mode normalizes by (None: this rank's batch)."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm2d):
+            m.process_group = group
+    return model
 
 
 def conv_bn(conv: nn.Conv2d, norm: nn.Module, x: torch.Tensor, policy: Policy,

@@ -177,9 +177,13 @@ def _launch(x, w, scale, bias, out_scale, relu):
     out = torch.empty((n, h, wd, cout), dtype=torch.int8, device=x.device)
     lib = build.load("conv3x3_int8")
     fn = lib.tpu_unet_conv3x3_int8_c3 if first else lib.tpu_unet_conv3x3_int8
-    err = fn(x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-             out_scale.data_ptr(), out.data_ptr(), n, h, wd, x.shape[3], cout,
-             int(relu), build.current_stream(x.device))
+    # The entry point sets the kernel's shared-memory attribute on, and
+    # launches on, the current device: make it x's (a serving replica on
+    # another GPU is called while the first one is current).
+    with torch.cuda.device(x.device):
+        err = fn(x.data_ptr(), w.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                 out_scale.data_ptr(), out.data_ptr(), n, h, wd, x.shape[3], cout,
+                 int(relu), build.current_stream(x.device))
     build.check(lib, "conv3x3_int8", err)
     conv3x3_int8.launches += 1
     return out

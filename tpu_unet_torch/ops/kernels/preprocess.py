@@ -58,12 +58,18 @@ def _normalize_u8_op(images_u8: torch.Tensor, mean: Sequence[float], std: Sequen
         return normalize_u8_plain(images_u8, tuple(mean), tuple(std), out_dtype)
     if images_u8.device.type != "cuda":
         raise ValueError(f"normalize_u8 runs on cpu or cuda, not {images_u8.device}")
+    return _launch(images_u8, mean, std, out_dtype)
+
+
+def _launch(images_u8: torch.Tensor, mean, std, out_dtype: torch.dtype) -> torch.Tensor:
+    """K1 on a CUDA tensor, launched with the tensor's device current."""
     out = torch.empty(images_u8.shape, dtype=out_dtype, device=images_u8.device)
     lib = build.load("normalize_u8")
-    err = lib.tpu_unet_normalize_u8(
-        images_u8.data_ptr(), out.data_ptr(), images_u8.numel(),
-        int(out_dtype == torch.bfloat16), *mean, *std,
-        build.current_stream(images_u8.device))
+    with torch.cuda.device(images_u8.device):
+        err = lib.tpu_unet_normalize_u8(
+            images_u8.data_ptr(), out.data_ptr(), images_u8.numel(),
+            int(out_dtype == torch.bfloat16), *mean, *std,
+            build.current_stream(images_u8.device))
     build.check(lib, "normalize_u8", err)
     normalize_u8.launches += 1
     return out

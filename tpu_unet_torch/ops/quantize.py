@@ -700,7 +700,7 @@ def quantize_from_train_state(arch: str, state_dict: Dict[str, torch.Tensor],
     return quantize_model(arch, fparams, absmax)
 
 
-def make_quantized_anomaly_eval_step(loss_cfg=None):
+def make_quantized_anomaly_eval_step(loss_cfg=None, group=None):
     """int8 drop-in for ``train/steps.py::make_anomaly_eval_step``.
 
     Returns ``step(qparams, images_u8, masks, valid=None)`` with the float
@@ -710,11 +710,12 @@ def make_quantized_anomaly_eval_step(loss_cfg=None):
     One executor is built per step and kept while the same qparams come
     back, so each layer's constants are made once (as the scorer does).
     ``eval_transform`` runs once per batch: its output is the int8 forward's
-    input and the loss's and score's reference.
+    input and the loss's and score's reference. ``group``: the data-parallel
+    process group whose global batch the loss scalars cover.
     """
     from tpu_unet_torch.losses.anomaly import combined_anomaly_loss
     from tpu_unet_torch.metrics.anomaly import anomaly_error_map, anomaly_score
-    from tpu_unet_torch.train.steps import AnomalyLossConfig, _as_tensor
+    from tpu_unet_torch.train.steps import AnomalyLossConfig, _as_tensor, _group_mean
 
     cfg = loss_cfg if loss_cfg is not None else AnomalyLossConfig()
     plan = build_plan("anomaly_unet")
@@ -731,9 +732,9 @@ def make_quantized_anomaly_eval_step(loss_cfg=None):
         if valid is not None:
             valid = _as_tensor(valid, device)
         losses = combined_anomaly_loss(recon, amap, img, m, sample_weight=valid,
-                                       **cfg.kwargs())
+                                       group=group, **cfg.kwargs())
         return {
-            "losses": losses,
+            "losses": _group_mean(losses, group),
             "score": anomaly_score(recon, img),
             "error_map": anomaly_error_map(recon, img),
             "anomaly_map": amap[..., 0],
@@ -745,7 +746,8 @@ def make_quantized_anomaly_eval_step(loss_cfg=None):
 
 
 def make_quantized_seg_eval_step(num_classes: int, loss_cfg=None, arch: str = "seg_unet",
-                                 deep_supervision: bool = False, heads: int = 4):
+                                 deep_supervision: bool = False, heads: int = 4,
+                                 group=None):
     """int8 drop-in for ``train/steps.py::make_seg_eval_step``.
 
     Returns ``step(qparams, images_u8, labels, valid=None) -> (losses, preds,
@@ -756,7 +758,8 @@ def make_quantized_seg_eval_step(num_classes: int, loss_cfg=None, arch: str = "s
     attention UNet, 30 for UNet++ (6 with deep supervision and ``heads`` 1).
     One executor is kept while the same qparams come back. ``arch``
     'seg_unet', 'unet', 'attn_unet' or 'unetpp' (``deep_supervision``,
-    ``heads``: see :func:`make_quantized_forward`).
+    ``heads``: see :func:`make_quantized_forward`). ``group``: as
+    ``seg_eval_outputs``'s.
     """
     from tpu_unet_torch.train.steps import SegLossConfig, _as_tensor, seg_eval_outputs
 
@@ -773,7 +776,7 @@ def make_quantized_seg_eval_step(num_classes: int, loss_cfg=None, arch: str = "s
         lbl = _as_tensor(labels, device).to(torch.int64)
         if valid is not None:
             valid = _as_tensor(valid, device)
-        return seg_eval_outputs(logits, lbl, num_classes, cfg, valid)
+        return seg_eval_outputs(logits, lbl, num_classes, cfg, valid, group)
 
     return step
 

@@ -26,6 +26,13 @@ normalized image, as the JAX package (and the reference it follows) does.
 An engine keeps the tensors its forward reads and a way to run it on
 another copy of them, which ``serve_artifact.py`` uses to export it.
 
+``n_devices`` (or an explicit ``devices`` list) holds one replica per
+device in this one process, as the JAX engine shards a batch over its
+devices: each batch splits into contiguous chunks, each chunk runs on its
+replica's device on that replica's own CUDA stream (K1 and K2 on every
+replica), and the outputs are concatenated in order on the first device.
+The batch and each bucket must divide by the replica count.
+
 Usage:
     scorer = AnomalyScorer.from_checkpoint("best_model.pth", quantize="int8",
                                            calib_images=calib_u8)
@@ -57,6 +64,7 @@ from tpu_unet_torch.ops.quantize import (_QuantExec, _run, build_plan, chunk_cal
                                          quantize_from_train_state, tree_to)
 from tpu_unet_torch.ops.seg_head import sliced_pred_confidence
 from tpu_unet_torch.ops.tiling import make_tiled_logits_fn
+from tpu_unet_torch.parallel.mesh import local_rank_devices, not_ported
 from tpu_unet_torch.utils.weights import load_reference_checkpoint
 
 
@@ -88,9 +96,14 @@ def _pad_chunk(chunk: np.ndarray, batch_size: int) -> np.ndarray:
     return chunk
 
 
-def _normalize_buckets(bucket_sizes, batch_size: int):
+def _normalize_buckets(bucket_sizes, batch_size: int, n_data: int = 1):
     """Validate a serving-batch bucket ladder: a sorted tuple of distinct
-    sizes always ending in ``batch_size``, or None when no ladder was given."""
+    sizes always ending in ``batch_size``, or None when no ladder was given.
+    The batch and every bucket must divide by ``n_data``, the replicas a
+    batch splits over."""
+    if batch_size % n_data:
+        raise ValueError(f"batch_size {batch_size} not divisible by "
+                         f"n_devices {n_data}")
     if not bucket_sizes:
         return None
     sizes = sorted({int(b) for b in bucket_sizes})
@@ -101,6 +114,10 @@ def _normalize_buckets(bucket_sizes, batch_size: int):
                          f"batch_size {batch_size}")
     if sizes[-1] != batch_size:
         sizes.append(batch_size)
+    bad = [b for b in sizes if b % n_data]
+    if bad:
+        raise ValueError(f"bucket sizes {bad} not divisible by the "
+                         f"data-parallel degree {n_data}")
     return tuple(sizes)
 
 
@@ -196,12 +213,59 @@ def _lagged_host_fetch(device_fn):
     return run, drain
 
 
-def _check_one_device(n_devices, n_space: int = 1) -> None:
-    """The engines serve on one device; sharded serving is not ported."""
-    if (n_devices or 1) > 1 or n_space > 1:
-        raise NotImplementedError("n_devices / n_space > 1: multi-device serving is not "
-                                  "ported yet (ROADMAP queue 1, item 7); the port serves "
-                                  "on one device")
+def _replica_devices(n_devices: Optional[int], devices, device,
+                     n_space: int = 1) -> list:
+    """The devices an engine holds a replica on: ``devices`` as given, else
+    ``n_devices`` (default 1) of ``device``'s type (one GPU each; more than
+    there are raises; on the CPU every replica shares it)."""
+    if n_space > 1:
+        raise not_ported("n_space")
+    if devices is not None:
+        devices = [resolve_device(d) for d in devices]
+        if n_devices not in (None, len(devices)):
+            raise ValueError(f"n_devices={n_devices} but {len(devices)} devices given")
+        return devices
+    device = resolve_device(device)
+    if (n_devices or 1) == 1:
+        return [device]
+    return local_rank_devices(n_devices, device.type)
+
+
+def _replicated(fns: list, devices: list):
+    """One batch function over per-replica functions: the batch (on
+    ``devices[0]``) splits into contiguous chunks, chunk i runs ``fns[i]`` on
+    ``devices[i]`` on a stream of its own, and the outputs (a tensor or a
+    tuple of them) are concatenated in order on ``devices[0]``. The first
+    device's stream waits for every replica's before it reads the outputs."""
+    if len(fns) == 1:
+        return fns[0]
+    home = devices[0]
+    streams = [torch.cuda.Stream(device=d) if d.type == "cuda" else None for d in devices]
+
+    def run(images_u8):
+        outs = []
+        src = torch.cuda.current_stream(home) if home.type == "cuda" else None
+        for fn, dev, stream, x in zip(fns, devices, streams, images_u8.chunk(len(fns))):
+            if stream is None:
+                outs.append(fn(x.to(dev)))
+                continue
+            with torch.cuda.device(dev), torch.cuda.stream(stream):
+                stream.wait_stream(src)
+                if dev == home:  # another card's copy orders both streams itself
+                    x.record_stream(stream)
+                outs.append(fn(x.to(dev, non_blocking=True)))
+        if src is not None:
+            for stream in streams:
+                src.wait_stream(stream)
+        parts = [o if isinstance(o, tuple) else (o,) for o in outs]
+        for part in parts:
+            for t in part:
+                if t.device == home and src is not None:
+                    t.record_stream(src)
+        cat = tuple(torch.cat([p[k].to(home) for p in parts]) for k in range(len(parts[0])))
+        return cat if isinstance(outs[0], tuple) else cat[0]
+
+    return run
 
 
 def _module_state(model: torch.nn.Module):
@@ -228,13 +292,17 @@ def _float_model(name: str, state_dict, policy_name: str, fold_bn: bool, device,
 
 
 class _Engine:
-    """What both engines share: the device, the serving batch and its bucket
-    ladder, the per-thread serving context, and the export state."""
+    """What both engines share: the device (the first replica's), the
+    replicas' devices, the serving batch and its bucket ladder, the
+    per-thread serving context, and the export state."""
 
-    def __init__(self, batch_size: int, device, bucket_sizes, export_state):
+    def __init__(self, batch_size: int, device, bucket_sizes, export_state,
+                 devices: Optional[Sequence] = None):
         self.batch_size = int(batch_size)
         self.device = resolve_device(device)
-        self.bucket_sizes = _normalize_buckets(bucket_sizes, self.batch_size)
+        self.devices = [resolve_device(d) for d in devices] if devices else [self.device]
+        self.bucket_sizes = _normalize_buckets(bucket_sizes, self.batch_size,
+                                               len(self.devices))
         # (params(), bind(params)) for serve_artifact.export_artifact; None for
         # an engine loaded from an artifact.
         self._export_state = export_state
@@ -323,8 +391,8 @@ class AnomalyScorer(_Engine):
     def __init__(self, score_fn: Callable, image_size: int, batch_size: int,
                  device, quantize: Optional[str] = None, heatmap_fn=None,
                  bucket_sizes: Optional[Sequence[int]] = None, qparams=None,
-                 export_state=None):
-        super().__init__(batch_size, device, bucket_sizes, export_state)
+                 export_state=None, devices: Optional[Sequence] = None):
+        super().__init__(batch_size, device, bucket_sizes, export_state, devices)
         self._score_fn = score_fn
         self._heatmap_fn = heatmap_fn
         self.image_size = int(image_size)
@@ -344,7 +412,8 @@ class AnomalyScorer(_Engine):
                         calib_percentile: Optional[float] = None,
                         with_heatmap: bool = False,
                         bucket_sizes: Optional[Sequence[int]] = None,
-                        device="cuda") -> "AnomalyScorer":
+                        device="cuda", devices: Optional[Sequence] = None
+                        ) -> "AnomalyScorer":
         """Build a scorer from an AnomalyUNet state_dict (reference names;
         ``bilinear`` for bilinear decoders). The float programs fold BN into
         the convs (``ops/fold_bn.py``); in int8 the bilinear upsamples run as
@@ -356,56 +425,66 @@ class AnomalyScorer(_Engine):
         second program returning (score, (H, W) uint8 anomaly heatmap) per
         image. ``bucket_sizes`` (e.g. ``(1, 4, 16)``) lets a ragged batch pad
         to the smallest adequate bucket; ``batch_size`` is the top bucket.
-        ``n_devices`` > 1 raises: sharded serving is not ported.
+        ``n_devices`` (or ``devices``, e.g. ``("cuda:0", "cuda:1")``) holds
+        one replica per device and splits each batch over them (module
+        docstring); the calibration runs once, on the first.
         """
         if quantize not in (None, "none", "int8"):
             raise ValueError(f"unsupported quantize mode {quantize!r}")
-        _check_one_device(n_devices)
-        _normalize_buckets(bucket_sizes, batch_size)  # fail before any model work
-        device = resolve_device(device)
-        if quantize == "int8":
-            if qparams is None:
-                if calib_images is None:
-                    raise ValueError("int8 quantization needs calib_images "
-                                     "(a (N,H,W,3) uint8 array of in-domain "
-                                     "images) or a precomputed qparams tree")
-                qparams = quantize_from_train_state(
-                    "anomaly_unet", state_dict, chunk_calibration(calib_images, 16),
-                    percentile=calib_percentile, device=device)
-            qparams = tree_to(qparams, device)
-            plans = {False: build_plan("anomaly_unet", score_only=True),
-                     True: build_plan("anomaly_unet")}
-            qexec = _QuantExec(qparams)  # keeps each leaf's constants across batches
-            export_state = (qexec.state, qexec.bound)
+        devices = _replica_devices(n_devices, devices, device)
+        # fail before any model work
+        _normalize_buckets(bucket_sizes, batch_size, len(devices))
+        device = devices[0]
+        if quantize == "int8" and qparams is None:
+            if calib_images is None:
+                raise ValueError("int8 quantization needs calib_images "
+                                 "(a (N,H,W,3) uint8 array of in-domain "
+                                 "images) or a precomputed qparams tree")
+            qparams = quantize_from_train_state(
+                "anomaly_unet", state_dict, chunk_calibration(calib_images, 16),
+                percentile=calib_percentile, device=device)
+        plans = {False: build_plan("anomaly_unet", score_only=True),
+                 True: build_plan("anomaly_unet")} if quantize == "int8" else None
 
-            def forward(img, with_amap):
-                return _run(qexec, img, plans[with_amap])
-        else:
-            model = _float_model("anomaly_unet", state_dict, precision, True, device,
-                                 base_features=base_features, bilinear=bilinear)
-            export_state = _module_state(model)
+        def replica(dev):
+            """(score_fn, heatmap_fn, export_state) on ``dev``."""
+            if quantize == "int8":
+                # keeps each leaf's constants across batches
+                qexec = _QuantExec(tree_to(qparams, dev))
+                export_state = (qexec.state, qexec.bound)
 
-            def forward(img, with_amap):  # NHWC in and out; NCHW views inside
-                x = img.permute(0, 3, 1, 2)
-                if not with_amap:
-                    return model.score_forward(x).permute(0, 2, 3, 1)
-                return tuple(t.permute(0, 2, 3, 1) for t in model(x))
+                def forward(img, with_amap):
+                    return _run(qexec, img, plans[with_amap])
+            else:
+                model = _float_model("anomaly_unet", state_dict, precision, True, dev,
+                                     base_features=base_features, bilinear=bilinear)
+                export_state = _module_state(model)
 
-        def score_fn(images_u8):
-            img = eval_transform(images_u8)
-            return anomaly_score(forward(img, False), img)
+                def forward(img, with_amap):  # NHWC in and out; NCHW views inside
+                    x = img.permute(0, 3, 1, 2)
+                    if not with_amap:
+                        return model.score_forward(x).permute(0, 2, 3, 1)
+                    return tuple(t.permute(0, 2, 3, 1) for t in model(x))
 
-        def heatmap_fn(images_u8):
-            img = eval_transform(images_u8)
-            recon, amap = forward(img, True)
-            return anomaly_score(recon, img), _amap_to_u8(amap)
+            def score_fn(images_u8):
+                img = eval_transform(images_u8)
+                return anomaly_score(forward(img, False), img)
 
-        return cls(score_fn, image_size, batch_size, device,
-                   quantize="int8" if quantize == "int8" else None,
-                   heatmap_fn=heatmap_fn if with_heatmap else None,
+            def heatmap_fn(images_u8):
+                img = eval_transform(images_u8)
+                recon, amap = forward(img, True)
+                return anomaly_score(recon, img), _amap_to_u8(amap)
+
+            return score_fn, heatmap_fn, export_state
+
+        reps = [replica(d) for d in devices]
+        return cls(_replicated([r[0] for r in reps], devices), image_size, batch_size,
+                   device, quantize="int8" if quantize == "int8" else None,
+                   heatmap_fn=(_replicated([r[1] for r in reps], devices)
+                               if with_heatmap else None),
                    bucket_sizes=bucket_sizes,
-                   qparams=qparams if quantize == "int8" else None,
-                   export_state=export_state)
+                   qparams=tree_to(qparams, device) if quantize == "int8" else None,
+                   export_state=reps[0][2], devices=devices)
 
     @classmethod
     def from_checkpoint(cls, checkpoint: str, **kwargs) -> "AnomalyScorer":
@@ -528,8 +607,8 @@ class SegmentationPredictor(_Engine):
     def __init__(self, predict_fn: Callable, image_size_hw, batch_size: int, device,
                  num_classes: Optional[int] = None, quantize: Optional[str] = None,
                  bucket_sizes: Optional[Sequence[int]] = None, qparams=None,
-                 export_state=None):
-        super().__init__(batch_size, device, bucket_sizes, export_state)
+                 export_state=None, devices: Optional[Sequence] = None):
+        super().__init__(batch_size, device, bucket_sizes, export_state, devices)
         self._predict_fn = predict_fn
         self.image_size_hw = tuple(int(x) for x in image_size_hw)
         self.num_classes = num_classes  # advisory (mask values encode classes)
@@ -551,7 +630,8 @@ class SegmentationPredictor(_Engine):
                         deep_supervision: bool = False, heads: int = 4,
                         tile_hw: Optional[Sequence[int]] = None,
                         tile_overlap: int = 64,
-                        device="cuda") -> "SegmentationPredictor":
+                        device="cuda", devices: Optional[Sequence] = None
+                        ) -> "SegmentationPredictor":
         """Build a predictor from a segmentation model's state_dict
         (``model_name`` 'seg_unet', 'unetpp' or 'attn_unet'; ``bilinear``
         decoders).
@@ -566,7 +646,9 @@ class SegmentationPredictor(_Engine):
         then the full input extent and the model runs at ``tile_hw`` (its
         training shape) over a static grid of tiles overlapping by
         ``tile_overlap`` px, blended back (``ops/tiling.py``). ``n_devices``
-        or ``n_space`` > 1 raise: sharded serving is not ported.
+        (or ``devices``) holds one replica per device and splits each batch
+        over them, tiled or not (module docstring); ``n_space`` > 1 waits
+        for slice 10 of the port.
         """
         if quantize not in (None, "none", "int8"):
             raise ValueError(f"unsupported quantize mode {quantize!r}")
@@ -585,50 +667,58 @@ class SegmentationPredictor(_Engine):
             print(f"unetpp pruned fast mode: serving the single head "
                   f"X[0][{heads}] (not a head average; deeper grid columns "
                   f"do not run)", flush=True)
-        _check_one_device(n_devices, n_space)
-        _normalize_buckets(bucket_sizes, batch_size)  # fail before any model work
-        device = resolve_device(device)
-        if quantize == "int8":
-            if qparams is None:
-                if calib_images is None:
-                    raise ValueError("int8 quantization needs calib_images "
-                                     "or a precomputed qparams tree")
-                qparams = quantize_from_train_state(
-                    model_name, state_dict, chunk_calibration(calib_images, 8),
-                    percentile=calib_percentile, device=device,
-                    deep_supervision=deep_supervision)
-            qparams = tree_to(qparams, device)
-            plan = build_plan(model_name, deep_supervision=deep_supervision, heads=heads)
-            qexec = _QuantExec(qparams)
-            export_state = (qexec.state, qexec.bound)
+        devices = _replica_devices(n_devices, devices, device, n_space)
+        # fail before any model work
+        _normalize_buckets(bucket_sizes, batch_size, len(devices))
+        device = devices[0]
+        if quantize == "int8" and qparams is None:
+            if calib_images is None:
+                raise ValueError("int8 quantization needs calib_images "
+                                 "or a precomputed qparams tree")
+            qparams = quantize_from_train_state(
+                model_name, state_dict, chunk_calibration(calib_images, 8),
+                percentile=calib_percentile, device=device,
+                deep_supervision=deep_supervision)
+        plan = (build_plan(model_name, deep_supervision=deep_supervision, heads=heads)
+                if quantize == "int8" else None)
 
-            def apply_logits(images_u8):
-                return _run(qexec, eval_transform(images_u8), plan)
-        else:
-            model = _float_model(model_name, state_dict, precision, fold_bn, device,
-                                 n_classes=num_classes, bilinear=bilinear, dropout=dropout,
-                                 base_features=base_features,
-                                 deep_supervision=deep_supervision, heads=heads)
-            export_state = _module_state(model)
+        def replica(dev):
+            """(predict_fn, export_state) on ``dev``."""
+            if quantize == "int8":
+                qexec = _QuantExec(tree_to(qparams, dev))
+                export_state = (qexec.state, qexec.bound)
 
-            def apply_logits(images_u8):
-                x = eval_transform(images_u8).permute(0, 3, 1, 2)
-                return model(x).permute(0, 2, 3, 1)
+                def apply_logits(images_u8):
+                    return _run(qexec, eval_transform(images_u8), plan)
+            else:
+                model = _float_model(model_name, state_dict, precision, fold_bn, dev,
+                                     n_classes=num_classes, bilinear=bilinear,
+                                     dropout=dropout, base_features=base_features,
+                                     deep_supervision=deep_supervision, heads=heads)
+                export_state = _module_state(model)
 
-        logits_fn = apply_logits
-        if tile_hw is not None:
-            logits_fn = make_tiled_logits_fn(apply_logits, image_size_hw, tile_hw,
-                                             tile_overlap)
+                def apply_logits(images_u8):
+                    x = eval_transform(images_u8).permute(0, 3, 1, 2)
+                    return model(x).permute(0, 2, 3, 1)
 
-        def predict_fn(images_u8):
-            preds, conf = sliced_pred_confidence(logits_fn(images_u8))
-            return preds, conf.mean(dim=(1, 2))
+            logits_fn = apply_logits
+            if tile_hw is not None:
+                logits_fn = make_tiled_logits_fn(apply_logits, image_size_hw, tile_hw,
+                                                 tile_overlap)
 
-        return cls(predict_fn, image_size_hw, batch_size, device, num_classes=num_classes,
+            def predict_fn(images_u8):
+                preds, conf = sliced_pred_confidence(logits_fn(images_u8))
+                return preds, conf.mean(dim=(1, 2))
+
+            return predict_fn, export_state
+
+        reps = [replica(d) for d in devices]
+        return cls(_replicated([r[0] for r in reps], devices), image_size_hw, batch_size,
+                   device, num_classes=num_classes,
                    quantize="int8" if quantize == "int8" else None,
                    bucket_sizes=bucket_sizes,
-                   qparams=qparams if quantize == "int8" else None,
-                   export_state=export_state)
+                   qparams=tree_to(qparams, device) if quantize == "int8" else None,
+                   export_state=reps[0][1], devices=devices)
 
     @classmethod
     def from_checkpoint(cls, checkpoint: str, **kwargs) -> "SegmentationPredictor":

@@ -92,6 +92,10 @@ def export_artifact(engine: Union[AnomalyScorer, SegmentationPredictor], out_dir
     """Write ``engine``'s serving functions to ``out_dir``; returns the meta
     dict. ``platforms`` may only name the engine's device type (the JAX
     package's multi-platform export has no counterpart here)."""
+    if len(engine.devices) > 1:
+        raise ValueError(
+            "artifacts are per-device programs; export an engine built without "
+            "n_devices and serve one artifact per device")
     kind, (h, w), fns = _engine_functions(engine)
     fns = {stem: fn for stem, fn in fns.items() if fn is not None}
     if engine._export_state is None:

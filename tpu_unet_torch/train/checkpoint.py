@@ -15,6 +15,14 @@ state's device, so a file written on the card loads on the CPU and back.
 The optimizer keeps its own implementation flags across a load (fused Adam on
 CUDA, the plain one on the CPU): ``Optimizer.load_state_dict`` would
 otherwise take them from the file.
+
+Under a data-parallel process group rank 0 writes and barriers surround the
+write; under FSDP every rank first joins the gather of each sharded tensor
+(``DTensor.full_tensor``), so the file holds whole tensors in the same
+layout. A checkpoint thus restores at any world size: every rank loads the
+whole file before the state is placed on the mesh
+(``parallel/fsdp.py::shard_state``), which shards the parameters and the
+moments again.
 """
 
 from __future__ import annotations
@@ -27,16 +35,32 @@ from typing import List, Optional, Tuple
 
 import torch
 
+from tpu_unet_torch.parallel.mesh import barrier, is_main_process
 from tpu_unet_torch.train.state import TrainState
 
 _IMPL_FLAGS = ("fused", "foreach", "capturable", "differentiable")
 _EPOCH_FILE = re.compile(r"^checkpoint_epoch_(\d+)\.pth$")
 
 
+def _full(obj):
+    """Every DTensor of a nested dict/list replaced by its whole tensor (a
+    collective that every rank joins, in the same order); plain tensors as
+    they are."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(obj, DTensor):
+        return obj.full_tensor()
+    if isinstance(obj, dict):
+        return {k: _full(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_full(v) for v in obj)
+    return obj
+
+
 def _payload(state: TrainState, epoch: int, loss: float) -> dict:
     return {"epoch": int(epoch),
-            "model_state_dict": state.model.state_dict(),
-            "optimizer_state_dict": state.optimizer.state_dict(),
+            "model_state_dict": _full(state.model.state_dict()),
+            "optimizer_state_dict": _full(state.optimizer.state_dict()),
             "loss": float(loss)}
 
 
@@ -50,10 +74,15 @@ def _write(payload: dict, path: str) -> int:
 
 
 def save_checkpoint(state: TrainState, epoch: int, loss: float, path: str) -> None:
-    """Save a training checkpoint to ``path`` (replaced if present)."""
+    """Save a training checkpoint to ``path`` (replaced if present); under a
+    process group every rank calls it and rank 0 writes."""
     path = os.path.abspath(path)
-    _write(_payload(state, epoch, loss), path)
-    print(f"Checkpoint saved to {path}")
+    payload = _payload(state, epoch, loss)
+    barrier()
+    if is_main_process():
+        _write(payload, path)
+        print(f"Checkpoint saved to {path}")
+    barrier()
 
 
 def _to_host(obj):
@@ -91,6 +120,10 @@ class CheckpointWriter:
 
     ``writes`` lists each finished write's ``path``, ``bytes`` and
     ``seconds`` (its time on the writer thread, event wait included).
+
+    Under a process group every rank calls ``save`` at the same points;
+    each gathers the state (FSDP), rank 0 writes, and every rank passes a
+    barrier once the write in flight has finished.
     """
 
     def __init__(self):
@@ -101,7 +134,10 @@ class CheckpointWriter:
     def _finish_pending(self) -> None:
         if self._pending is not None:
             fut, self._pending = self._pending, None
-            fut.result()
+            try:
+                fut.result()
+            finally:
+                barrier()
 
     def _run(self, payload: dict, ready: Optional[torch.cuda.Event], path: str) -> None:
         t0 = time.perf_counter()
@@ -115,7 +151,11 @@ class CheckpointWriter:
     def save(self, state: TrainState, epoch: int, loss: float, path: str) -> None:
         path = os.path.abspath(path)
         self._finish_pending()
-        payload = _to_host(_payload(state, epoch, loss))
+        payload = _payload(state, epoch, loss)
+        if not is_main_process():
+            self._pending = self._pool.submit(lambda: None)
+            return
+        payload = _to_host(payload)
         ready = None
         if state.device.type == "cuda":
             ready = torch.cuda.Event()
@@ -145,7 +185,8 @@ def load_checkpoint(state: TrainState, path: str,
                     restore_optimizer: bool = True) -> Tuple[TrainState, int, float]:
     """Restore ``state`` in place from ``path``; returns (state, epoch, loss).
 
-    The model loads with ``strict=True``. ``path`` may also hold a bare
+    The model loads with ``strict=True``, before the state is placed on a
+    mesh. ``path`` may also hold a bare
     state_dict (a reference model file): then epoch is -1 (no epoch
     completed), loss 0.0, and the optimizer is left as it is.
     """
@@ -163,7 +204,8 @@ def load_checkpoint(state: TrainState, path: str,
         for group, kept in zip(state.optimizer.param_groups, flags):
             group.update(kept)
         _match_param_strides(state.optimizer)
-    print(f"Checkpoint loaded from {path}, epoch {epoch}, loss {loss:.4f}")
+    if is_main_process():
+        print(f"Checkpoint loaded from {path}, epoch {epoch}, loss {loss:.4f}")
     return state, epoch, loss
 
 

@@ -10,9 +10,11 @@ outputs/<exp>/checkpoints/checkpoint_interrupt.pth`` replays the interrupted
 epoch from its start and continues. Exit code 75 (EX_TEMPFAIL) marks the run
 requeueable for orchestrators.
 
-The port runs in one process for now: :meth:`GracefulInterrupt.step_poll`
-returns the local latch and :meth:`GracefulInterrupt.poll_global` the local
-flag.
+Under a data-parallel process group the ranks must stop together, since
+every step joins collectives: :meth:`GracefulInterrupt.step_poll` returns
+None (no rank leaves an epoch early), and
+:meth:`GracefulInterrupt.poll_global` all-gathers the flags at the epoch
+boundary, so every rank stops there when any one was signalled.
 """
 
 from __future__ import annotations
@@ -20,6 +22,11 @@ from __future__ import annotations
 import os
 import signal
 from typing import Callable, Optional
+
+import numpy as np
+
+from tpu_unet_torch.parallel.collectives import all_gather_host_values
+from tpu_unet_torch.parallel.mesh import world_size
 
 # sysexits.h EX_TEMPFAIL: "temporary failure, retry later".
 INTERRUPT_EXIT_CODE = 75
@@ -72,12 +79,19 @@ class GracefulInterrupt:
         return self._triggered
 
     def step_poll(self) -> Optional[Callable[[], bool]]:
-        """Per-step ``should_stop`` callable for the epoch driver."""
+        """Per-step ``should_stop`` callable for the epoch driver; None under
+        a process group (stops are epoch-granular there)."""
+        if world_size() > 1:
+            return None
         return lambda: self._triggered
 
     def poll_global(self) -> bool:
-        """True if a signal was latched (the epoch-boundary check)."""
-        return self._triggered
+        """True if any rank latched a signal (the epoch-boundary check): the
+        local flag in one process, else an all-gather of every rank's."""
+        if world_size() == 1:
+            return self._triggered
+        flags = all_gather_host_values(np.asarray([self._triggered]))
+        return bool(flags.any())
 
 
 def interrupt_checkpoint_path(checkpoints_dir: str) -> str:

@@ -1,6 +1,5 @@
 """Epoch drivers of the MVTec anomaly task and of the segmentation task: thin
-host loops around the steps (counterpart of ``tpu_unet/train/loop.py``, one
-process).
+host loops around the steps (counterpart of ``tpu_unet/train/loop.py``).
 
 - Batches arrive as tensors on the state's device: the loader's transform
   is ``data/loader.py::to_device`` (pinned, non-blocking copies), so no step
@@ -18,6 +17,11 @@ process).
   package does: loss scalars weighted by the valid rows, the image threshold
   at the 95th percentile of the float32 scores, pixel F1 at 0.3/0.5/0.7 over
   the anomalous images.
+- Data parallelism: every rank runs the loop on its rows. The steps return
+  the global batch's loss scalars and confusion matrices; validation
+  gathers every rank's rows (``parallel/collectives.py``, in the global
+  batch order) and the per-batch valid counts, so every rank computes the
+  global metrics. Only rank 0 prints.
 """
 
 from __future__ import annotations
@@ -30,6 +34,8 @@ import torch
 
 from tpu_unet_torch.metrics.binary import calculate_metrics
 from tpu_unet_torch.metrics.confusion import SegmentationMetrics
+from tpu_unet_torch.parallel.collectives import all_gather_host_values, gather_batches
+from tpu_unet_torch.parallel.mesh import is_main_process, world_size
 
 _LOSS_NAMES = ("total_loss", "recon_loss", "seg_loss")
 
@@ -69,7 +75,8 @@ class _Progress:
     """
 
     def __init__(self, fn: Optional[Callable[[str], None]], every: int, n_total):
-        self.fn = fn if every and every > 0 else None  # every <= 0 disables
+        # every <= 0 disables; ranks other than 0 print nothing
+        self.fn = fn if every and every > 0 and is_main_process() else None
         self.every, self.n_total = max(int(every), 1), n_total
         self.t0 = time.perf_counter()
         self._losses: dict = {}  # step -> ([loss, running cm] on the host, event or None)
@@ -150,7 +157,7 @@ def train_anomaly_epoch(state, step_fn, loader, seed: int, epoch: int,
     if not per_batch:
         return {name: 0.0 for name in _LOSS_NAMES}
     out = _weighted_losses(per_batch, counts)
-    if log_fn:
+    if log_fn and is_main_process():
         log_fn(f"Epoch {epoch}: loss {out['total_loss']:.4f} "
                f"(recon {out['recon_loss']:.4f}, seg {out['seg_loss']:.4f})")
     return out
@@ -160,13 +167,23 @@ def _host(parts: List[torch.Tensor]) -> np.ndarray:
     return torch.cat(parts).cpu().numpy()
 
 
+def _global_counts(valids: List[torch.Tensor]) -> np.ndarray:
+    """Each batch's valid rows over every rank, as float64."""
+    local = torch.stack([v.sum() for v in valids]).cpu().numpy().astype(np.float64)
+    if world_size() == 1:
+        return local
+    return all_gather_host_values(local).reshape(-1, len(valids)).sum(0)
+
+
 def validate_anomaly_epoch(state, eval_fn, loader) -> Dict:
     """Validation pass with the reference's image and pixel metric recipe.
 
     ``eval_fn(state, images, masks, valid)`` runs once per batch on the
     loader's batches (tensors on the state's device, from its ``to_device``
     transform); its outputs stay on the device until the loader is drained,
-    then come to the host in one go.
+    then come to the host in one go. Under data parallelism the rows of
+    every rank are gathered, so each rank returns the global metrics and
+    predictions (in the global batch order).
     """
     device = state.device
     losses, valids, labels, scores, masks_true, masks_pred = [], [], [], [], [], []
@@ -190,17 +207,16 @@ def validate_anomaly_epoch(state, eval_fn, loader) -> Dict:
                             "masks_true": np.zeros((0,)), "masks_pred": np.zeros((0,))},
         }
     scalars = _fetch_scalars(losses)
-    sizes = [v.shape[0] for v in valids]
-    valid = _host(valids)
-    counts = np.asarray([part.sum() for part in np.split(valid, np.cumsum(sizes)[:-1])],
-                        np.float64)
+    counts = _global_counts(valids)
     loss_out = {name: float((scalars[name] * counts).sum() / counts.sum())
                 for name in _LOSS_NAMES}
 
-    labels = _host(labels)[valid]
-    scores = _host(scores)[valid]
-    masks_true = _host(masks_true)[valid]
-    masks_pred = _host(masks_pred)[valid]
+    nb = len(valids)
+    valid = gather_batches(_host(valids), nb)
+    labels = gather_batches(_host(labels), nb)[valid]
+    scores = gather_batches(_host(scores), nb)[valid]
+    masks_true = gather_batches(_host(masks_true), nb)[valid]
+    masks_pred = gather_batches(_host(masks_pred), nb)[valid]
 
     if len(np.unique(labels)) > 1:
         threshold = np.percentile(scores, 95)
@@ -291,6 +307,8 @@ def validate_seg_epoch(state, eval_fn, loader, num_classes: int,
     the device; the sum, the losses and the valid counts come to the host
     once the loader is drained. Each batch's losses weigh by its valid rows.
     ``ignore_index`` must be the eval step's: the matrices exclude it.
+    Under data parallelism the step's losses and matrices are the global
+    batch's and the valid counts are summed over the ranks.
     """
     device = state.device
     metrics = SegmentationMetrics(num_classes, ignore_index)
@@ -307,5 +325,4 @@ def validate_seg_epoch(state, eval_fn, loader, num_classes: int,
     if not per_batch:
         return {}, metrics
     metrics.confusion_matrix = total.cpu().numpy().astype(np.int64)
-    counts = torch.stack([v.sum() for v in valids]).cpu().numpy()
-    return _weighted_losses(per_batch, counts), metrics
+    return _weighted_losses(per_batch, _global_counts(valids)), metrics

@@ -18,6 +18,22 @@ key. Here ``step(state, images_u8, masks, generator)`` makes the draws from
 a ``torch.Generator`` on the state's device, and
 ``step.with_draws(state, images_u8, masks, draws[, dropout])`` takes them as
 given.
+
+Data parallelism (``group``, a ``torch.distributed`` process group of W
+ranks, the JAX step on a W-device 'data' mesh): each rank passes its rows
+of the global batch (``parallel/mesh.py::shard_batch``; under
+``grad_accum`` its block of each microbatch in turn), and every rank draws
+the global batch's augment draws and dropout masks from a generator seeded
+alike, then takes its rows, so per-batch draws (one shear angle, the
+jitter order) are the same everywhere. BatchNorm takes the global
+statistics once the state is placed on the mesh
+(``parallel/fsdp.py::shard_state``), the losses divide by global
+denominators, and after the microbatch loop one all-reduce per gradient
+dtype averages the gradients (FSDP's sharded gradients come averaged by
+its reduce-scatter). The returned loss scalars and confusion matrices are
+the global batch's, the same on every rank. The eval steps take the group
+for their loss scalars (and the seg matrix) and return per-row outputs of
+the rank's rows.
 """
 
 from __future__ import annotations
@@ -26,6 +42,7 @@ import dataclasses
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
+import torch.distributed as dist
 
 from tpu_unet_torch.losses.anomaly import combined_anomaly_loss
 from tpu_unet_torch.losses.segmentation import combined_segmentation_loss
@@ -111,6 +128,78 @@ def _remat_call(remat: str, fn, *args):
         return fn(*args)
 
 
+def _world(group) -> int:
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def _rows(x: torch.Tensor, group, m: int) -> torch.Tensor:
+    """This rank's ``m`` rows of a global microbatch's per-row draw."""
+    r = dist.get_rank(group)
+    return x[r * m:(r + 1) * m]
+
+
+def _local_draws(d: AugmentDraws, group, m: int) -> AugmentDraws:
+    """This rank's rows of a global microbatch's draws; a per-batch angle
+    and the jitter order are shared."""
+    if group is None:
+        return d
+    return dataclasses.replace(
+        d, flip=_rows(d.flip, group, m), fb=_rows(d.fb, group, m),
+        fc=_rows(d.fc, group, m), fs=_rows(d.fs, group, m), fh=_rows(d.fh, group, m),
+        angle=d.angle if d.angle.dim() == 0 else _rows(d.angle, group, m))
+
+
+def _group_mean(values: Dict[str, torch.Tensor], group) -> Dict[str, torch.Tensor]:
+    """Each scalar averaged over the ranks, in one all-reduce: the ranks'
+    losses are numerators over global denominators times W, so the mean is
+    the global batch's loss."""
+    if group is None:
+        return values
+    names = list(values)
+    v = torch.stack([values[k].detach().to(torch.float32) for k in names])
+    dist.all_reduce(v, group=group)
+    v = v / dist.get_world_size(group)
+    return dict(zip(names, v.unbind()))
+
+
+def _group_sum(t: Optional[torch.Tensor], group) -> Optional[torch.Tensor]:
+    if group is None or t is None:
+        return t
+    dist.all_reduce(t, group=group)
+    return t
+
+
+def _finish_gradients(model, grad_accum: int, group) -> None:
+    """Divide the accumulated gradients by ``grad_accum`` and, under a
+    group, average them over its ranks: one all-reduce of the flattened
+    gradients per dtype. FSDP's sharded (DTensor) gradients come averaged
+    over the ranks already."""
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    if group is None:
+        if grad_accum > 1:
+            for g in grads:
+                g.div_(grad_accum)
+        return
+    from torch.distributed.tensor import DTensor
+
+    w = dist.get_world_size(group)
+    by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
+    for g in grads:
+        if isinstance(g, DTensor):
+            if grad_accum > 1:
+                g.div_(grad_accum)
+        else:
+            by_dtype.setdefault(g.dtype, []).append(g)
+    for bucket in by_dtype.values():
+        flat = torch.cat([g.reshape(-1) for g in bucket])
+        dist.all_reduce(flat, group=group)
+        flat.div_(w * grad_accum)
+        offset = 0
+        for g in bucket:
+            g.copy_(flat[offset:offset + g.numel()].view(g.shape))
+            offset += g.numel()
+
+
 def _forward_anomaly(model, img: torch.Tensor, dual_decoder: bool):
     """Model on NHWC ``img`` -> NHWC (reconstruction, anomaly map).
     ``dual_decoder=False``: a plain UNet's sigmoid(logits) is the map and the
@@ -128,17 +217,20 @@ class AnomalyTrainStep:
     :func:`make_anomaly_train_step`."""
 
     def __init__(self, loss_cfg: AnomalyLossConfig, aug_cfg: AugmentConfig,
-                 dual_decoder: bool, grad_accum: int, remat: str = "none"):
+                 dual_decoder: bool, grad_accum: int, remat: str = "none", group=None):
         self.loss_cfg = loss_cfg
         self.aug_cfg = aug_cfg
         self.dual_decoder = dual_decoder
         self.grad_accum = grad_accum
         self.remat = remat
+        self.group = group
 
     def draws(self, n: int, generator: torch.Generator) -> List[AugmentDraws]:
-        """One draw set per microbatch of a batch of ``n``."""
+        """One draw set per microbatch of the global batch, whose rows this
+        rank's ``n`` are."""
         self._check_batch(n)
-        return [sample_augment_draws(n // self.grad_accum, self.aug_cfg, generator)
+        m = n * _world(self.group) // self.grad_accum
+        return [sample_augment_draws(m, self.aug_cfg, generator)
                 for _ in range(self.grad_accum)]
 
     def __call__(self, state: TrainState, images_u8, masks,
@@ -155,7 +247,8 @@ class AnomalyTrainStep:
                    draws: Union[AugmentDraws, List[AugmentDraws]]
                    ) -> Dict[str, torch.Tensor]:
         """One optimizer update from the batch under the given draws (one
-        :class:`AugmentDraws`, or a list of ``grad_accum`` of them)."""
+        :class:`AugmentDraws`, or a list of ``grad_accum`` of them, each for
+        a microbatch of the global batch)."""
         device = state.device
         images_u8, masks = _as_tensor(images_u8, device), _as_tensor(masks, device)
         draws = [draws] if isinstance(draws, AugmentDraws) else list(draws)
@@ -166,32 +259,33 @@ class AnomalyTrainStep:
         model = state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
         losses: List[Dict[str, torch.Tensor]] = []
+        rows = len(images_u8) // g
         # Microbatches in sequence; BN running statistics chain through them
         # and the gradients add up in .grad.
         for img_u8, msk, d in zip(images_u8.chunk(g), masks.chunk(g), draws):
-            img, m = train_transform(img_u8, msk, d.to(device),
+            img, m = train_transform(img_u8, msk,
+                                     _local_draws(d.to(device), self.group, rows),
                                      **self.aug_cfg.transform_kwargs())
             # Masks may ship as uint8; the geometric step is nearest on masks,
             # so the cast after it is exact.
             m = m.to(torch.float32)
             recon, amap = _remat_call(
                 self.remat, lambda x: _forward_anomaly(model, x, self.dual_decoder), img)
-            ld = combined_anomaly_loss(recon, amap, img, m, **self.loss_cfg.kwargs())
+            ld = combined_anomaly_loss(recon, amap, img, m, group=self.group,
+                                       **self.loss_cfg.kwargs())
             ld["total_loss"].backward()
             losses.append({k: v.detach() for k, v in ld.items()})
-        if g > 1:
-            for p in model.parameters():
-                if p.grad is not None:
-                    p.grad.div_(g)
+        _finish_gradients(model, g, self.group)
         state.optimizer.step()
         state.step += 1
-        return {k: torch.stack([ld[k] for ld in losses]).mean() for k in losses[0]}
+        return _group_mean({k: torch.stack([ld[k] for ld in losses]).mean()
+                            for k in losses[0]}, self.group)
 
 
 def make_anomaly_train_step(loss_cfg: AnomalyLossConfig = AnomalyLossConfig(),
                             aug_cfg: AugmentConfig = AugmentConfig(),
                             dual_decoder: bool = True, grad_accum: int = 1,
-                            remat: str = "none") -> AnomalyTrainStep:
+                            remat: str = "none", group=None) -> AnomalyTrainStep:
     """The anomaly train step.
 
     images_u8: (N, H, W, 3) uint8; masks: (N, H, W, 1) float32 in [0, 1] or
@@ -209,9 +303,12 @@ def make_anomaly_train_step(loss_cfg: AnomalyLossConfig = AnomalyLossConfig(),
     whole forward; 'none' keeps every activation. The losses, the BN running
     statistics and, up to the backward's own rounding, the update are the
     plain step's.
+
+    ``group``: data parallelism over a process group (module docstring);
+    ``images_u8`` and ``masks`` are then this rank's rows.
     """
     _check_step_flags(grad_accum, remat)
-    return AnomalyTrainStep(loss_cfg, aug_cfg, dual_decoder, grad_accum, remat)
+    return AnomalyTrainStep(loss_cfg, aug_cfg, dual_decoder, grad_accum, remat, group)
 
 
 def _check_step_flags(grad_accum: int, remat: str) -> None:
@@ -222,13 +319,15 @@ def _check_step_flags(grad_accum: int, remat: str) -> None:
 
 
 def make_anomaly_eval_step(loss_cfg: AnomalyLossConfig = AnomalyLossConfig(),
-                           dual_decoder: bool = True):
+                           dual_decoder: bool = True, group=None):
     """``step(state, images_u8, masks, valid=None) -> outputs``.
 
     The model runs in eval mode (running statistics, no update) on
     ``eval_transform``'s output (K1 on CUDA tensors). ``valid`` (optional
     (N,) bool or float) marks the real rows of a padded batch; the loss
-    scalars cover those rows only. The outputs, all NHWC or per image:
+    scalars cover those rows only; under a data-parallel ``group`` they are
+    the global batch's (the same on every rank), the rest the rank's rows.
+    The outputs, all NHWC or per image:
     ``losses``, ``score`` (N,), ``error_map`` (N, H, W), ``anomaly_map``
     (N, H, W), ``reconstruction`` and ``image``.
     """
@@ -246,9 +345,9 @@ def make_anomaly_eval_step(loss_cfg: AnomalyLossConfig = AnomalyLossConfig(),
                     valid = _as_tensor(valid, device)
                 recon, amap = _forward_anomaly(model, img, dual_decoder)
                 losses = combined_anomaly_loss(recon, amap, img, m, sample_weight=valid,
-                                               **loss_cfg.kwargs())
+                                               group=group, **loss_cfg.kwargs())
                 return {
-                    "losses": losses,
+                    "losses": _group_mean(losses, group),
                     "score": anomaly_score(recon, img),
                     "error_map": anomaly_error_map(recon, img),
                     "anomaly_map": amap[..., 0],
@@ -276,29 +375,33 @@ def _seg_logits(model, img: torch.Tensor, keep: Optional[torch.Tensor] = None):
     return out.permute(0, 2, 3, 1)
 
 
-def _seg_train_losses(logits, labels: torch.Tensor, loss_cfg: SegLossConfig):
+def _seg_train_losses(logits, labels: torch.Tensor, loss_cfg: SegLossConfig, group=None):
     """The loss dict of a train-mode forward, and the logits the predictions
     come from. Deep supervision (a tuple of head logits): one loss per head,
     averaged key by key, and the deepest head's logits."""
     if not isinstance(logits, tuple):
-        return combined_segmentation_loss(logits, labels, **loss_cfg.kwargs()), logits
-    per = [combined_segmentation_loss(t, labels, **loss_cfg.kwargs()) for t in logits]
+        return combined_segmentation_loss(logits, labels, group=group,
+                                          **loss_cfg.kwargs()), logits
+    per = [combined_segmentation_loss(t, labels, group=group, **loss_cfg.kwargs())
+           for t in logits]
     return {k: sum(p[k] for p in per) / len(per) for k in per[0]}, logits[-1]
 
 
 def seg_eval_outputs(logits: torch.Tensor, labels: torch.Tensor, num_classes: int,
-                     loss_cfg: SegLossConfig, valid=None):
+                     loss_cfg: SegLossConfig, valid=None, group=None):
     """``(losses, preds, cm)`` of an eval batch from its NHWC logits: the
     loss over the ``valid`` rows, ``sliced_argmax`` predictions and the
     batch's confusion matrix, all left on the device. The matrix, too,
     counts the ``valid`` rows only; the JAX package drops a padded batch's
-    rows on the host instead, with the same counts."""
+    rows on the host instead, with the same counts. Under a data-parallel
+    ``group`` the losses and the matrix are the global batch's and
+    ``preds`` the rank's rows."""
     losses = combined_segmentation_loss(logits, labels, sample_weight=valid,
-                                        **loss_cfg.kwargs())
+                                        group=group, **loss_cfg.kwargs())
     preds = sliced_argmax(logits)
     cm = confusion_matrix_batch(preds, labels, num_classes, loss_cfg.ignore_index,
                                 valid=valid)
-    return losses, preds, cm
+    return _group_mean(losses, group), preds, _group_sum(cm, group)
 
 
 class SegTrainStep:
@@ -308,13 +411,14 @@ class SegTrainStep:
 
     def __init__(self, num_classes: int, loss_cfg: SegLossConfig,
                  aug_cfg: AugmentConfig, with_confusion: bool, grad_accum: int,
-                 remat: str = "none"):
+                 remat: str = "none", group=None):
         self.num_classes = num_classes
         self.loss_cfg = loss_cfg
         self.aug_cfg = aug_cfg
         self.with_confusion = with_confusion
         self.grad_accum = grad_accum
         self.remat = remat
+        self.group = group
 
     def _check_batch(self, n: int) -> None:
         if n % self.grad_accum:
@@ -323,10 +427,11 @@ class SegTrainStep:
 
     def draws(self, model, n: int, generator: torch.Generator
               ) -> Tuple[List[AugmentDraws], List[Optional[torch.Tensor]]]:
-        """The augment draws and dropout keep masks of each microbatch of a
-        batch of ``n``, drawn in that order, microbatch by microbatch."""
+        """The augment draws and dropout keep masks of each microbatch of
+        the global batch whose rows this rank's ``n`` are, drawn in that
+        order, microbatch by microbatch."""
         self._check_batch(n)
-        m = n // self.grad_accum
+        m = n * _world(self.group) // self.grad_accum
         sample_dropout = getattr(model, "sample_dropout", None)
         augment, dropout = [], []
         for _ in range(self.grad_accum):
@@ -343,8 +448,9 @@ class SegTrainStep:
                    dropout: Union[None, torch.Tensor, List[Optional[torch.Tensor]]] = None):
         """One optimizer update from the batch under the given draws: one
         :class:`AugmentDraws` and one (N, C5) dropout keep mask, or a list of
-        ``grad_accum`` of each. ``dropout=None`` is only for a model without
-        dropout. Returns the loss scalars (the mean over microbatches) and
+        ``grad_accum`` of each, for microbatches of the global batch.
+        ``dropout=None`` is only for a model without dropout. Returns the
+        loss scalars (the mean over microbatches) and
         the batch's (C, C) confusion matrix (None without ``with_confusion``),
         all on the device."""
         device = state.device
@@ -363,34 +469,37 @@ class SegTrainStep:
         state.optimizer.zero_grad(set_to_none=True)
         losses: List[Dict[str, torch.Tensor]] = []
         cm = None
+        rows = len(images_u8) // g
         for img_u8, lbl, d, keep in zip(images_u8.chunk(g), labels.chunk(g), draws, dropout):
             # Labels ship as uint8; the geometry is nearest on them, so the
             # cast to int64 (which the gathers take) after it is exact.
-            img, lbl = train_transform(img_u8, lbl[..., None], d.to(device),
+            img, lbl = train_transform(img_u8, lbl[..., None],
+                                       _local_draws(d.to(device), self.group, rows),
                                        **self.aug_cfg.transform_kwargs())
             lbl = lbl[..., 0].to(torch.int64)
-            keep = None if keep is None else keep.to(device)
+            if keep is not None:
+                keep = keep.to(device)
+                keep = keep if self.group is None else _rows(keep, self.group, rows)
             logits = _remat_call(self.remat, lambda x, k=keep: _seg_logits(model, x, k), img)
-            ld, logits = _seg_train_losses(logits, lbl, self.loss_cfg)
+            ld, logits = _seg_train_losses(logits, lbl, self.loss_cfg, self.group)
             ld["total_loss"].backward()
             losses.append({k: v.detach() for k, v in ld.items()})
             if self.with_confusion:
                 part = confusion_matrix_batch(sliced_argmax(logits.detach()), lbl,
                                               self.num_classes, self.loss_cfg.ignore_index)
                 cm = part if cm is None else cm + part
-        if g > 1:
-            for p in model.parameters():
-                if p.grad is not None:
-                    p.grad.div_(g)
+        _finish_gradients(model, g, self.group)
         state.optimizer.step()
         state.step += 1
-        return {k: torch.stack([ld[k] for ld in losses]).mean() for k in losses[0]}, cm
+        return (_group_mean({k: torch.stack([ld[k] for ld in losses]).mean()
+                             for k in losses[0]}, self.group),
+                _group_sum(cm, self.group))
 
 
 def make_seg_train_step(num_classes: int, loss_cfg: SegLossConfig = SegLossConfig(),
                         aug_cfg: AugmentConfig = AugmentConfig(),
                         with_confusion: bool = True, grad_accum: int = 1,
-                        remat: str = "none") -> SegTrainStep:
+                        remat: str = "none", group=None) -> SegTrainStep:
     """The segmentation train step.
 
     images_u8: (N, H, W, 3) uint8; labels: (N, H, W) integer class ids
@@ -410,13 +519,16 @@ def make_seg_train_step(num_classes: int, loss_cfg: SegLossConfig = SegLossConfi
     matrices their sum. ``remat`` 'full_res' (the blocks that
     ``SegmentationUNet(..., remat_full_res=True)`` tags; UNet++ and the
     attention UNet have no tags) or 'full' recomputes activations in the
-    backward, as in :func:`make_anomaly_train_step`.
+    backward, as in :func:`make_anomaly_train_step`. ``group``: data
+    parallelism over a process group (module docstring).
     """
     _check_step_flags(grad_accum, remat)
-    return SegTrainStep(num_classes, loss_cfg, aug_cfg, with_confusion, grad_accum, remat)
+    return SegTrainStep(num_classes, loss_cfg, aug_cfg, with_confusion, grad_accum, remat,
+                        group)
 
 
-def make_seg_eval_step(num_classes: int, loss_cfg: SegLossConfig = SegLossConfig()):
+def make_seg_eval_step(num_classes: int, loss_cfg: SegLossConfig = SegLossConfig(),
+                       group=None):
     """``step(state, images_u8, labels, valid=None) -> (losses, preds, cm)``.
 
     The model runs in eval mode on ``eval_transform``'s output (K1 on CUDA
@@ -437,7 +549,7 @@ def make_seg_eval_step(num_classes: int, loss_cfg: SegLossConfig = SegLossConfig
                 if valid is not None:
                     valid = _as_tensor(valid, device)
                 return seg_eval_outputs(_seg_logits(model, img), lbl, num_classes,
-                                        loss_cfg, valid)
+                                        loss_cfg, valid, group)
         finally:
             model.train(was_training)
 

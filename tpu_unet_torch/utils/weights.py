@@ -39,6 +39,11 @@ import torch
 
 UP_LEAF = re.compile(r"^up(\d+_\d+)?$")  # transposed-conv leaf names
 
+# np.transpose axes from a PyTorch kernel to its JAX leaf: Conv2d OIHW ->
+# HWIO, ConvTranspose2d (in, out, kh, kw) -> (kh, kw, in, out).
+CONV_TO_JAX = (2, 3, 1, 0)
+CONV_T_TO_JAX = (2, 3, 0, 1)
+
 
 # (jax conv, jax bn, torch conv, torch bn) of each conv -> BN pair of a
 # layer kind, relative to the layer's path and prefix.
@@ -178,17 +183,33 @@ def jax_trees_from_state_dict(tensors: Dict[str, torch.Tensor],
         if kind in CONV_BN:
             for jconv, jbn, tconv, tbn in CONV_BN[kind]:
                 bp = f"{prefix}.{tbn}"
-                put(params, f"{path}/{jconv}", conv(f"{prefix}.{tconv}", (2, 3, 1, 0)))
+                put(params, f"{path}/{jconv}", conv(f"{prefix}.{tconv}", CONV_TO_JAX))
                 put(params, f"{path}/{jbn}", {"scale": arr(f"{bp}.weight"),
                                               "bias": arr(f"{bp}.bias")})
                 if f"{bp}.running_mean" in tensors:
                     put(stats, f"{path}/{jbn}", {"mean": arr(f"{bp}.running_mean"),
                                                  "var": arr(f"{bp}.running_var")})
         elif kind == "up":  # flax ConvTranspose == torch's with a flipped kernel
-            put(params, path, conv(prefix, (2, 3, 0, 1), flip=True))
+            put(params, path, conv(prefix, CONV_T_TO_JAX, flip=True))
         else:
-            put(params, path, conv(prefix, (2, 3, 1, 0)))
+            put(params, path, conv(prefix, CONV_TO_JAX))
     return params, stats
+
+
+def jax_axes(model: torch.nn.Module) -> Dict[str, Tuple[int, ...]]:
+    """For each parameter of ``model``, the axes that carry it into its JAX
+    leaf's layout (``np.transpose(p, axes)``): :data:`CONV_TO_JAX` for a
+    Conv2d kernel, :data:`CONV_T_TO_JAX` for a ConvTranspose2d kernel, the
+    identity for vectors. JAX dim d of a leaf is PyTorch dim ``axes[d]``."""
+    out: Dict[str, Tuple[int, ...]] = {}
+    for mod_name, mod in model.named_modules():
+        for p_name, p in mod.named_parameters(recurse=False):
+            axes = tuple(range(p.dim()))
+            if p.dim() == 4:
+                axes = (CONV_T_TO_JAX if isinstance(mod, torch.nn.ConvTranspose2d)
+                        else CONV_TO_JAX)
+            out[f"{mod_name}.{p_name}" if mod_name else p_name] = axes
+    return out
 
 
 def _map_layers(node, fn):
