@@ -76,7 +76,7 @@
    without its plots) with flags from the CLIs' parsers, on synthetic trees
    written under TMPDIR and read by the port's datasets. KolektorSDD at the
    dataset's counts and size (399 grayscale JPEG parts of 1260 x 500 in 50
-   kos folders, 52 with a thin defect streak of class 1 or 2): 3 epochs of
+   kos folders, 52 with a thin defect streak of class 1 or 2): 2 epochs of
    train_kolektorsdd's defaults (SegmentationUNet base 64, bf16, 1024 x 512,
    b8, Adam, class weights 1/50/50, CE + Dice, 5 degree shear, 4 loader
    threads), validation and checkpoints each epoch, epoch 1 profiled (idle
@@ -93,7 +93,7 @@
    at SegmentationUNet's 18 convs at 1024 x 512 and 512², b8).
 10. The model extensions at full width on the same trees: UNet++ with deep
    supervision on Gear (3 epochs, tested in bf16, f32 --fold_bn and int8 at
-   --heads 4 and 1), the attention UNet on KolektorSDD (3 epochs, 3 test
+   --heads 4 and 1), the attention UNet on KolektorSDD (1 epoch, 3 test
    modes), bilinear AnomalyUNet serving, and base 8 on the CPU against the
    card.
 11. The serving surface through the port's entry points, with seeded weights
@@ -149,12 +149,34 @@
    bytes per rank; a checkpoint written by rank 0; test_mvtec's int8 path
    on phase 8's checkpoint, K1 and K2 counted per rank, the gathered
    scores and AUROC bit for bit one process's under rank 0's qparams. FSDP
-   runs in a launch of its own and is held against plain DP when gloo
-   runs it on CUDA tensors (on an H100 with torch 2.11 a rank died of
-   SIGSEGV at full width: the leg is then reported as refused). The 2-rank
+   runs in a launch of its own at FSDP_BASE (the full width): one f32 SGD
+   and one f32 Adam step (fused) under FSDP against plain DP from the same
+   state, batch and draws (DP_UPDATE_TOL, DP_STAT_TOL), and the flagship's
+   ms and bytes under FSDP; a failed rank fails the run. The 2-rank
    checkpoint loads strict at world size 1 and resumes; AnomalyScorer int8
    b128 with devices=("cuda:0", "cuda:0") scores bit for bit one engine.
    These are ranks sharing one card: no number is a scaling figure.
+14. Tensor parallelism over 'model' on the one card ([tp] lines) and
+   artifacts for more than one platform ([artifact] lines). The flagship on
+   a (1, 1, 2) ('data', 'space', 'model') mesh of two gloo ranks sharing
+   cuda:0: one f32 SGD step against phase 13's world-size-1 step on the same
+   batch and draws (DP_UPDATE_TOL, DP_STAT_TOL, losses 1e-5), the bf16 Adam
+   step's ms and state bytes per rank beside the JAX placement's, the eval
+   step on its state (K1 once per rank). A (2, 1, 2) mesh of four ranks
+   with --fsdp at FSDP_BASE against world size 1; the seg step with dropout
+   (SegmentationUNet) and the attention UNet at base TP_SEG_BASE on Gear's
+   512² batch of 8, each on a (1, 1, 2) mesh against world size 1. One
+   epoch of train_mvtec.train with --n_model 2 at full width in two ranks,
+   on the --debug subset (TP_CLI_SAMPLES train and test samples) of phase
+   8's bottle tree: its best_model.pth loads strict at world size 1 and
+   test_mvtec's bf16 leg scores the whole test split (K1 once per batch). Artifacts of
+   serve_mvtec's default engine in int8 and bf16 (buckets 2 and 128) with
+   cuda and cpu programs: each program bit for bit a live engine on its
+   device, the int8 cpu program's scores bit for bit the cuda program's, K1
+   1x and K2 18x per b128 int8 batch; MB, export and load seconds.
+   ``python3 chip_smoke.py fsdp_widths`` instead runs FSDP at base 64, 32,
+   16 and 8 (the flagship's geometry), at base 64 with 2 rows of 64² per
+   rank, and at base 64 with CPU tensors, each in a child process.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit
 (nvidia-smi), and as the last line ``{"ok": true, "device": {...}}``; the
@@ -166,6 +188,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import functools
 import json
 import os
 import shutil
@@ -260,6 +283,31 @@ def cuda_ms(torch, fn, iters, warmup=1):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters, out
+
+
+def kernel_records_ms(torch, calls, key, reps):
+    """The kernel's own device time in ms for each function of ``calls``,
+    from the profiler's kernel records: each runs once to warm up, then
+    ``reps`` times in turn in one profiled window, and the kernels whose
+    name holds ``key`` are read in launch order (one per call), averaged per
+    function. ``cuda_ms`` times the operator's host calls back to back, so
+    any host cost above the kernel's time counts there and not here."""
+    from torch.profiler import ProfilerActivity, profile
+    for fn in calls:
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for fn in calls:
+            for _ in range(reps):
+                fn()
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA and key in e.name),
+                     key=lambda e: e.time_range.start)
+    check(len(kernels) == len(calls) * reps,
+          f"{len(kernels)} {key} kernel records for {len(calls)} x {reps} calls")
+    return [sum(e.time_range.elapsed_us() for e in kernels[i * reps:(i + 1) * reps])
+            / reps / 1e3 for i in range(len(calls))]
 
 
 def bound_ms(n_bytes, n_ops, peak_ops):
@@ -421,14 +469,19 @@ def phase_k1(torch, report):
     b_ms, b_by = bound_ms(n * (1 + 4), 3 * n, PEAK_F32_FLOPS)
     b16_ms, _ = bound_ms(n * (1 + 2), 3 * n, PEAK_F32_FLOPS)
     err = float((out - ref).abs().max())
-    print(f"[K1] (128,256,256,3) u8->f32: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-          f"bound {b_ms:.4f} ms ({b_by}), {100 * b_ms / k_ms:.1f}% of bound; u8->bf16: "
-          f"kernel {k16_ms:.4f} ms, bound {b16_ms:.4f} ms, {100 * b16_ms / k16_ms:.1f}% of "
-          f"bound; bit-exact f32 and bf16 against the plain version on the card and the "
-          f"CPU", flush=True)
+    rec_ms, rec16_ms = kernel_records_ms(
+        torch, [lambda: normalize_u8(x), lambda: normalize_u8(x, out_dtype=torch.bfloat16)],
+        "normalize_u8", reps=20)
+    print(f"[K1] (128,256,256,3) u8->f32: operator {k_ms:.4f} ms per call (events around "
+          f"back-to-back host calls), kernel record {rec_ms:.4f} ms, plain {p_ms:.4f} ms, "
+          f"bound {b_ms:.4f} ms ({b_by}), {100 * b_ms / rec_ms:.1f}% of bound (kernel record); "
+          f"u8->bf16: operator {k16_ms:.4f} ms, kernel record {rec16_ms:.4f} ms, bound "
+          f"{b16_ms:.4f} ms, {100 * b16_ms / rec16_ms:.1f}% of bound; bit-exact f32 and bf16 "
+          f"against the plain version on the card and the CPU", flush=True)
     report["k1"] = {"shape": [128, 256, 256, 3], "kernel_ms": k_ms, "plain_ms": p_ms,
                     "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err,
-                    "kernel_ms_bf16": k16_ms, "bound_ms_bf16": b16_ms, "seg": []}
+                    "kernel_ms_bf16": k16_ms, "bound_ms_bf16": b16_ms,
+                    "kernel_record_ms": rec_ms, "kernel_record_ms_bf16": rec16_ms, "seg": []}
     del x, out, ref, out16, ref16
     # The seg eval batches (KolektorSDD, Gear): bit for bit in f32 and bf16.
     for i, shape in enumerate(SEG_K1_SHAPES):
@@ -444,12 +497,19 @@ def phase_k1(torch, report):
               f"K1 bf16 differs from its plain version at {shape}")
         n = x.numel()
         sb_ms, sb_by = bound_ms(n * (1 + 4), 3 * n, PEAK_F32_FLOPS)
+        rec_ms, rec16_ms = kernel_records_ms(
+            torch, [lambda: normalize_u8(x), lambda: normalize_u8(x, out_dtype=torch.bfloat16)],
+            "normalize_u8", reps=20)
         report["k1"]["seg"].append({"shape": list(shape), "kernel_ms": k_ms, "plain_ms": p_ms,
                                     "bound_ms": sb_ms, "bound_by": sb_by,
-                                    "kernel_ms_bf16": k16_ms, "max_abs_err": 0.0})
-        print(f"[K1] seg {shape} u8->f32: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
-              f"{sb_ms:.4f} ms ({sb_by}), {100 * sb_ms / k_ms:.1f}% of bound; bf16 {k16_ms:.4f} "
-              f"ms; bit-exact f32 and bf16", flush=True)
+                                    "kernel_ms_bf16": k16_ms, "max_abs_err": 0.0,
+                                    "kernel_record_ms": rec_ms,
+                                    "kernel_record_ms_bf16": rec16_ms})
+        print(f"[K1] seg {shape} u8->f32: operator {k_ms:.4f} ms per call, kernel record "
+              f"{rec_ms:.4f} ms, plain {p_ms:.4f} ms, bound {sb_ms:.4f} ms ({sb_by}), "
+              f"{100 * sb_ms / rec_ms:.1f}% of bound (kernel record); bf16 operator "
+              f"{k16_ms:.4f} ms, kernel record {rec16_ms:.4f} ms; bit-exact f32 and bf16",
+              flush=True)
         del x, out, ref, out16
 
 
@@ -546,9 +606,19 @@ def phase_k2(torch, report):
     print(f"[K2] {len(ODD_CONVS)} off-path shapes {ODD_CONVS}, relu on and off: "
           f"bit-exact", flush=True)
     path = [r for r in rows if r["relu"]]
+    calls = []
+    for i, r in enumerate(path):
+        xb, wb, sb, bb, so = _k2_case(torch, 128, r["hw"], r["cin"], r["cout"], seed=200 + i)
+        calls.append(functools.partial(conv3x3_int8, xb, pack_weights(wb, r["cin"]), sb, bb,
+                                       so, True))
+    for r, ms in zip(path, kernel_records_ms(torch, calls, "conv3x3_int8", reps=3)):
+        r["kernel_record_ms_b128"] = ms
+    del calls
     total, bound = sum(r["kernel_ms_b128"] for r in path), sum(r["bound_ms_b128"] for r in path)
-    print(f"[K2] b128, the 18 score-path convs: kernel {total:.3f} ms, bound {bound:.3f} ms, "
-          f"{100 * bound / total:.1f}% of bound; bf16 cuDNN yardstick "
+    rec = sum(r["kernel_record_ms_b128"] for r in path)
+    print(f"[K2] b128, the 18 score-path convs: operator {total:.3f} ms (events around "
+          f"back-to-back host calls), kernel records {rec:.3f} ms, bound {bound:.3f} ms, "
+          f"{100 * bound / rec:.1f}% of bound (kernel records); bf16 cuDNN yardstick "
           f"{sum(r['bf16_cudnn_ms_b128'] for r in path):.3f} ms", flush=True)
     report["k2"] = rows
     report["k2_seg"] = {name: _k2_seg(torch, name, convs) for name, convs in SEG_CONVS.items()}
@@ -590,12 +660,22 @@ def _k2_seg(torch, name, convs):
         print(f"[K2] seg {name} b{n} {h}x{w_} {cin:4d}->{cout:4d}: kernel {k_ms:.4f} ms, plain "
               f"{p_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}), {100 * b_ms / k_ms:.1f}% of bound, "
               f"bf16 cuDNN {c_ms:.4f} ms, bit-exact", flush=True)
+    calls = []
+    for i, r in enumerate(rows):
+        x, w, scale, bias, s_out = _k2_case(torch, r["n"], r["h"], r["cin"], r["cout"],
+                                            seed=400 + i, width=r["w"])
+        calls.append(functools.partial(conv3x3_int8, x, pack_weights(w, r["cin"]), scale, bias,
+                                       s_out, True))
+    for r, ms in zip(rows, kernel_records_ms(torch, calls, "conv3x3_int8", reps=3)):
+        r["kernel_record_ms"] = ms
+    del calls
     total = {k: sum(r[k] for r in rows) for k in ("kernel_ms", "plain_ms", "bound_ms",
-                                                  "bf16_cudnn_ms")}
-    print(f"[K2] seg {name} b{SEG_BATCH}, the {len(rows)} convs: kernel "
-          f"{total['kernel_ms']:.3f} ms, "
-          f"bound {total['bound_ms']:.3f} ms, {100 * total['bound_ms'] / total['kernel_ms']:.1f}% "
-          f"of bound; plain {total['plain_ms']:.1f} ms; bf16 cuDNN yardstick "
+                                                  "bf16_cudnn_ms", "kernel_record_ms")}
+    print(f"[K2] seg {name} b{SEG_BATCH}, the {len(rows)} convs: operator "
+          f"{total['kernel_ms']:.3f} ms, kernel records {total['kernel_record_ms']:.3f} ms, "
+          f"bound {total['bound_ms']:.3f} ms, "
+          f"{100 * total['bound_ms'] / total['kernel_record_ms']:.1f}% of bound (kernel "
+          f"records); plain {total['plain_ms']:.1f} ms; bf16 cuDNN yardstick "
           f"{total['bf16_cudnn_ms']:.3f} ms", flush=True)
     return {"rows": rows, **total, "bound_by": _dominant_bound(rows)}
 
@@ -1373,6 +1453,9 @@ def _mvtec_cpu_vs_card(torch, np, data_root, tmp):
             "image_metrics_cpu": ec["image_metrics"], "image_metrics_card": eg["image_metrics"]}
 
 
+# Phase 9's KolektorSDD epochs: epoch 0 decodes cold, epoch 1 is profiled
+# (a third, cached epoch was cut to give phase 14 its time).
+KSDD_EPOCHS = 2
 # KolektorSDD's counts and size (SURVEY.md §2.5): 399 parts of about 500 x
 # 1240-1280 px in 50 kos folders, split 279/60/60, about 99.95% background.
 KSDD_PARTS, KSDD_FOLDERS, KSDD_HW, KSDD_DEFECTIVE = 399, 50, (1260, 500), 52
@@ -1867,7 +1950,8 @@ def phase_seg(torch, np, report, tmp, keep=None):
     modes = seg_test_modes(18)
     exp, common, data = _seg_dataset(
         torch, np, out, legs, "kolektorsdd", train_kolektorsdd, test_kolektorsdd,
-        ksdd_root, tmp, epochs=3, test_modes=modes, profile_epoch=1, loss_must_fall=True)
+        ksdd_root, tmp, epochs=KSDD_EPOCHS, test_modes=modes, profile_epoch=1,
+        loss_must_fall=True)
     _seg_resume(torch, np, out, legs, exp, train_kolektorsdd, common, data, tmp)
     shutil.rmtree(os.path.join(tmp, "runs"))
     out["kolektorsdd"]["cpu_vs_card"] = _seg_cpu_vs_card(torch, np, ksdd_root, tmp)
@@ -2107,8 +2191,9 @@ def phase_extensions(torch, np, report, tmp, keep=None):
     the test path on best_model.pth in bf16, f32 --fold_bn and int8, at
     --heads 4 and --heads 1 (K2 30 and 6 times per int8 batch). (b) The
     attention UNet on the synthetic KolektorSDD tree at its defaults
-    (1024 x 512, b8), 3 epochs, tested in bf16, f32 --fold_bn and int8 (K2
-    18 times per batch, the gates in float). (c) Bilinear AnomalyUNet
+    (1024 x 512, b8), one epoch (cold decode, not profiled: phase 14 took
+    the time of its profiled and cached epochs), tested in bf16, f32
+    --fold_bn and int8 (K2 18 times per batch, the gates in float). (c) Bilinear AnomalyUNet
     serving. (d) The CPU against the card. Returns the launch counts of each
     leg."""
     from tpu_unet_torch.cli import test_gear, test_kolektorsdd, train_gear, train_kolektorsdd
@@ -2128,10 +2213,9 @@ def phase_extensions(torch, np, report, tmp, keep=None):
                     os.path.join(keep, "gear_unetpp.pth"))
     shutil.rmtree(os.path.join(tmp, "runs"))
     _seg_dataset(torch, np, out, legs, "kolektorsdd_attn", train_kolektorsdd, test_kolektorsdd,
-                 os.path.join(tmp, "ksdd"), tmp, epochs=3,
+                 os.path.join(tmp, "ksdd"), tmp, epochs=1,
                  test_modes=seg_test_modes(18, limits=EXT_MAX_DISAGREE["kolektorsdd_attn"]),
-                 model_flags=["--model", "attn_unet"], profile_epoch=1,
-                 flops_fn=attn_forward_flops)
+                 model_flags=["--model", "attn_unet"], flops_fn=attn_forward_flops)
     shutil.rmtree(os.path.join(tmp, "runs"))
     _ext_bilinear_serving(torch, np, out, legs)
     out["cpu_vs_card"] = _ext_cpu_vs_card(torch, np)
@@ -3197,6 +3281,10 @@ DP_LOSS_RTOL = 5e-3
 DP_UPDATE_TOL = 5e-3
 DP_STAT_TOL = 2.5e-5
 DP_STEPS = 5
+# The widest base_features at which phase 13 holds FSDP against DP on two
+# gloo ranks sharing the card: the full width (``chip_smoke.py fsdp_widths``
+# bisects it).
+FSDP_BASE = 64
 
 
 def _dp_batch(torch, b=16, size=256):
@@ -3206,9 +3294,10 @@ def _dp_batch(torch, b=16, size=256):
     return images, synth_masks(torch, b, size, 131, "cuda")
 
 
-def _dp_state(torch, precision, opt, lr, group_mesh=None, fsdp=False):
-    """AnomalyUNet base 64 from seed 3 (the same weights in every process),
-    placed on ``group_mesh`` when given; (state, group)."""
+def _dp_state(torch, precision, opt, lr, group_mesh=None, fsdp=False, base=64, tp=False):
+    """AnomalyUNet at ``base`` from seed 3 (the same weights in every
+    process), placed on ``group_mesh`` when given (``tp``: tensor-parallel
+    over its 'model' axis); (state, group)."""
     from tpu_unet_torch.core.precision import get_policy
     from tpu_unet_torch.models import build_model
     from tpu_unet_torch.parallel.fsdp import shard_state
@@ -3216,64 +3305,86 @@ def _dp_state(torch, precision, opt, lr, group_mesh=None, fsdp=False):
     from tpu_unet_torch.train.state import create_train_state
 
     torch.manual_seed(3)
-    model = build_model("anomaly_unet", base_features=64, policy=get_policy(precision))
+    model = build_model("anomaly_unet", base_features=base, policy=get_policy(precision))
     state = create_train_state(model, opt, lr, 1e-4, device="cuda")
-    return shard_state(group_mesh, state, fsdp=fsdp), group_of(group_mesh)
+    return shard_state(group_mesh, state, fsdp=fsdp, tp=tp), group_of(group_mesh)
 
 
-def _dp_step_ms(torch, step, state, images, masks, g, sync=None):
-    """Mean ms of DP_STEPS train steps after 2 warm-up ones, host clock to a
-    synchronize (``sync()``, a barrier across ranks, after it)."""
-    for _ in range(2):
+def _dp_step_ms(torch, step, state, images, masks, g, sync=None, steps=DP_STEPS, warmup=2):
+    """Mean ms of ``steps`` train steps after ``warmup`` ones, host clock to
+    a synchronize (``sync()``, a barrier across ranks, after it)."""
+    for _ in range(warmup):
         step(state, images, masks, g)
     torch.cuda.synchronize()
     if sync:
         sync()
     t0 = time.perf_counter()
-    for _ in range(DP_STEPS):
+    for _ in range(steps):
         step(state, images, masks, g)
     torch.cuda.synchronize()
     if sync:
         sync()
-    return (time.perf_counter() - t0) * 1e3 / DP_STEPS
+    return (time.perf_counter() - t0) * 1e3 / steps
 
 
 def _cpu_state_dict(state):
+    """The state's model tensors, whole (FSDP's gathered over 'data', tensor
+    parallelism's over 'model': every rank joins), on the CPU."""
+    from tpu_unet_torch.parallel.tensor import full_tensors
     from tpu_unet_torch.train.checkpoint import _full
-    return {k: v.detach().to("cpu", copy=True)
-            for k, v in _full(state.model.state_dict()).items()}
+    sd, _ = full_tensors(state, _full(state.model.state_dict()), {"state": {}})
+    return {k: v.detach().to("cpu", copy=True) for k, v in sd.items()}
 
 
-def _dp_sgd(torch, mesh, local, fsdp):
-    """One f32 SGD step (lr 1e-2) from seed 3 on this rank's rows of phase
-    13's batch under the global batch's draws: rank 0's state and losses."""
+def _dp_one_step(torch, mesh, local, fsdp, opt="sgd", base=64, tp=False):
+    """One f32 step (SGD lr 1e-2, or Adam lr 1e-3: fused on CUDA) from seed
+    3 at ``base`` on this rank's rows of phase 13's batch under the global
+    batch's draws: rank 0's whole state and the losses."""
     from tpu_unet_torch.train.steps import AugmentConfig, make_anomaly_train_step
 
-    state, group = _dp_state(torch, "f32", "sgd", 1e-2, mesh, fsdp)
+    state, group = _dp_state(torch, "f32", opt, 1e-2 if opt == "sgd" else 1e-3, mesh, fsdp,
+                             base, tp)
     step = make_anomaly_train_step(aug_cfg=AugmentConfig(), group=group)
     draws = step.draws(len(local[0]), torch.Generator(device="cuda").manual_seed(0))
     losses = step.with_draws(state, *local, draws)
     return _cpu_state_dict(state), {k: float(v) for k, v in losses.items()}
 
 
-def _dp_flagship(torch, mesh, local, fsdp, ckpt=None):
+def _dp_flagship(torch, mesh, local, fsdp, ckpt=None, base=64, tp=False, evaluate=False,
+                 steps=DP_STEPS):
     """The flagship step (bf16 Adam) on this rank's rows: ms per step and
-    the state's bytes per rank; ``ckpt``: then a checkpoint there (every rank
-    joins, rank 0 writes)."""
+    the state's bytes per rank beside the JAX package's placement on the
+    same mesh; ``ckpt``: then a checkpoint there (every rank joins, rank 0
+    writes); ``evaluate``: then the eval step on the trained state, its
+    launches counted."""
     import torch.distributed as dist
 
-    from tpu_unet_torch.parallel.fsdp import (jax_placement_bytes, per_device_state_bytes,
-                                              sharded_fraction)
+    from tpu_unet_torch.parallel import fsdp as fsdp_mod
+    from tpu_unet_torch.parallel import tensor
+    from tpu_unet_torch.parallel.mesh import data_size
     from tpu_unet_torch.train.checkpoint import CheckpointWriter
-    from tpu_unet_torch.train.steps import AugmentConfig, make_anomaly_train_step
+    from tpu_unet_torch.train.steps import (AugmentConfig, make_anomaly_eval_step,
+                                            make_anomaly_train_step)
 
-    state, group = _dp_state(torch, "bf16", "adam", 1e-3, mesh, fsdp)
+    state, group = _dp_state(torch, "bf16", "adam", 1e-3, mesh, fsdp, base, tp)
     step = make_anomaly_train_step(aug_cfg=AugmentConfig(), group=group)
     ms = _dp_step_ms(torch, step, state, *local, torch.Generator(device="cuda").manual_seed(1),
-                     sync=dist.barrier)
-    out = {"step_ms": ms, "state_bytes": per_device_state_bytes(state),
-           "jax_placement_bytes": jax_placement_bytes(state, dist.get_world_size()),
-           "sharded_fraction": sharded_fraction(state), "adam_steps": state.step}
+                     sync=dist.barrier, steps=steps, warmup=min(2, steps))
+    jax_bytes = (tensor.jax_placement_bytes(state, data_size(), fsdp) if tp
+                 else fsdp_mod.jax_placement_bytes(state, dist.get_world_size()))
+    out = {"step_ms": ms, "state_bytes": fsdp_mod.per_device_state_bytes(state),
+           "jax_placement_bytes": jax_bytes,
+           "sharded_fraction": (tensor.sharded_fraction if tp
+                                else fsdp_mod.sharded_fraction)(state),
+           "adam_steps": state.step}
+    if evaluate:
+        _zero_launches()
+        ev = make_anomaly_eval_step(group=group)(state, *local)
+        torch.cuda.synchronize()
+        out["eval"] = {"launches": _launches(), "rows": int(ev["score"].shape[0]),
+                       "finite": bool(torch.isfinite(ev["score"]).all()
+                                      and torch.isfinite(ev["reconstruction"]).all()),
+                       "loss": float(ev["losses"]["total_loss"])}
     if ckpt:
         with CheckpointWriter() as writer:
             writer.save(state, 3, 0.0, ckpt)
@@ -3292,16 +3403,25 @@ def _dp_setup(torch):
     return make_mesh(dist.get_world_size(), device_type="cuda"), shard_batch(_dp_batch(torch))
 
 
-def _fsdp_rank():
-    """FSDP on one of two ranks sharing the card over gloo: the f32 SGD step
-    and the flagship step's ms and bytes. No check runs here: the caller
-    holds the results against plain DP."""
+def _fsdp_rank(base):
+    """FSDP against plain DP on one of two ranks sharing the card over gloo,
+    at ``base``: one f32 SGD step and one f32 Adam step (fused on CUDA) each
+    way from the same state, batch and draws, then the flagship step's ms
+    and bytes under FSDP. The caller holds FSDP against DP."""
     import torch
+    import torch.distributed as dist
 
     mesh, local = _dp_setup(torch)
-    state, losses = _dp_sgd(torch, mesh, local, fsdp=True)
-    return {"sgd": state, "sgd_losses": losses,
-            "timing": _dp_flagship(torch, mesh, local, fsdp=True)}
+    say = print if dist.get_rank() == 0 else (lambda *a, **k: None)
+    out = {"before": _cpu_state_dict(_dp_state(torch, "f32", "sgd", 0.0, base=base)[0])}
+    for opt in ("sgd", "adam"):
+        for fsdp in (False, True):
+            out[opt, fsdp] = _dp_one_step(torch, mesh, local, fsdp, opt, base)
+            say(f"[dp] rank 0: the {'FSDP' if fsdp else 'DP'} {opt} step at base {base} ran",
+                flush=True)
+    out["timing"] = _dp_flagship(torch, mesh, local, fsdp=True, base=base)
+    say(f"[dp] rank 0: the FSDP flagship steps at base {base} ran", flush=True)
+    return out
 
 
 def _dp_rank(keep, work):
@@ -3320,7 +3440,7 @@ def _dp_rank(keep, work):
     mesh, local = _dp_setup(torch)
     say = print if dist.get_rank() == 0 else (lambda *a, **k: None)
     out = {}
-    out["sgd"], out["sgd_losses"] = _dp_sgd(torch, mesh, local, fsdp=False)
+    out["sgd"], out["sgd_losses"] = _dp_one_step(torch, mesh, local, fsdp=False)
     say("[dp] rank 0: the f32 SGD step ran", flush=True)
     out["timing"] = {"dp": _dp_flagship(torch, mesh, local, fsdp=False,
                                         ckpt=os.path.join(work, "dp_adam.pth"))}
@@ -3444,16 +3564,6 @@ def phase_dp(torch, np, report, keep):
     t0 = time.perf_counter()
     r0 = launch(_dp_rank, (keep, work), devices=["cuda:0", "cuda:0"], backend="gloo")
     launch_s = time.perf_counter() - t0
-    # Does gloo run FSDP2's reduce-scatters and all-gathers on CUDA tensors at
-    # full width? A launch of its own, whose ranks check nothing: one that
-    # gloo fails raises or dies of a signal, which means no. Its results are
-    # held against plain DP below.
-    from torch.multiprocessing import ProcessExitedException, ProcessRaisedException
-    fsdp, fsdp_refused = None, None
-    try:
-        fsdp = launch(_fsdp_rank, (), devices=["cuda:0", "cuda:0"], backend="gloo")
-    except (ProcessExitedException, ProcessRaisedException) as e:
-        fsdp_refused = " ".join(str(e).split())[-240:]
     errs = (_update_err(r0["sgd"], ref_sd, before), _state_dict_errs(r0["sgd"], ref_sd)[1])
     check(errs[0] <= DP_UPDATE_TOL and errs[1] <= DP_STAT_TOL,
           f"2-rank f32 SGD step vs world size 1: the update {errs[0]:.2e} (tol "
@@ -3466,22 +3576,31 @@ def phase_dp(torch, np, report, keep):
           f"update {errs[0]:.2e} (rel L2, tol {DP_UPDATE_TOL}), BN statistics {errs[1]:.2e} of "
           f"each leaf's largest (tol {DP_STAT_TOL}); losses within 1e-5; launch and run "
           f"{launch_s:.1f} s", flush=True)
-    fsdp_errs = None
-    if fsdp is not None:
-        r0["timing"]["fsdp"] = fsdp["timing"]
-        fsdp_errs = (_update_err(fsdp["sgd"], r0["sgd"], before),
-                     _state_dict_errs(fsdp["sgd"], r0["sgd"])[1])
-        check(fsdp_errs[0] <= DP_UPDATE_TOL and fsdp_errs[1] <= DP_STAT_TOL,
-              f"FSDP vs DP on two ranks: the update {fsdp_errs[0]:.2e}, BN statistics "
-              f"{fsdp_errs[1]:.2e}")
-        print(f"[dp] --fsdp on the same batch: the update {fsdp_errs[0]:.2e} (rel L2), BN "
-              f"statistics {fsdp_errs[1]:.2e} against the DP step (tol {DP_UPDATE_TOL}, "
-              f"{DP_STAT_TOL})", flush=True)
-    else:
-        print(f"[dp] --fsdp: gloo does not run FSDP2 on CUDA tensors at full width (the "
-              f"FSDP launch's ranks ended: ...{fsdp_refused}); the 2-rank FSDP leg runs in "
-              f"the CPU tests only "
-              f"(tests/test_torch_parallel_state.py)", flush=True)
+    # FSDP against plain DP at FSDP_BASE, in a launch of its own: one f32 SGD
+    # and one f32 Adam step (fused on CUDA) each way from the same state,
+    # batch and draws, then the flagship's ms and bytes under FSDP. A rank
+    # that fails fails the run.
+    t0 = time.perf_counter()
+    fsdp = launch(_fsdp_rank, (FSDP_BASE,), devices=["cuda:0", "cuda:0"], backend="gloo")
+    fsdp_s = time.perf_counter() - t0
+    r0["timing"]["fsdp"] = fsdp["timing"]
+    fsdp_errs = {}
+    for opt in ("sgd", "adam"):
+        (got, got_l), (want, want_l) = fsdp[opt, True], fsdp[opt, False]
+        fsdp_errs[opt] = (_update_err(got, want, fsdp["before"]),
+                          _state_dict_errs(got, want)[1])
+        check(fsdp_errs[opt][0] <= DP_UPDATE_TOL and fsdp_errs[opt][1] <= DP_STAT_TOL,
+              f"FSDP vs DP, {opt}, base {FSDP_BASE}: the update {fsdp_errs[opt][0]:.2e}, BN "
+              f"statistics {fsdp_errs[opt][1]:.2e}")
+        for k, v in got_l.items():
+            check(abs(v - want_l[k]) <= 1e-5 * abs(want_l[k]) + 1e-7,
+                  f"FSDP {opt} loss {k} {v} vs DP {want_l[k]}")
+    print(f"[dp] --fsdp on two ranks sharing cuda:0 over gloo at base {FSDP_BASE} (the "
+          f"flagship's geometry), against plain DP on the same batch and draws: f32 SGD the "
+          f"update {fsdp_errs['sgd'][0]:.2e} (rel L2), BN statistics {fsdp_errs['sgd'][1]:.2e}; "
+          f"f32 Adam (fused) the update {fsdp_errs['adam'][0]:.2e}, BN statistics "
+          f"{fsdp_errs['adam'][1]:.2e} (tol {DP_UPDATE_TOL}, {DP_STAT_TOL}); losses within "
+          f"1e-5; launch and run {fsdp_s:.1f} s", flush=True)
     for name, t in r0["timing"].items():
         print(f"[dp] flagship step bf16 Adam, {name}, 2 ranks sharing cuda:0 (gloo), global "
               f"batch {b}: {t['step_ms']:.3f} ms per step; state {t['state_bytes'] / 1e6:.1f} "
@@ -3562,13 +3681,435 @@ def phase_dp(torch, np, report, keep):
           f"for bit the single engine's; K1 2x and K2 36x per batch (one per replica)",
           flush=True)
     out.update(two_ranks={"sgd_update_err": errs[0], "sgd_stat_err": errs[1],
-                          "fsdp_refused": fsdp_refused, "fsdp_errs": fsdp_errs,
+                          "fsdp_base": FSDP_BASE, "fsdp_errs": fsdp_errs, "fsdp_s": fsdp_s,
                           "timing": r0["timing"], "launch_s": launch_s,
                           "test_auroc": test["auroc"], "test_per_rank": test["per_rank"]},
                resume={"epoch": epoch, "adam_step": [adam, adam2]}, nvidia_smi=smi)
     report["main_path"]["dp"] = out
     shutil.rmtree(work, ignore_errors=True)
+    return legs, {"before": before, "ref_sd": ref_sd,
+                  "ref_losses": {k: float(v) for k, v in ref_losses.items()}}
+
+
+# Phase 14: tensor parallelism over 'model' and artifacts for more than one
+# platform. The seg and attention legs run at a reduced width on Gear's 512²
+# batch of 8; the CLI leg at full width on phase 8's bottle tree.
+TP_SEG_BASE = 16
+# Timed bf16 Adam steps under TP (after one warm-up): gloo stages every
+# activation's all-reduce through the host, seconds per step.
+TP_STEPS = 1
+# The CLI leg's epoch: train_mvtec's --debug subset of phase 8's tree.
+TP_CLI_SAMPLES = 32
+
+
+def _tp_setup(torch, n_data):
+    """A (n_data, 1, 2) mesh over this launch's gloo ranks on cuda:0 and this
+    data rank's rows of phase 13's batch."""
+    from tpu_unet_torch.parallel.mesh import make_mesh, shard_batch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return make_mesh(n_data, n_model=2, device_type="cuda"), shard_batch(_dp_batch(torch))
+
+
+def _tp_rank():
+    """Phase 14 on one of two ranks sharing cuda:0 over gloo, a (1, 1, 2)
+    mesh: the f32 SGD step, then the bf16 Adam flagship's ms and bytes per
+    rank and the eval step on its state."""
+    import torch
+    import torch.distributed as dist
+
+    mesh, local = _tp_setup(torch, 1)
+    say = print if dist.get_rank() == 0 else (lambda *a, **k: None)
+    out = {}
+    out["sgd"], out["sgd_losses"] = _dp_one_step(torch, mesh, local, False, "sgd", 64, tp=True)
+    say("[tp] rank 0: the f32 SGD step ran", flush=True)
+    out["timing"] = _dp_flagship(torch, mesh, local, fsdp=False, base=64, tp=True,
+                                 evaluate=True, steps=TP_STEPS)
+    parts = [None] * dist.get_world_size()
+    dist.all_gather_object(parts, out["timing"]["eval"])
+    out["eval_per_rank"] = parts
+    return out
+
+
+def _tp_fsdp_rank(base):
+    """Four ranks sharing cuda:0 over gloo, a (2, 1, 2) mesh with FSDP over
+    'data': one f32 SGD step at ``base``; rank 0's whole state, the losses,
+    and the state's bytes per rank beside the JAX placement's."""
+    import torch
+
+    from tpu_unet_torch.parallel.fsdp import per_device_state_bytes
+    from tpu_unet_torch.parallel.tensor import jax_placement_bytes
+    from tpu_unet_torch.train.steps import AugmentConfig, make_anomaly_train_step
+
+    mesh, local = _tp_setup(torch, 2)
+    state, group = _dp_state(torch, "f32", "sgd", 1e-2, mesh, True, base, True)
+    step = make_anomaly_train_step(aug_cfg=AugmentConfig(), group=group)
+    draws = step.draws(len(local[0]), torch.Generator(device="cuda").manual_seed(0))
+    losses = step.with_draws(state, *local, draws)
+    return {"sd": _cpu_state_dict(state), "losses": {k: float(v) for k, v in losses.items()},
+            "bytes": per_device_state_bytes(state),
+            "jax_bytes": jax_placement_bytes(state, 2, fsdp=True)}
+
+
+def _gear_batch(torch, n=8, size=512):
+    """Gear's train batch: seeded textures and 4-class label maps."""
+    images = torch.from_numpy(synth_images(torch, n, size, 150, "cuda")).cuda()
+    a, b = synth_masks(torch, n, size, 151, "cuda"), synth_masks(torch, n, size, 152, "cuda")
+    return images, (a + 2 * b).clamp(max=3)[..., 0].to(torch.uint8)
+
+
+def _tp_segs(names, base, n_model):
+    """:func:`_tp_seg` of each of ``names``."""
+    return {name: _tp_seg(name, base, n_model) for name in names}
+
+
+def _tp_seg(name, base, n_model):
+    """One f32 SGD seg step (dropout drawn from the global batch's
+    generator) of ``name`` at ``base`` on Gear's batch, on a (1, 1,
+    ``n_model``) mesh (1: this process alone); the whole state before and
+    after, and the losses and confusion matrix."""
+    import torch
+
+    from tpu_unet_torch.core.precision import get_policy
+    from tpu_unet_torch.models import build_model
+    from tpu_unet_torch.parallel.fsdp import shard_state
+    from tpu_unet_torch.parallel.mesh import group_of, make_mesh
+    from tpu_unet_torch.train.state import create_train_state
+    from tpu_unet_torch.train.steps import AugmentConfig, make_seg_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(1, n_model=n_model, device_type="cuda") if n_model > 1 else None
+    torch.manual_seed(4)
+    model = build_model(name, n_classes=4, base_features=base, policy=get_policy("f32"))
+    state = create_train_state(model, "sgd", 1e-2, 1e-4, device="cuda")
+    before = _cpu_state_dict(state)
+    state = shard_state(mesh, state, tp=n_model > 1)
+    images, labels = _gear_batch(torch)
+    step = make_seg_train_step(4, aug_cfg=AugmentConfig(), group=group_of(mesh))
+    augment, dropout = step.draws(state.model, len(images),
+                                  torch.Generator(device="cuda").manual_seed(0))
+    losses, cm = step.with_draws(state, images, labels, augment, dropout)
+    return {"before": before, "sd": _cpu_state_dict(state), "cm": cm.cpu().numpy(),
+            "losses": {k: float(v) for k, v in losses.items()},
+            "dropped": float((~dropout[0]).float().mean())}
+
+
+def _tp_cli_rank(keep, work, flags):
+    """train_mvtec.train with ``--n_model 2`` on phase 8's bottle tree, on
+    one of two ranks sharing cuda:0; the results and the experiment
+    directory."""
+    import torch
+
+    from tpu_unet_torch.cli import train_mvtec
+    from tpu_unet_torch.cli.train_mvtec import _Subset
+    from tpu_unet_torch.data.mvtec import MVTecDataset
+    from tpu_unet_torch.parallel.mesh import synced_timestamp
+
+    args = train_mvtec.parse_args(flags)
+    root = os.path.join(keep, "bottle")
+    train_ds = MVTecDataset(root, "bottle", "train", args.image_size, is_train=True)
+    val_ds = MVTecDataset(root, "bottle", "test", args.image_size, is_train=False)
+    if args.debug:  # as train_mvtec's _train_rank
+        train_ds = _Subset(train_ds, args.debug_samples, args.seed)
+        val_ds = _Subset(val_ds, args.debug_samples, args.seed + 1)
+    exp = os.path.join(work, f"bottle_tp_{synced_timestamp()}")
+    _zero_launches()
+    t0 = time.perf_counter()
+    results = train_mvtec.train(args, train_ds, val_ds, torch.device("cuda"), exp)
+    torch.cuda.synchronize()
+    return {"results": results, "exp": exp, "seconds": time.perf_counter() - t0,
+            "launches": _launches()}
+
+
+def _tp_legs(torch, np, out, legs, keep, dp_ref, label):
+    """Phase 14's tensor-parallel legs (module docstring, phase 14)."""
+    from tpu_unet_torch.cli import test_mvtec
+    from tpu_unet_torch.data.mvtec import MVTecDataset
+    from tpu_unet_torch.models import build_model
+    from tpu_unet_torch.parallel.mesh import launch
+
+    two, four = ["cuda:0"] * 2, ["cuda:0"] * 4
+    before, ref_sd, ref_losses = dp_ref["before"], dp_ref["ref_sd"], dp_ref["ref_losses"]
+
+    # --- 14.1: the flagship on a (1, 1, 2) mesh --------------------------------
+    t0 = time.perf_counter()
+    r0 = launch(_tp_rank, (), devices=two, backend="gloo")
+    tp_s = time.perf_counter() - t0
+    errs = (_update_err(r0["sgd"], ref_sd, before), _state_dict_errs(r0["sgd"], ref_sd)[1])
+    check(errs[0] <= DP_UPDATE_TOL and errs[1] <= DP_STAT_TOL,
+          f"TP f32 SGD step vs world size 1: the update {errs[0]:.2e} (tol {DP_UPDATE_TOL}), "
+          f"BN statistics {errs[1]:.2e} (tol {DP_STAT_TOL})")
+    for k, v in r0["sgd_losses"].items():
+        check(abs(v - ref_losses[k]) <= 1e-5 * abs(ref_losses[k]) + 1e-7,
+              f"TP f32 loss {k} {v} vs world size 1 {ref_losses[k]}")
+    t = r0["timing"]
+    for i, ev in enumerate(r0["eval_per_rank"]):
+        check(ev["launches"] == {"normalize_u8": 1, "conv3x3_int8": 0} and ev["finite"]
+              and ev["rows"] == 16, f"TP eval step on rank {i}: {ev}")
+        legs[f"tp_eval_rank{i}"] = ev["launches"]
+    print(f"[tp] AnomalyUNet base 64 on a (1, 1, 2) mesh, two gloo ranks sharing cuda:0, "
+          f"one f32 SGD step (256², batch 16, the default augment) against phase 13's world "
+          f"size 1 on the same batch and draws: the update {errs[0]:.2e} (rel L2, tol "
+          f"{DP_UPDATE_TOL}), BN statistics {errs[1]:.2e} (tol {DP_STAT_TOL}), losses within "
+          f"1e-5", flush=True)
+    print(f"[tp] flagship step bf16 Adam under TP: {t['step_ms']:.3f} ms per step; state "
+          f"{t['state_bytes'] / 1e6:.1f} MB per rank (the JAX placement on the same mesh "
+          f"{t['jax_placement_bytes'] / 1e6:.1f} MB; sharded fraction "
+          f"{t['sharded_fraction']:.4f}); the eval step on its state: K1 once per rank, "
+          f"16 rows, loss {t['eval']['loss']:.6f}; launch and run {tp_s:.1f} s; {label}",
+          flush=True)
+
+    # --- 14.2: TP with FSDP over 'data' on a (2, 1, 2) mesh ---------------------
+    t0 = time.perf_counter()
+    both = launch(_tp_fsdp_rank, (FSDP_BASE,), devices=four, backend="gloo")
+    both_s = time.perf_counter() - t0
+    both_errs = (_update_err(both["sd"], ref_sd, before),
+                 _state_dict_errs(both["sd"], ref_sd)[1])
+    check(both_errs[0] <= DP_UPDATE_TOL and both_errs[1] <= DP_STAT_TOL,
+          f"TP+FSDP vs world size 1: the update {both_errs[0]:.2e}, BN statistics "
+          f"{both_errs[1]:.2e}")
+    for k, v in both["losses"].items():
+        check(abs(v - ref_losses[k]) <= 1e-5 * abs(ref_losses[k]) + 1e-7,
+              f"TP+FSDP loss {k} {v} vs world size 1 {ref_losses[k]}")
+    print(f"[tp] --n_model 2 --fsdp on a (2, 1, 2) mesh, four gloo ranks sharing cuda:0, "
+          f"base {FSDP_BASE}: one f32 SGD step against world size 1, the update "
+          f"{both_errs[0]:.2e}, BN statistics {both_errs[1]:.2e}, losses within 1e-5; f32 SGD "
+          f"state {both['bytes'] / 1e6:.1f} MB per rank (the JAX placement "
+          f"{both['jax_bytes'] / 1e6:.1f} MB); launch and run {both_s:.1f} s", flush=True)
+
+    # --- 14.3: the seg step with dropout and the attention UNet ------------------
+    seg, names = {}, ("seg_unet", "attn_unet")
+    ones = _tp_segs(names, TP_SEG_BASE, 1)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tps = launch(_tp_segs, (names, TP_SEG_BASE, 2), devices=two, backend="gloo")
+    seg_s = time.perf_counter() - t0
+    for name in names:
+        one, tp = ones[name], tps[name]
+        e = (_update_err(tp["sd"], one["sd"], one["before"]),
+             _state_dict_errs(tp["sd"], one["sd"])[1])
+        check(e[0] <= DP_UPDATE_TOL and e[1] <= DP_STAT_TOL,
+              f"TP {name} seg step vs world size 1: the update {e[0]:.2e}, BN statistics "
+              f"{e[1]:.2e}")
+        for k, v in tp["losses"].items():
+            check(abs(v - one["losses"][k]) <= 1e-5 * abs(one["losses"][k]) + 1e-7,
+                  f"TP {name} loss {k} {v} vs world size 1 {one['losses'][k]}")
+        check(np.array_equal(tp["cm"], one["cm"]) or
+              np.abs(tp["cm"] - one["cm"]).sum() <= 1e-5 * one["cm"].sum(),
+              f"TP {name} confusion matrix differs")
+        seg[name] = {"update_err": e[0], "stat_err": e[1], "launch_s": seg_s,
+                     "cm_equal": bool(np.array_equal(tp["cm"], one["cm"])),
+                     "dropped": tp["dropped"]}
+        print(f"[tp] {name} base {TP_SEG_BASE}, Gear 512² batch 8, one f32 SGD seg step on a "
+              f"(1, 1, 2) mesh (two gloo ranks on cuda:0; dropout dropped "
+              f"{tp['dropped']:.3f} of the first microbatch's bottleneck channels) against "
+              f"world size 1: the update {e[0]:.2e}, BN statistics {e[1]:.2e}, losses within "
+              f"1e-5, confusion matrix {'equal' if seg[name]['cm_equal'] else 'within 1e-5'}",
+              flush=True)
+
+    # --- 14.4: train_mvtec --n_model 2, then test_mvtec bf16 on its checkpoint ---
+    work = tempfile.mkdtemp(prefix="chip_smoke_tp_", dir=keep)
+    flags = ["--data_root", os.path.join(keep, "bottle"), "--category", "bottle",
+             "--base_features", "64", "--image_size", "256", "--batch_size", "16",
+             "--num_workers", "4", "--device", "cuda", "--precision", "bf16", "--epochs", "1",
+             "--val_freq", "1", "--n_model", "2", "--progress_every", "0",
+             "--debug", "--debug_samples", str(TP_CLI_SAMPLES), "--save_dir", work]
+    cli = launch(_tp_cli_rank, (keep, work, flags), devices=two, backend="gloo")
+    best = os.path.join(cli["exp"], "checkpoints", "best_model.pth")
+    blob = torch.load(best, map_location="cpu", weights_only=True)
+    build_model("anomaly_unet", base_features=64).load_state_dict(blob["model_state_dict"],
+                                                                   strict=True)
+    check(cli["launches"]["conv3x3_int8"] == 0, f"TP CLI launched {cli['launches']}")
+    legs["tp_cli_train_rank0"] = cli["launches"]
+    targs = test_mvtec.parse_args(flags[:16] + ["--checkpoint", best,
+                                                "--output_dir", os.path.join(work, "test")])
+    test_ds = MVTecDataset(targs.data_root, "bottle", "test", 256, is_train=False)
+    dev = torch.device("cuda")
+    _zero_launches()
+    t0 = time.perf_counter()
+    loader = test_mvtec.make_test_loader(targs, test_ds, dev)
+    state, eval_step = test_mvtec.load_model(targs, dev)
+    res = test_mvtec.test_model(eval_step, state, loader)
+    ev = test_mvtec.evaluate_results(res, targs.pixel_thresholds, targs.threshold)
+    test_s = time.perf_counter() - t0
+    legs["tp_cli_test_bf16"] = _launches()
+    check(legs["tp_cli_test_bf16"] == {"normalize_u8": len(loader), "conv3x3_int8": 0}
+          and np.isfinite(res["anomaly_scores"]).all(),
+          f"test_mvtec bf16 on the TP checkpoint: {legs['tp_cli_test_bf16']}")
+    del state, eval_step
+    r = cli["results"]
+    print(f"[tp] train_mvtec.train --n_model 2 (two gloo ranks on cuda:0, AnomalyUNet base 64, "
+          f"bf16, 256², b16) one epoch of --debug_samples {TP_CLI_SAMPLES} of phase 8's bottle "
+          f"tree (train and validation): {cli['seconds']:.1f} s "
+          f"(train loss {r['train_losses'][0]:.4f}, val loss {r['val_losses'][0]:.4f}); its "
+          f"best_model.pth ({os.path.getsize(best) / 1e6:.0f} MB) loads strict at world size "
+          f"1; test_mvtec bf16 on it: {len(res['anomaly_scores'])} scores, AUROC "
+          f"{ev['image_metrics']['auroc']:.6f}, K1 {legs['tp_cli_test_bf16']['normalize_u8']}x "
+          f"for {len(loader)} batches, {test_s:.1f} s", flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+    out["tp"] = {"sgd_update_err": errs[0], "sgd_stat_err": errs[1], "timing": t,
+                 "launch_s": tp_s, "tp_fsdp": {"update_err": both_errs[0],
+                                                "stat_err": both_errs[1], "bytes": both["bytes"],
+                                                "jax_bytes": both["jax_bytes"],
+                                                "seconds": both_s},
+                 "seg": seg, "cli": {"seconds": cli["seconds"], "results": {
+                     k: r[k] for k in ("train_losses", "val_losses")},
+                     "test_auroc": ev["image_metrics"]["auroc"], "test_s": test_s}}
+
+
+def _artifact_legs(torch, np, out, legs, tmp):
+    """Phase 14's artifacts: serve_mvtec's default engine (AnomalyUNet base
+    64, 256², batch 128) in int8 and bf16, with a bucket of 2 beside 128 so
+    that the CPU programs run at a size the CPU serves, exported with cuda
+    and cpu programs and loaded on each."""
+    from tpu_unet_torch.ops.quantize import tree_to
+    from tpu_unet_torch.serve import AnomalyScorer
+    from tpu_unet_torch.serve_artifact import export_artifact, load_artifact
+
+    sd = warm_anomaly_state_dict(torch)
+    calib = synth_images(torch, 32, 256, 140, "cuda")
+    served = synth_images(torch, 128, 256, 141, "cuda")
+    small = served[:2]
+    res = {}
+    for prec, kw in (("int8", {"quantize": "int8", "calib_images": calib}),
+                     ("bf16", {"precision": "bf16"})):
+        live = AnomalyScorer.from_state_dict(sd, batch_size=128, bucket_sizes=(2, 128),
+                                             device="cuda", **kw)
+        art = os.path.join(tmp, f"artifact_{prec}")
+        t0 = time.perf_counter()
+        meta = export_artifact(live, art, platforms=["cuda", "cpu"])
+        export_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        gpu, cpu = load_artifact(art, device="cuda"), load_artifact(art, device="cpu")
+        load_s = time.perf_counter() - t0
+        check(meta["platforms"] == ["cuda", "cpu"], f"artifact platforms {meta['platforms']}")
+        want = live.score_array(served)
+        _zero_launches()
+        got = gpu.score_array(served)
+        legs[f"artifact_{prec}_cuda_b128"] = _launches()
+        k2 = 18 if prec == "int8" else 0
+        check(legs[f"artifact_{prec}_cuda_b128"] == {"normalize_u8": 1, "conv3x3_int8": k2},
+              f"{prec} artifact's b128 cuda program launched "
+              f"{legs[f'artifact_{prec}_cuda_b128']}")
+        check(np.array_equal(got, want), f"{prec} artifact's cuda program differs from the "
+                                         f"live engine")
+        gpu2, cpu2 = gpu.score_array(small), cpu.score_array(small)
+        check(np.array_equal(gpu2, live.score_array(small)),
+              f"{prec} artifact's b2 cuda program differs from the live engine")
+        # The live engine on the CPU, with the artifact's weights (the
+        # engine's own: BN folded, int8 constants of the card's calibration).
+        ref = AnomalyScorer.from_state_dict(
+            sd, batch_size=2, device="cpu",
+            **({"quantize": "int8", "qparams": tree_to(live.qparams, "cpu")}
+               if prec == "int8" else {"precision": "bf16"}))
+        weights = torch.load(os.path.join(art, "weights.pt"), map_location="cpu",
+                             weights_only=True)
+        with ref._serving():
+            ref._score_fn(torch.from_numpy(small))  # prepares the int8 layers' constants
+            with ref._export_state[1](weights):
+                live_cpu = ref._score_fn(torch.from_numpy(small)).numpy()
+        check(np.array_equal(cpu2, live_cpu),
+              f"{prec} artifact's cpu program differs from the live engine on the CPU")
+        same = bool(np.array_equal(cpu2, gpu2))
+        if prec == "int8":
+            check(same, f"int8 artifact: the cpu program's scores {cpu2} differ from the cuda "
+                        f"program's {gpu2}")
+        res[prec] = {"mb": _dir_mb(art), "export_s": export_s, "load_s": load_s,
+                     "cpu_equals_cuda": same,
+                     "cpu_vs_cuda_max_rel": float(np.max(np.abs(cpu2 - gpu2) / np.abs(gpu2)))}
+        print(f"[artifact] AnomalyScorer {prec} (base 64, 256², buckets 2 and 128), platforms "
+              f"cuda and cpu: {res[prec]['mb']:.1f} MB, export {export_s:.1f} s, load (both) "
+              f"{load_s:.1f} s; the cuda programs bit for bit the live engine (b128: K1 1x, "
+              f"K2 {k2}x); the cpu program bit for bit the live engine on the CPU with the "
+              f"same weights; cpu against cuda scores at b2: "
+              + ("bit for bit" if same else f"max rel {res[prec]['cpu_vs_cuda_max_rel']:.2e}"),
+              flush=True)
+        shutil.rmtree(art, ignore_errors=True)
+        del live, gpu, cpu, ref
+        torch.cuda.empty_cache()
+    out["artifacts"] = res
+
+
+def phase_tp(torch, np, report, tmp, keep, dp_ref):
+    """Phase 14: tensor parallelism on the one card (gloo ranks sharing it),
+    and serving artifacts with cuda and cpu programs. Returns the launch
+    counts."""
+    out, legs = {}, {}
+    label = f"one card ({nvidia_smi_line()}); ranks share it: not a scaling figure"
+    torch.cuda.empty_cache()  # the ranks share the card with this process's cache
+    t0 = time.perf_counter()
+    _tp_legs(torch, np, out, legs, keep, dp_ref, label)
+    _artifact_legs(torch, np, out, legs, tmp)
+    out["seconds"] = time.perf_counter() - t0
+    report["main_path"]["tp"] = out["tp"]
+    report["main_path"]["artifacts"] = out["artifacts"]
+    report["main_path"]["tp"]["phase_seconds"] = out["seconds"]
     return legs
+
+
+# FSDP widths (``python3 chip_smoke.py fsdp_widths``): does FSDP2 over two
+# gloo ranks run at the flagship's geometry? (device, base_features, rows
+# per rank, image size), each in a process of its own with a time limit.
+FSDP_PROBES = [("cuda", 64, 8, 256), ("cuda", 32, 8, 256), ("cuda", 16, 8, 256),
+               ("cuda", 8, 8, 256), ("cuda", 64, 2, 64), ("cpu", 64, 2, 64)]
+
+
+def _fsdp_width_rank(device_type, base, per_rank, size):
+    """One f32 SGD step and one Adam step (fused on CUDA) of AnomalyUNet at
+    ``base`` under FSDP2 on this rank; the losses."""
+    import torch
+    import torch.distributed as dist
+
+    from tpu_unet_torch.models import build_model
+    from tpu_unet_torch.parallel.fsdp import shard_state
+    from tpu_unet_torch.parallel.mesh import group_of, make_mesh, shard_batch
+    from tpu_unet_torch.train.state import create_train_state
+    from tpu_unet_torch.train.steps import AugmentConfig, make_anomaly_train_step
+
+    dev = "cuda" if device_type == "cuda" else "cpu"
+    n = per_rank * dist.get_world_size()
+    images = torch.from_numpy(synth_images(torch, n, size, 130, dev)).to(dev)
+    masks = synth_masks(torch, n, size, 131, dev)
+    mesh = make_mesh(dist.get_world_size(), device_type=dev)
+    local = shard_batch((images, masks))
+    out = {}
+    for opt, lr in (("sgd", 1e-2), ("adam", 1e-3)):
+        torch.manual_seed(3)
+        model = build_model("anomaly_unet", base_features=base)
+        state = shard_state(mesh, create_train_state(model, opt, lr, 1e-4, device=dev),
+                            fsdp=True)
+        step = make_anomaly_train_step(aug_cfg=AugmentConfig(), group=group_of(mesh))
+        out[opt] = float(step(state, *local, torch.Generator(device=dev).manual_seed(0))
+                         ["total_loss"])
+    return out
+
+
+def fsdp_widths():
+    """Each of FSDP_PROBES in a child process: its exit code and the end of
+    its output."""
+    for probe in FSDP_PROBES:
+        t0 = time.perf_counter()
+        try:
+            r = subprocess.run([sys.executable, os.path.abspath(__file__), "fsdp_width",
+                                *map(str, probe)], capture_output=True, text=True,
+                               timeout=240)
+            rc, tail = r.returncode, " ".join((r.stdout + r.stderr).split())[-300:]
+        except subprocess.TimeoutExpired:
+            rc, tail = "timeout", ""
+        print(f"[fsdp-width] {probe}: rc {rc} in {time.perf_counter() - t0:.1f} s: {tail}",
+              flush=True)
+    return 0
+
+
+def fsdp_width(device_type, base, per_rank, size):
+    from tpu_unet_torch.parallel.mesh import launch
+    dev = "cuda:0" if device_type == "cuda" else "cpu"
+    res = launch(_fsdp_width_rank, (device_type, int(base), int(per_rank), int(size)),
+                 devices=[dev, dev], backend="gloo")
+    print(f"FSDP ran: losses {res}", flush=True)
+    return 0
 
 
 def main():
@@ -3585,12 +4126,22 @@ def main():
     warm_clocks(torch)
     report = {"device": torch.cuda.get_device_name(0), "torch": torch.__version__,
               "cuda": torch.version.cuda}
-    phase_build(report)
-    phase_k1(torch, report)
-    phase_k2(torch, report)
-    launches = phase_main_path(torch, np, report)
-    path_launches = {"serve": launches, **phase_train(torch, np, report)}
-    phase_train_cpu_vs_card(torch, np, report)
+    seconds = report["phase_seconds"] = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            seconds[name] = time.perf_counter() - t0
+            print(f"[time] {name}: {seconds[name]:.1f} s", flush=True)
+
+    timed("1 build", phase_build, report)
+    timed("2 K1", phase_k1, torch, report)
+    timed("3 K2", phase_k2, torch, report)
+    launches = timed("4-5 serving", phase_main_path, torch, np, report)
+    path_launches = {"serve": launches, **timed("6 train", phase_train, torch, np, report)}
+    timed("7 train cpu vs card", phase_train_cpu_vs_card, torch, np, report)
     # Phases 8-10 decode without a pack (their cold epochs measure decoding);
     # phase 12 sets its own pack directory under TMPDIR. Nothing is written
     # under the user's cache.
@@ -3599,12 +4150,18 @@ def main():
     keep = os.path.join(tmp, "keep")  # phases 8-10's trees and checkpoints for phase 12
     os.makedirs(keep)
     try:
-        path_launches.update(phase_mvtec(torch, np, report, keep))
-        path_launches.update(phase_seg(torch, np, report, tmp, keep))
-        path_launches.update(phase_extensions(torch, np, report, tmp, keep))
-        path_launches.update(phase_serving(torch, np, report, tmp))
-        path_launches.update(phase_host_data(torch, np, report, tmp, keep))
-        path_launches.update(phase_dp(torch, np, report, keep))
+        path_launches.update(timed("8 mvtec", phase_mvtec, torch, np, report, keep))
+        path_launches.update(timed("9 seg", phase_seg, torch, np, report, tmp, keep))
+        path_launches.update(timed("10 extensions", phase_extensions, torch, np, report, tmp,
+                                   keep))
+        path_launches.update(timed("11 serving surface", phase_serving, torch, np, report,
+                                   tmp))
+        path_launches.update(timed("12 host data", phase_host_data, torch, np, report, tmp,
+                                   keep))
+        dp_legs, dp_ref = timed("13 dp", phase_dp, torch, np, report, keep)
+        path_launches.update(dp_legs)
+        path_launches.update(timed("14 tp, artifacts", phase_tp, torch, np, report, tmp, keep,
+                                   dp_ref))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3618,10 +4175,13 @@ def main():
          "ms": k1["kernel_ms"], "plain_ms": k1["plain_ms"],
          "bound_ms": k1["bound_ms"], "bound_by": k1["bound_by"], "library_ms": None,
          "ms_bf16": k1["kernel_ms_bf16"], "bound_ms_bf16": k1["bound_ms_bf16"],
+         "kernel_record_ms": k1["kernel_record_ms"],
+         "kernel_record_ms_bf16": k1["kernel_record_ms_bf16"],
          "launches_by_path": {p: c["normalize_u8"] for p, c in path_launches.items()},
          "shape": "(128,256,256,3) u8 -> f32",
          "seg": [{k: r[k] for k in ("shape", "kernel_ms", "plain_ms", "bound_ms", "bound_by",
-                                    "kernel_ms_bf16")} for r in k1["seg"]]},
+                                    "kernel_ms_bf16", "kernel_record_ms",
+                                    "kernel_record_ms_bf16")} for r in k1["seg"]]},
         {"name": "conv3x3_int8", "route": "cuda",
          "source": "tpu_unet_torch/csrc/conv3x3_int8.cu",
          "replaces": "tpu_unet/ops/pallas/int8_conv.py:157",
@@ -3636,6 +4196,7 @@ def main():
                                        "bound_by": r["bound_by_b128"]} for r in path_rows]),
          "library_ms": None,
          "bf16_cudnn_ms": sum(r["bf16_cudnn_ms_b128"] for r in path_rows),
+         "kernel_record_ms": sum(r["kernel_record_ms_b128"] for r in path_rows),
          "ms_b8": sum(r["kernel_ms"] for r in path_rows),
          "bound_ms_b8": sum(r["bound_ms"] for r in path_rows),
          "shape": "the 18 score-path convs at batch 128, summed",
@@ -3661,4 +4222,8 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["fsdp_widths"]:
+        sys.exit(fsdp_widths())
+    if sys.argv[1:2] == ["fsdp_width"]:
+        sys.exit(fsdp_width(*sys.argv[2:6]))
     sys.exit(main())

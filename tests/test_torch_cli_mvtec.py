@@ -253,8 +253,11 @@ def test_unported_train_flags_raise(mvtec_root, tmp_path, bilinear_run, flag):
     them on two ranks); here their parsing and refusals, before anything is
     written: ``--n_devices 2`` plans 2 ranks and refuses a global batch
     that does not split over them (and over ``--grad_accum``); ``--fsdp``
-    on one device warns and trains whole; ``--n_model`` still raises
-    NotImplementedError, naming slice 10; a half-specified multi-host
+    on one device warns and trains whole; ``--n_model 2`` plans 2 ranks
+    (one data rank times two model ranks) and refuses a batch that does not
+    split over the data ranks and ``--grad_accum``
+    (tests/test_torch_parallel_tensor_cli.py trains with it); a
+    half-specified multi-host
     launch and ``--multihost`` outside torchrun or SLURM raise ValueError.
     ``--bilinear`` trains an AnomalyUNet whose decoders have no transposed
     conv (the reference's bilinear layout, loaded strict)."""
@@ -276,8 +279,10 @@ def test_unported_train_flags_raise(mvtec_root, tmp_path, bilinear_run, flag):
             with pytest.raises(SystemExit, match="2 ranks"):
                 _train(mvtec_root, tmp_path, *flag, *bad)
     elif flag[0] == "--n_model":
-        with pytest.raises(NotImplementedError, match="slice 10"):
-            _train(mvtec_root, tmp_path, *flag)
+        args = train_mvtec.parse_args(["--device", "cpu", *flag])
+        assert args.n_model == 2 and train_mvtec.check_flags(args) == 2
+        with pytest.raises(SystemExit, match="1 ranks x --grad_accum 3"):
+            _train(mvtec_root, tmp_path, *flag, "--grad_accum", "3")
     else:
         match = "coordinator_address" if flag[0] == "--num_processes" else (
             "torchrun" if flag == ["--multihost"] else "num_processes")

@@ -270,8 +270,11 @@ def test_unported_train_flags_raise(ksdd_root, tmp_path, variant_runs, flag):
     trains on two ranks); here their parsing and refusals, before anything
     is written: ``--n_devices 2`` plans 2 ranks and refuses a global batch
     that does not split over them; ``--fsdp`` on one device warns and
-    trains whole; ``--n_space`` and ``--n_model`` still raise
-    NotImplementedError, naming slice 10; a half-specified multi-host
+    trains whole; ``--n_space`` still raises NotImplementedError, naming
+    slice 11; ``--n_model 2`` plans 2 ranks (one data rank times two model
+    ranks) and refuses a batch that does not split over the data ranks and
+    ``--grad_accum`` (tests/test_torch_parallel_tensor_cli.py trains with
+    it); a half-specified multi-host
     launch and ``--multihost`` outside torchrun or SLURM raise ValueError.
     ``--bilinear`` trains (a checkpoint with no transposed conv and the
     reference's bilinear widths); ``--deep_supervision`` without ``--model
@@ -293,9 +296,14 @@ def test_unported_train_flags_raise(ksdd_root, tmp_path, variant_runs, flag):
         assert args.n_devices == 2 and seg.check_train_flags(args) == 2
         with pytest.raises(SystemExit, match="2 ranks"):
             _train(ksdd_root, tmp_path, *flag, "--batch_size", "3")
-    elif flag[0] in ("--n_space", "--n_model"):
-        with pytest.raises(NotImplementedError, match="slice 10"):
+    elif flag[0] == "--n_space":
+        with pytest.raises(NotImplementedError, match="slice 11"):
             _train(ksdd_root, tmp_path, *flag)
+    elif flag[0] == "--n_model":
+        args = train_kolektorsdd.parse_args(["--device", "cpu", *flag])
+        assert args.n_model == 2 and seg.check_train_flags(args) == 2
+        with pytest.raises(SystemExit, match="1 ranks x --grad_accum 3"):
+            _train(ksdd_root, tmp_path, *flag, "--grad_accum", "3")
     elif flag == ["--deep_supervision"]:
         with pytest.raises(ValueError):
             _train(ksdd_root, tmp_path, *flag)
@@ -313,7 +321,7 @@ def test_unported_test_flags_raise(ksdd_root, tmp_path, variant_runs, flag):
     """``--n_devices`` is ported (tests/test_torch_parallel_cli_seg.py
     evaluates on two ranks): a batch that does not split over the ranks
     raises SystemExit. ``--n_space`` still raises NotImplementedError,
-    naming slice 10; ``--heads`` without UNet++'s deep supervision raises
+    naming slice 11; ``--heads`` without UNet++'s deep supervision raises
     the JAX package's ValueError. The bilinear decoder and UNet++ (pruned
     to head X[0][2]) evaluate their checkpoints end to end."""
     if flag == ["--bilinear"]:
@@ -327,7 +335,7 @@ def test_unported_test_flags_raise(ksdd_root, tmp_path, variant_runs, flag):
                 _test(ksdd_root, "x.pth", tmp_path, *flag, "--batch_size", "3")
         else:
             with pytest.raises(ValueError if flag[0] == "--heads" else NotImplementedError,
-                               match="heads" if flag[0] == "--heads" else "slice 10"):
+                               match="heads" if flag[0] == "--heads" else "slice 11"):
                 _test(ksdd_root, "x.pth", tmp_path, *flag)
         return
     assert _json(tmp_path, "evaluation_results.json")["overall_metrics"] == \

@@ -94,7 +94,9 @@ def test_leaf_policy_matches_jax_on_every_full_size_leaf(name, n):
 
 def test_make_mesh_refuses_what_jax_refuses(devices):
     """The counterparts of the JAX package's mesh tests (ValueError), then
-    NotImplementedError for the axes that wait for slice 10."""
+    NotImplementedError for the 'space' axis, which waits for slice 11; a
+    'model' axis needs a process group (tests/test_torch_parallel_tensor.py
+    builds one)."""
     eight = list(range(8))
     for kw in ({"n_data": 16}, {"n_data": 4, "n_space": 2, "n_model": 2},
                {"n_model": 16}):
@@ -107,10 +109,12 @@ def test_make_mesh_refuses_what_jax_refuses(devices):
             jax_make_mesh(**kw)
         with pytest.raises(ValueError, match=">= 1"):
             make_mesh(devices=eight, **kw)
-    for kw in ({"n_data": 2, "n_model": 2}, {"n_data": 4, "n_space": 2}):
-        jax_make_mesh(**kw)
-        with pytest.raises(NotImplementedError, match="slice 10"):
-            make_mesh(devices=eight, **kw)
+    jax_make_mesh(n_data=4, n_space=2)
+    with pytest.raises(NotImplementedError, match="slice 11"):
+        make_mesh(devices=eight, n_data=4, n_space=2)
+    jax_make_mesh(n_data=2, n_model=2)
+    with pytest.raises(ValueError, match="process group"):
+        make_mesh(devices=eight, n_data=2, n_model=2)
     # One process without a group: the plain path, or a refusal.
     assert make_mesh(1) is None
     with pytest.raises(ValueError, match="process group"):

@@ -66,7 +66,7 @@ def test_two_predictor_replicas_equal_the_single_engine_tiled():
     m2, c2 = two.predict_array(images)
     assert np.mean(m1 != m2) < 1e-3
     np.testing.assert_allclose(c2, c1, rtol=1e-5)
-    with pytest.raises(NotImplementedError, match="slice 10"):
+    with pytest.raises(NotImplementedError, match="slice 11"):
         SegmentationPredictor.from_state_dict(sd, n_space=2, **kw)
 
 

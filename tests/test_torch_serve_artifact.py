@@ -1,8 +1,11 @@
 """The port's serving artifacts (tpu_unet_torch/serve_artifact.py) on the
 CPU: torch.export programs over one weights file, loaded without the model
 code; outputs bit-equal to the live engine's (f32 and int8, bucketed and
-not, the heatmap program, tiling); meta.json with the JAX package's keys;
-corrupt directories and another device refused."""
+not, the heatmap program, tiling); meta.json with the JAX package's keys
+and its platforms; corrupt directories, tpu, a platform the artifact has no
+programs for, and replica engines refused; an artifact of the earlier
+format (one device, no platform in the program names) and one whose CPU
+programs sit beside another device's load on the CPU."""
 
 import json
 import os
@@ -159,11 +162,20 @@ def test_corrupt_directories_other_devices_and_platforms_raise(anomaly_sd, tmp_p
         json.dump({**meta, "format_version": 99}, f)
     with pytest.raises(ValueError, match="format_version"):
         load_artifact(bad, device="cpu")
-    with pytest.raises(ValueError, match="exported on cpu"):
-        load_artifact(good, device="cuda")  # never moved between devices
-    with pytest.raises(ValueError, match="platforms"):
+    with pytest.raises(ValueError, match=r"exported on cpu with programs for the platforms "
+                                         r"\['cpu'\]; it has none for cuda"):
+        load_artifact(good, device="cuda")  # never moved at load
+    with pytest.raises(ValueError, match="'tpu' is refused.*JAX package"):
         export_artifact(live, str(tmp_path / "multi"), platforms=["tpu", "cpu"])
-    export_artifact(live, str(tmp_path / "named"), platforms=["cpu"])
+    with pytest.raises(ValueError, match="unknown platform"):
+        export_artifact(live, str(tmp_path / "multi"), platforms=["metal"])
+    if not torch.cuda.is_available():
+        with pytest.raises(ValueError, match="GPU"):
+            export_artifact(live, str(tmp_path / "multi"), platforms=["cpu", "gpu"])
+    assert not os.path.exists(tmp_path / "multi")  # refused before writing
+    meta = export_artifact(live, str(tmp_path / "named"), platforms=["CPU", "cpu"])
+    assert meta["platforms"] == ["cpu"] and _program_files(tmp_path / "named") == [
+        "program_b4.pt2"]
     with pytest.raises(ValueError, match="loaded from an artifact"):
         export_artifact(load_artifact(good, device="cpu"), str(tmp_path / "again"))
 
@@ -186,3 +198,59 @@ def test_loaded_artifact_serves_through_the_service(seg_sd, tmp_path):
         assert service.meta()["bucket_sizes"] == [1, 4]
     finally:
         service.close()
+
+
+def test_replica_engines_are_refused(anomaly_sd, tmp_path):
+    two = _anomaly(anomaly_sd, precision="f32", devices=("cpu", "cpu"))
+    with pytest.raises(ValueError, match="per-device programs"):
+        export_artifact(two, str(tmp_path))
+
+
+def _by_hand(engine, out_dir, meta, program_name):
+    """An artifact written without ``export_artifact``: the engine's
+    weights, one traced program per bucket under ``program_name(b)`` and
+    ``meta`` as given."""
+    from tpu_unet_torch.serve_artifact import _clone_tree, _Program
+
+    os.makedirs(out_dir)
+    with engine._serving():
+        engine._predict_fn(torch.zeros((4, 32, 32, 3), dtype=torch.uint8))
+    params_fn, bind = engine._export_state
+    params = _clone_tree(params_fn())
+    torch.save(params, os.path.join(out_dir, "weights.pt"))
+    for b in engine.bucket_sizes or (engine.batch_size,):
+        program = torch.export.export(
+            _Program(engine._predict_fn, bind),
+            (params, torch.zeros((b, 32, 32, 3), dtype=torch.uint8)), strict=False)
+        program.example_inputs = None
+        torch.export.save(program, os.path.join(out_dir, program_name(b)))
+    with open(os.path.join(out_dir, "meta.json"), "w") as f:
+        json.dump(meta, f)
+
+
+EARLIER_META = {"format_version": 1, "kind": "segmentation_predictor", "batch_size": 4,
+            "image_size_hw": [32, 32], "device": "cpu", "platforms": ["cpu"],
+            "torch_version": "2.11.0", "num_classes": 4, "quantize": "int8",
+            "bucket_sizes": [2, 4]}
+
+
+@pytest.mark.parametrize("layout", ["earlier", "earlier_without_platforms", "cpu_beside_cuda"])
+def test_artifacts_of_other_layouts_load_on_the_cpu(seg_sd, layout, tmp_path):
+    """The earlier format (programs ``program_b<N>.pt2`` of the one device;
+    also without ``platforms``, which it always wrote), and a cuda-exported
+    artifact's CPU programs (``program_cpu_b<N>.pt2``, the cuda ones absent
+    here): served on the CPU bit for bit the live engine."""
+    live = _seg(seg_sd, quantize="int8", calib_images=_images(33, n=8), bucket_sizes=(2,))
+    meta = dict(EARLIER_META)
+    name = lambda b: f"program_b{b}.pt2"  # noqa: E731
+    if layout == "earlier_without_platforms":
+        del meta["platforms"]
+    elif layout == "cpu_beside_cuda":
+        meta.update(device="cuda", platforms=["cuda", "cpu"])
+        name = lambda b: f"program_cpu_b{b}.pt2"  # noqa: E731
+    art = str(tmp_path / "art")
+    _by_hand(live, art, meta, name)
+    loaded = load_artifact(art, device="cpu")
+    images = _images(6, n=7)
+    for a, b in zip(loaded.predict_array(images), live.predict_array(images)):
+        np.testing.assert_array_equal(a, b)

@@ -209,7 +209,7 @@ def test_heads_validation_pruned_notice_and_multi_device(capsys):
                                                 device="cpu", n_devices=2, **KW)
     assert two.devices == [torch.device("cpu")] * 2  # one replica each
     for flags, error, match in (({"n_devices": 3}, ValueError, "divisible"),
-                                ({"n_space": 2}, NotImplementedError, "slice 10")):
+                                ({"n_space": 2}, NotImplementedError, "slice 11")):
         with pytest.raises(error, match=match):
             SegmentationPredictor.from_state_dict(sd, model_name="unetpp",
                                                   deep_supervision=True, device="cpu",

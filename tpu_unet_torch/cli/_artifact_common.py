@@ -15,10 +15,9 @@ def add_artifact_args(p) -> None:
                    help="After building the engine from --checkpoint, export "
                         "it as a self-contained serving artifact to this dir")
     p.add_argument("--artifact_platforms", type=str, default=None,
-                   help="Comma-separated platforms for --export_artifact; a "
-                        "torch.export program serves the device it was "
-                        "exported on, so only that device type (--device) is "
-                        "accepted")
+                   help="Comma-separated platforms for --export_artifact "
+                        "(cuda or gpu, cpu; default: --device): one program "
+                        "per platform and bucket over one weights file")
 
 
 def add_bucket_arg(p) -> None:
@@ -56,8 +55,8 @@ def validate_artifact_args(args, parser, sharded: bool, sharded_flags: str,
     ``sharded``: a flag value asks for more than one device.
     ``baked_flags``: engine-construction flags whose values an artifact
     fixed at export; a value other than the default beside --artifact is
-    refused, since it would have no effect. --artifact_platforms must name
-    the --device type.
+    refused, since it would have no effect. --artifact_platforms must
+    name platforms the port exports (not tpu).
     """
     if bool(args.artifact) == bool(args.checkpoint):
         raise SystemExit("exactly one of --checkpoint or --artifact is required")
@@ -76,10 +75,15 @@ def validate_artifact_args(args, parser, sharded: bool, sharded_flags: str,
                              "geometry, precision, quantization, model): "
                              + ", ".join(baked) + " cannot be set with --artifact")
     if args.artifact_platforms is not None:
-        if {p for p in args.artifact_platforms.split(",") if p} != {args.device}:
-            raise SystemExit(f"--artifact_platforms {args.artifact_platforms!r}: a "
-                             f"torch.export program serves the device it was exported "
-                             f"on; only {args.device!r} (--device) is accepted")
+        from tpu_unet_torch.serve_artifact import artifact_platforms
+        try:
+            artifact_platforms(_platform_list(args), args.device)
+        except ValueError as e:
+            raise SystemExit(f"--artifact_platforms {args.artifact_platforms!r}: {e}")
+
+
+def _platform_list(args):
+    return [p for p in args.artifact_platforms.split(",") if p]
 
 
 def load_artifact_engine(args):
@@ -95,7 +99,7 @@ def maybe_export_artifact(engine, args) -> None:
     if not args.export_artifact:
         return
     from tpu_unet_torch.serve_artifact import export_artifact
-    plats = (args.artifact_platforms.split(",") if args.artifact_platforms else None)
+    plats = _platform_list(args) if args.artifact_platforms else None
     meta = export_artifact(engine, args.export_artifact, platforms=plats)
     print(f"Serving artifact exported to {args.export_artifact} "
-          f"(device {meta['device']})")
+          f"(device {meta['device']}, platforms {','.join(meta['platforms'])})")

@@ -21,8 +21,9 @@ Data parallelism (``--n_devices``, ``--fsdp``, the multi-host flags, or a
 torchrun launch): :func:`run_seg_training` and :func:`run_seg_evaluation`
 run their work on every rank (``parallel/mesh.py::launch``); the loaders
 give each rank its rows of the global ``--batch_size``, the steps reduce
-over the group, and rank 0 logs and writes. ``--n_space`` and ``--n_model``
-wait for slice 10 of the port.
+over the group, and rank 0 logs and writes. ``--n_model`` slices the
+channels over that many ranks per data rank (tensor parallelism); the
+trainers take it. ``--n_space`` waits for slice 11 of the port.
 """
 
 from __future__ import annotations
@@ -99,15 +100,15 @@ def cli_device(name: str) -> torch.device:
 
 
 def check_train_flags(args) -> int:
-    """The run's world size (joining a launched group); NotImplementedError
-    for ``--n_space``/``--n_model`` > 1, SystemExit for a ``--batch_size``
-    that does not split over the ranks and ``--grad_accum``."""
-    for flag in ("n_space", "n_model"):
-        if getattr(args, flag) > 1:
-            raise not_ported(f"--{flag}")
+    """The run's world size (joining a launched group: ``--n_devices``
+    times ``--n_model`` ranks); NotImplementedError for ``--n_space`` > 1,
+    SystemExit for a ``--batch_size`` that does not split over the data
+    ranks and ``--grad_accum``."""
+    if args.n_space > 1:
+        raise not_ported("--n_space")
     check_model_flags(args.model, args.deep_supervision)
     world = cli_world(args, cli_device(args.device).type)
-    check_batch(args.batch_size, world, args.grad_accum)
+    check_batch(args.batch_size, world // args.n_model, args.grad_accum)
     return world
 
 
@@ -130,10 +131,11 @@ def _logger(output_dirs, experiment_dir: str) -> logging.Logger:
     return quiet
 
 
-def _device_line(device: torch.device, world: int = 1) -> str:
+def _device_line(device: torch.device, world: int = 1, n_model: int = 1) -> str:
     return (f"Device: {device}" + (f" ({torch.cuda.get_device_name(device)})"
                                    if device.type == "cuda" else "")
-            + (f", {world} data-parallel ranks" if world > 1 else ""))
+            + (f", {world} ranks ({world // n_model} data x {n_model} model)"
+               if world > 1 else ""))
 
 
 # ---------------------------------------------------------------------------
@@ -147,11 +149,11 @@ def run_seg_training(args, workload: Workload):
     world = check_train_flags(args)
     device = cli_device(args.device)
     if is_main_process():
-        print(_device_line(device, world))
+        print(_device_line(device, world, args.n_model))
     experiment_name = f"{workload.name}_{args.model}_{synced_timestamp()}"
     experiment_dir = os.path.join(args.save_dir, experiment_name)
     results = launch(_train_rank, (args, workload, experiment_dir),
-                     n_devices=args.n_devices, device_type=device.type)
+                     n_devices=args.n_devices, device_type=device.type, n_model=args.n_model)
     if not is_main_process():
         return None
     if results["interrupted"]:
@@ -187,8 +189,10 @@ def train_seg(args, workload: Workload, train_ds, val_ds, num_classes: int,
     ``span(name, epoch)``, if given, returns a context manager entered
     around each epoch's ``"train"`` and ``"validate"`` passes.
 
-    Under a process group every rank calls it with its device; the state is
-    placed on the data mesh after any resume and rank 0 logs and writes.
+    Under a process group every rank calls it with its device; the loaders
+    give each data rank its rows, the state is placed on the mesh after any
+    resume (``--n_model`` slices its channels, ``--fsdp`` shards it over the
+    data ranks) and rank 0 logs and writes.
     """
     span = span or (lambda name, epoch: contextlib.nullcontext())
     main_rank = is_main_process()
@@ -201,6 +205,9 @@ def train_seg(args, workload: Workload, train_ds, val_ds, num_classes: int,
     logger.info(f"Train samples: {len(train_ds)}, Val samples: {len(val_ds)}, "
                 f"classes: {num_classes}")
 
+    n_model = getattr(args, "n_model", 1)
+    mesh = make_mesh(world_size() // n_model, n_model=n_model,
+                     device_type=device.type)  # None in one process
     # Masks ship as uint8 (class ids <= 3): 4x less to copy than int32.
     to_dev = lambda b: to_device(b, device)  # noqa: E731
     train_loader = DataLoader(train_ds, args.batch_size, shuffle=True, seed=args.seed,
@@ -227,8 +234,7 @@ def train_seg(args, workload: Workload, train_ds, val_ds, num_classes: int,
         # The loader's shuffle-epoch counter: a resumed run sees the same
         # per-epoch sample order as an uninterrupted one.
         train_loader.epoch = start_epoch
-    mesh = make_mesh(world_size(), device_type=device.type)  # None in one process
-    state = shard_state(mesh, state, fsdp=args.fsdp)
+    state = shard_state(mesh, state, fsdp=args.fsdp, tp=n_model > 1)
     group = group_of(mesh)
 
     class_weights = parse_class_weights(args.class_weights, num_classes)

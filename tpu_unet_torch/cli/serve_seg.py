@@ -78,7 +78,7 @@ def parse_args(argv=None):
                         "(on the CPU all share it)")
     p.add_argument("--n_space", type=int, default=1,
                    help="Shard image height over this many devices (waits for "
-                        "slice 10 of the port: more than 1 raises)")
+                        "slice 11 of the port: more than 1 raises)")
     p.add_argument("--tile_height", type=int, default=None,
                    help="Serve NATIVE-resolution images by tiling: run the "
                         "model at tile_height x tile_width (its training "

@@ -62,7 +62,7 @@ def add_common_args(parser):
                         help="Data-parallel ranks, one per GPU (default: all "
                              "visible GPUs; 1 on the CPU)")
     parser.add_argument("--n_space", type=int, default=1,
-                        help="Shard image height over devices (waits for slice 10 "
+                        help="Shard image height over devices (waits for slice 11 "
                              "of the port: 1 only)")
     parser.add_argument("--base_features", type=int, default=64)
     parser.add_argument("--debug_nans", action="store_true",
@@ -85,8 +85,10 @@ def add_common_args(parser):
                         help="Shard params and optimizer state over the data ranks "
                              "(FSDP2)")
     parser.add_argument("--n_model", type=int, default=1,
-                        help="Tensor parallelism over channels (waits for slice 10 "
-                             "of the port: 1 only)")
+                        help="Tensor (model) parallelism: shard conv channels over "
+                             "this many ranks per data rank (Megatron column/row "
+                             "pattern on each DoubleConv; one all-reduce per "
+                             "block). Total ranks = n_devices * n_space * n_model")
     parser.add_argument("--multihost", action="store_true",
                         help="Join a torchrun or SLURM launch from its environment")
     parser.add_argument("--coordinator_address", type=str, default=None,

@@ -15,7 +15,9 @@ the plot: it takes the datasets and returns the results.
 
 Runs on ``cuda`` (``--device auto`` means ``cuda``) unless ``--device cpu``.
 ``--n_devices N`` trains data-parallel on N local ranks (one per GPU; on the
-CPU N gloo ranks), ``--fsdp`` shards the parameters and Adam moments, and
+CPU N gloo ranks), ``--n_model K`` shards the channels over K ranks per data
+rank (tensor parallelism; N K ranks in all), ``--fsdp`` shards the
+parameters and Adam moments over the data ranks, and
 ``--multihost`` (torchrun or SLURM) or ``--coordinator_address``/
 ``--num_processes``/``--process_id`` join a group launched by hand; under
 torchrun the group is joined without a flag. ``--batch_size`` is the global
@@ -47,8 +49,7 @@ from tpu_unet_torch.data.mvtec import MVTecDataset, get_available_categories
 from tpu_unet_torch.models import build_model
 from tpu_unet_torch.parallel.fsdp import shard_state
 from tpu_unet_torch.parallel.mesh import (check_batch, cli_world, group_of, is_main_process,
-                                          launch, make_mesh, not_ported, synced_timestamp,
-                                          world_size)
+                                          launch, make_mesh, synced_timestamp, world_size)
 from tpu_unet_torch.train.checkpoint import CheckpointWriter, load_checkpoint
 from tpu_unet_torch.train.interrupt import (INTERRUPT_EXIT_CODE, GracefulInterrupt,
                                             interrupt_checkpoint_path)
@@ -145,8 +146,10 @@ def parse_args(argv=None):
                         help="Shard params and optimizer state over the data ranks "
                              "(FSDP2)")
     parser.add_argument("--n_model", type=int, default=1,
-                        help="Tensor parallelism over channels (waits for slice 10 "
-                             "of the port: 1 only)")
+                        help="Tensor (model) parallelism: shard conv channels over "
+                             "this many ranks per data rank (Megatron column/row "
+                             "pattern on each DoubleConv; one all-reduce per "
+                             "block). Total ranks = n_devices * n_model")
     parser.add_argument("--multihost", action="store_true",
                         help="Join a torchrun or SLURM launch from its environment")
     parser.add_argument("--coordinator_address", type=str, default=None,
@@ -169,14 +172,12 @@ def parse_args(argv=None):
 
 def check_flags(args) -> int:
     """The run's world size (:func:`~tpu_unet_torch.parallel.mesh.cli_world`,
-    joining a launched group); NotImplementedError for ``--n_model`` > 1,
-    SystemExit for a batch that does not split over the ranks and
+    joining a launched group: ``--n_devices`` times ``--n_model`` ranks);
+    SystemExit for a batch that does not split over the data ranks and
     ``--grad_accum``."""
-    if args.n_model > 1:
-        raise not_ported("--n_model")
     device_type = cli_device(args.device).type
     world = cli_world(args, device_type)
-    check_batch(args.batch_size, world, args.grad_accum)
+    check_batch(args.batch_size, world // args.n_model, args.grad_accum)
     return world
 
 
@@ -187,7 +188,8 @@ def main(argv=None):
     say = print if is_main_process() else (lambda *a, **k: None)
     say(f"Device: {device}"
         + (f" ({torch.cuda.get_device_name(device)})" if device.type == "cuda" else "")
-        + (f", {world} data-parallel ranks" if world > 1 else ""))
+        + (f", {world} ranks ({world // args.n_model} data x {args.n_model} model)"
+           if world > 1 else ""))
     say(f"Training category: {args.category}")
 
     available = get_available_categories(args.data_root)
@@ -199,7 +201,7 @@ def main(argv=None):
     experiment_name = f"{args.category}_{args.model}_{synced_timestamp()}"
     experiment_dir = os.path.join(args.save_dir, experiment_name)
     results = launch(_train_rank, (args, experiment_dir), n_devices=args.n_devices,
-                     device_type=device.type)
+                     device_type=device.type, n_model=args.n_model)
     if not is_main_process():
         return None
     if results["train_losses"] or results["val_losses"]:
@@ -250,10 +252,12 @@ def train(args, train_ds, val_ds, device: torch.device, experiment_dir: str,
     manager entered around each epoch's ``"train"`` and ``"validate"``
     passes, e.g. to time them or to read counters.
 
-    Under a process group (``--n_devices``, torchrun) every rank calls it
-    with its device: the loaders give each rank its rows, the state is
-    placed on the data mesh (``--fsdp`` shards it) after any resume, and
-    only rank 0 prints and writes; every rank returns the results.
+    Under a process group (``--n_devices``, ``--n_model``, torchrun) every
+    rank calls it with its device: the loaders give each data rank its rows
+    (every model rank of it the same), the state is placed on the mesh
+    (``--n_model`` slices its channels, ``--fsdp`` shards it over the data
+    ranks) after any resume, and only rank 0 prints and writes; every rank
+    returns the results.
     """
     span = span or (lambda name, epoch: contextlib.nullcontext())
     main_rank = is_main_process()
@@ -266,6 +270,9 @@ def train(args, train_ds, val_ds, device: torch.device, experiment_dir: str,
     print(f"Train samples: {len(train_ds)}")
     print(f"Validation samples: {len(val_ds)}")
 
+    n_model = getattr(args, "n_model", 1)
+    mesh = make_mesh(world_size() // n_model, n_model=n_model,
+                     device_type=device.type)  # None in one process
     # Train masks are binary (train/good has zero masks), so they ship as
     # uint8: exact and 4x smaller; the steps cast after the nearest-sampled
     # augment. Validation keeps float32 (--mask_resize bilinear values).
@@ -294,8 +301,7 @@ def train(args, train_ds, val_ds, device: torch.device, experiment_dir: str,
         # The loader's shuffle-epoch counter: a resumed run sees the same
         # per-epoch sample order as an uninterrupted one.
         train_loader.epoch = start_epoch
-    mesh = make_mesh(world_size(), device_type=device.type)  # None in one process
-    state = shard_state(mesh, state, fsdp=args.fsdp)
+    state = shard_state(mesh, state, fsdp=args.fsdp, tp=n_model > 1)
     group = group_of(mesh)
 
     loss_cfg = AnomalyLossConfig(

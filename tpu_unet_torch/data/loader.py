@@ -27,7 +27,7 @@ from typing import Callable, Dict, Iterator, Optional
 import numpy as np
 import torch
 
-from tpu_unet_torch.parallel.mesh import batch_rows, rank, world_size
+from tpu_unet_torch.parallel.mesh import batch_rows, data_rank, data_size
 
 
 def _collate(samples, valid: Optional[np.ndarray] = None) -> Dict:
@@ -97,9 +97,10 @@ class DataLoader:
       prefetch: batches kept in flight ahead of the consumer.
       transform: optional function applied to each assembled batch on the
         consumer's thread (e.g. ``lambda b: to_device(b, "cuda")``).
-      process_count, process_index: ranks of the data-parallel run and this
-        one's index; default from ``torch.distributed`` (1 and 0 without a
-        process group). ``batch_size`` is the global batch.
+      process_count, process_index: data ranks of the run and this one's
+        index; default from the mesh (``parallel/mesh.py::data_size``,
+        ``data_rank``: 1 and 0 without a process group; every model rank of
+        a data index gets the same rows). ``batch_size`` is the global batch.
       grad_accum: microbatches of each global batch; a rank's rows are its
         block of each microbatch in turn.
     """
@@ -113,7 +114,7 @@ class DataLoader:
         if drop_last and pad_last:
             raise ValueError("drop_last and pad_last are mutually exclusive")
         if process_count is None:
-            process_count, process_index = world_size(), rank()
+            process_count, process_index = data_size(), data_rank()
         if batch_size % (process_count * grad_accum) != 0:
             raise ValueError(f"global batch_size {batch_size} not divisible by "
                              f"process_count {process_count} x grad_accum {grad_accum}")

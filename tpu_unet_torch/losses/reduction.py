@@ -12,7 +12,9 @@ numerator over the group's denominator times W
 (:func:`global_denominator`): the mean of the ranks' losses is the global
 loss, and the mean of their gradients (what the train steps all-reduce) is
 its gradient. A plain mean needs no exchange, since every rank holds as
-many rows.
+many rows. Under tensor parallelism ``group`` is the 'data' group: the
+model ranks of a data index hold the same rows, so their denominators are
+not added again.
 """
 
 from __future__ import annotations

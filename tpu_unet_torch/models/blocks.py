@@ -22,6 +22,15 @@ statistics by 0.1 (torch's convention; flax ``momentum=0.9``) towards the
 batch mean and the *biased* batch variance, where ``nn.BatchNorm2d`` would
 take the unbiased one. Eval mode is ``nn.BatchNorm2d``'s own forward.
 
+Tensor parallelism (``parallel/tensor.py::shard_state``) leaves each rank
+a channel slice of the sharded convs and BatchNorms and tags each sharded
+conv ``tp`` 'column' or 'row'. :func:`conv_bn` and :func:`up_conv` then put
+the collectives over the 'model' group around it: before a column conv the
+identity whose backward all-reduces the input's gradient, after a row conv
+the all-reduce of the partial sums (in float32, after the cast to the norm
+dtype, so under the bf16 policy the ranks' partials are added in float32),
+after a column transposed conv the all-gather of the channel slices.
+
 Rematerialization (the train steps' ``remat``): ``DoubleConv``, ``Down`` and
 ``Up`` take a ``remat_tag``; under :func:`remat_scope` of that tag a block
 runs under :func:`checkpoint`, which keeps only its inputs and recomputes the
@@ -45,6 +54,7 @@ import torch.utils.checkpoint
 
 from tpu_unet_torch.core.precision import DEFAULT_POLICY, Policy
 from tpu_unet_torch.ops.resize import upsample2x_bilinear_align_corners
+from tpu_unet_torch.parallel.tensor import copy_to_model, gather_channels, reduce_from_model
 
 
 _STATE = threading.local()  # per thread: the remat scope's tag, recomputing
@@ -188,14 +198,33 @@ def conv_bn(conv: nn.Conv2d, norm: nn.Module, x: torch.Tensor, policy: Policy,
     (after ``ops/fold_bn.py``, the conv's float32 bias and an identity).
     ``stride`` 2 (a 1x1 conv) samples the even rows and columns first: the
     same sums as a stride-2 conv, whose backward on a channels_last CPU
-    tensor corrupts memory in PyTorch's CPU build."""
+    tensor corrupts memory in PyTorch's CPU build. A tensor-parallel conv
+    (module docstring) takes its collective: a row conv's all-reduce runs on
+    the float32 output, before the bias."""
     cd = policy.compute_dtype
     if stride > 1:
         x = x[:, :, ::stride, ::stride]
-    y = F.conv2d(x.to(cd), conv.weight.to(cd), padding=padding).to(policy.norm_dtype)
+    tp = getattr(conv, "tp", None)
+    x = x.to(cd)
+    if tp == "column":
+        x = copy_to_model(x, conv.tp_group)
+    y = F.conv2d(x, conv.weight.to(cd), padding=padding).to(policy.norm_dtype)
+    if tp == "row":
+        y = reduce_from_model(y, conv.tp_group)
     if conv.bias is not None:  # BN folded into the conv (ops/fold_bn.py)
         y = y + conv.bias.view(-1, 1, 1)
     return norm(y)
+
+
+def up_conv(up: nn.ConvTranspose2d, x: torch.Tensor, cd: torch.dtype) -> torch.Tensor:
+    """The k2s2 transposed conv in the compute dtype, bias added there; a
+    tensor-parallel one gathers its output channels from the 'model' ranks."""
+    x = x.to(cd)
+    tp = getattr(up, "tp", None) == "column"
+    if tp:
+        x = copy_to_model(x, up.tp_group)
+    y = F.conv_transpose2d(x, up.weight.to(cd), up.bias.to(cd), stride=2)
+    return gather_channels(y, up.tp_group) if tp else y
 
 
 class DoubleConv(nn.Module):
@@ -285,8 +314,7 @@ class Up(nn.Module):
         if hasattr(self, "att"):
             x2 = self.att(x1, x2)
         if hasattr(self, "up"):
-            x1 = F.conv_transpose2d(x1.to(cd), self.up.weight.to(cd),
-                                    self.up.bias.to(cd), stride=2)
+            x1 = up_conv(self.up, x1, cd)
         else:
             x1 = upsample2x_bilinear_align_corners(x1.to(cd))
         # Static pad to the skip's extent (zero for power-of-two sizes).

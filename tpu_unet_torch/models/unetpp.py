@@ -32,7 +32,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from tpu_unet_torch.core.precision import DEFAULT_POLICY, Policy
-from tpu_unet_torch.models.blocks import DoubleConv, OutConv
+from tpu_unet_torch.models.blocks import DoubleConv, OutConv, up_conv
 from tpu_unet_torch.models.unet import BottleneckDropout
 from tpu_unet_torch.ops.resize import upsample2x_bilinear_align_corners
 
@@ -77,8 +77,7 @@ class UNetPlusPlus(BottleneckDropout, nn.Module):
         cd = self.policy.compute_dtype
         if self.bilinear:
             return upsample2x_bilinear_align_corners(t)
-        up = getattr(self, f"up{i}_{j}")
-        return F.conv_transpose2d(t.to(cd), up.weight.to(cd), up.bias.to(cd), stride=2)
+        return up_conv(getattr(self, f"up{i}_{j}"), t, cd)
 
     def forward(self, x: torch.Tensor, keep: Optional[torch.Tensor] = None):
         ds = self.deep_supervision

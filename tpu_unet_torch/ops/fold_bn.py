@@ -36,7 +36,12 @@ def _conv_bn_pairs(module: nn.Module):
 @torch.no_grad()
 def fold_batchnorm(model: nn.Module) -> nn.Module:
     """Fold every DoubleConv's and attention gate's BNs into their convs, in
-    place; returns ``model``."""
+    place; returns ``model``. A tensor-parallel model (channel slices) is
+    refused: fold the whole weights of its checkpoint."""
+    if getattr(model, "tp_dims", None):
+        raise ValueError("fold_batchnorm: a tensor-parallel model holds channel slices; "
+                         "fold the whole model its .pth holds (train/checkpoint.py "
+                         "gathers the slices)")
     for module in list(model.modules()):
         for owner, conv_name, bn_name in _conv_bn_pairs(module):
             conv, bn = getattr(owner, conv_name), getattr(owner, bn_name)

@@ -692,7 +692,14 @@ def quantize_from_train_state(arch: str, state_dict: Dict[str, torch.Tensor],
                               heads: int = 4) -> Dict[str, Any]:
     """One-call PTQ: fold BN, calibrate activation scales on ``device``
     (``cuda`` unless the caller asks for ``cpu``), quantize weights.
-    ``deep_supervision`` and ``heads`` select UNet++'s calibration plan."""
+    ``deep_supervision`` and ``heads`` select UNet++'s calibration plan.
+    ``state_dict`` holds whole tensors: a tensor-parallel state (or model)
+    passed instead is refused, since it holds channel slices."""
+    model = getattr(state_dict, "model", state_dict)
+    if getattr(model, "tp_dims", None):
+        raise ValueError("quantize_from_train_state: a tensor-parallel state holds channel "
+                         "slices; quantize the whole weights its .pth holds "
+                         "(train/checkpoint.py gathers the slices)")
     fparams = tree_to(full_fold(state_dict, arch), resolve_device(device))
     absmax = calibrate_absmax(arch, fparams, calib_batches,
                               max_batches=max_batches, percentile=percentile,

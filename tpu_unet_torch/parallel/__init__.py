@@ -1,6 +1,6 @@
-"""Data parallelism over ``torch.distributed`` process groups (counterpart of
-``tpu_unet/parallel``, without its tensor-parallel names, which wait for
-slice 10 of the port)."""
+"""Data and tensor parallelism over ``torch.distributed`` process groups
+(counterpart of ``tpu_unet/parallel``; the 'space' axis waits for slice 11
+of the port)."""
 
 from tpu_unet_torch.parallel.collectives import (
     all_gather_host_values,

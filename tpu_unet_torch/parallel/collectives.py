@@ -9,7 +9,9 @@ same global metrics. Without a process group (or at world size 1) each is
 a passthrough.
 
 Host values travel as tensors on the group's device: the rank's GPU under
-NCCL, the CPU under gloo.
+NCCL, the CPU under gloo. Under tensor parallelism every model rank of a
+data index holds the same rows, so the gathers and sums run over the 'data'
+group (``parallel/mesh.py::data_group``) and count each row once.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from tpu_unet_torch.parallel.mesh import world_size
+from tpu_unet_torch.parallel.mesh import data_group, data_size, world_size
 
 
 def _comm_device() -> torch.device:
@@ -30,13 +32,14 @@ def _comm_device() -> torch.device:
 
 
 def all_gather_host_values(values) -> np.ndarray:
-    """Concatenate a per-rank (batch-leading) array across ranks, rank-major.
+    """Concatenate a per-rank (batch-leading) array across the data ranks,
+    rank-major.
 
     Every rank must pass the same shape (the padded eval batches guarantee
     it). Returns ``values`` as a numpy array at world size 1.
     """
     values = np.asarray(values)
-    w = world_size()
+    w = data_size()
     if w == 1:
         return values
     is_bool = values.dtype == np.bool_
@@ -44,7 +47,7 @@ def all_gather_host_values(values) -> np.ndarray:
         values.astype(np.uint8) if is_bool else values)).to(_comm_device())
     out = torch.empty((w * local.shape[0],) + tuple(local.shape[1:]),
                       dtype=local.dtype, device=local.device)
-    dist.all_gather_into_tensor(out, local)
+    dist.all_gather_into_tensor(out, local, group=data_group())
     out = out.cpu().numpy()
     return out.astype(bool) if is_bool else out
 
@@ -54,7 +57,7 @@ def gather_batches(values, n_batches: int) -> np.ndarray:
     rows of each batch, in batch order) into the global batch order: batch
     0's rows of rank 0, rank 1, ..., then batch 1's."""
     values = np.asarray(values)
-    w = world_size()
+    w = data_size()
     if w == 1:
         return values
     g = all_gather_host_values(values)
@@ -66,11 +69,11 @@ def gather_batches(values, n_batches: int) -> np.ndarray:
 def gather_objects(items: List[Any], n_batches: int) -> List[Any]:
     """:func:`gather_batches` for a list of picklable items (paths, anomaly
     types), in the global batch order."""
-    w = world_size()
+    w = data_size()
     if w == 1:
         return list(items)
     parts: List[Any] = [None] * w
-    dist.all_gather_object(parts, list(items))
+    dist.all_gather_object(parts, list(items), group=data_group())
     per = len(items) // max(n_batches, 1)
     return [x for b in range(n_batches) for part in parts
             for x in part[b * per:(b + 1) * per]]
@@ -78,12 +81,13 @@ def gather_objects(items: List[Any], n_batches: int) -> List[Any]:
 
 def psum_scalar(x) -> float:
     """Global sum of a per-rank vector: each rank sums its own shard and one
-    all-reduce adds the ranks' sums (float32, as the JAX package's psum)."""
+    all-reduce over the data ranks adds their sums (float32, as the JAX
+    package's psum)."""
     local = torch.as_tensor(np.asarray(x, np.float32)).sum().reshape(1)
-    if world_size() == 1:
+    if data_size() == 1:
         return float(local)
     local = local.to(_comm_device())
-    dist.all_reduce(local)
+    dist.all_reduce(local, group=data_group())
     return float(local.cpu())
 
 

@@ -78,11 +78,14 @@ def fsdp_dims(model: torch.nn.Module, n_shards: int,
     return out
 
 
-def shard_state(mesh, state, fsdp: bool = False, min_size: int = DEFAULT_MIN_SIZE):
+def shard_state(mesh, state, fsdp: bool = False, min_size: int = DEFAULT_MIN_SIZE,
+                tp: bool = False):
     """Place ``state`` (a ``TrainState``) on ``mesh``, in place; returns it.
 
-    No mesh (one process): unchanged. Otherwise the model's BatchNorms take
-    the global batch's statistics over the mesh's group
+    No mesh (one process): unchanged. ``tp``: tensor parallelism over the
+    mesh's 'model' axis, composed with ``fsdp`` over 'data'
+    (``parallel/tensor.py::shard_state``). Otherwise the model's BatchNorms
+    take the global batch's statistics over the mesh's group
     (``models/blocks.py::sync_batchnorm``) and then either every rank gets
     rank 0's parameters and buffers (plain data parallelism; the train step
     all-reduces the gradients), or with ``fsdp`` on a mesh wider than 1 the
@@ -90,6 +93,9 @@ def shard_state(mesh, state, fsdp: bool = False, min_size: int = DEFAULT_MIN_SIZ
     is rebuilt over the shards. ``fsdp`` on a 1-wide mesh warns and
     replicates, as the JAX package does.
     """
+    if tp:
+        from tpu_unet_torch.parallel import tensor
+        return tensor.shard_state(mesh, state, fsdp=fsdp, min_size=min_size)
     if mesh is None:
         if fsdp:
             warnings.warn("--fsdp requested on one device: the state stays whole",
@@ -98,19 +104,27 @@ def shard_state(mesh, state, fsdp: bool = False, min_size: int = DEFAULT_MIN_SIZ
     from tpu_unet_torch.models.blocks import sync_batchnorm
 
     group = group_of(mesh)
-    model = state.model
-    sync_batchnorm(model, group)
+    sync_batchnorm(state.model, group)
+    replicate(state.model, group)
+    if fsdp:
+        fully_shard_state(mesh, state, min_size)
+    return state
+
+
+def fully_shard_state(mesh, state, min_size: int = DEFAULT_MIN_SIZE) -> None:
+    """FSDP2 over the 1-D ``mesh`` (the 'data' ranks, whose states are
+    already equal): every parameter sharded under the leaf policy, the
+    optimizer rebuilt over the shards. A 1-wide mesh warns and leaves the
+    state whole, as the JAX package does."""
     n = mesh.size()
-    if fsdp and n == 1:
+    if n == 1:
         warnings.warn(f"--fsdp requested but the '{DATA_AXIS}' mesh axis is 1-wide; "
-                      "state stays fully replicated", stacklevel=2)
-    if not fsdp or n == 1:
-        replicate(model, group)
-        return state
+                      "state stays fully replicated", stacklevel=3)
+        return
     from torch.distributed.fsdp import fully_shard
     from torch.distributed.tensor import Shard
 
-    replicate(model, group)
+    model = state.model
     # FSDP2 shards contiguous parameters only: an FSDP model runs NCHW.
     model.to(memory_format=torch.contiguous_format)
     dims = fsdp_dims(model, n, min_size)
@@ -120,7 +134,6 @@ def shard_state(mesh, state, fsdp: bool = False, min_size: int = DEFAULT_MIN_SIZ
     fully_shard(model, mesh=mesh, reshard_after_forward=True,
                 shard_placement_fn=lambda p: Shard(by_param[p]))
     state.optimizer = _rebuild_optimizer(state.optimizer, old, list(model.parameters()))
-    return state
 
 
 def _rebuild_optimizer(opt: torch.optim.Optimizer, old, new) -> torch.optim.Optimizer:

@@ -1,27 +1,35 @@
-"""Process groups, the data-parallel mesh, the rank launcher and data
-placement (counterpart of ``tpu_unet/parallel/mesh.py``).
+"""Process groups, the device mesh, the rank launcher and data placement
+(counterpart of ``tpu_unet/parallel/mesh.py``).
 
-The JAX package runs one program over a ``('data', 'space')`` device mesh and
-lets GSPMD place the batch and insert the collectives. The port runs the
-PyTorch way: one process per device (a rank), joined by a
+The JAX package runs one program over a ``('data', 'space'[, 'model'])``
+device mesh and lets GSPMD place the batch and insert the collectives. The
+port runs the PyTorch way: one process per device (a rank), joined by a
 ``torch.distributed`` process group, NCCL for ``cuda`` and gloo for ``cpu``,
 chosen from the device type and never swapped in silently. A run over W
-ranks computes what the JAX package computes on a W-device ``'data'`` mesh:
-rank r holds the r-th contiguous block of each global batch
-(:func:`shard_batch`, ``data/loader.py``), BatchNorm takes the global batch's
-statistics (``models/blocks.py``), the losses divide by global denominators
-(``losses/reduction.py``) and the steps average the gradients over the group
-(``train/steps.py``).
+ranks computes what the JAX package computes on a W-device mesh: data rank d
+holds the d-th contiguous block of each global batch (:func:`shard_batch`,
+``data/loader.py``), BatchNorm takes the global batch's statistics
+(``models/blocks.py``), the losses divide by global denominators
+(``losses/reduction.py``) and the steps average the gradients over the
+'data' group (``train/steps.py``).
 
 - :func:`make_mesh`: the ``'data'`` :class:`DeviceMesh` over the ranks of
-  the process group; None for one process without a group (the plain path).
-  The ``'space'`` and ``'model'`` axes wait for slice 10 of the port.
+  the process group, or with ``n_model > 1`` the 3-axis ``('data', 'space',
+  'model')`` mesh of tensor parallelism (``parallel/tensor.py``; 'space' 1
+  wide), ranks in JAX's ``reshape(n_data, n_space, n_model)`` order: rank =
+  d * n_model + m. None for one process without a group (the plain path).
+  The ``'space'`` axis waits for slice 11 of the port.
+- :func:`data_rank`, :func:`data_size`, :func:`model_rank`,
+  :func:`model_size`: this rank's coordinates on the mesh :func:`make_mesh`
+  built last (``model_size()`` 1 without tensor parallelism). Everything
+  that splits or gathers a batch keys on the data coordinate, so every model
+  rank of data index d holds the same rows.
 - :func:`maybe_initialize`: joins a group launched by hand
   (``--coordinator_address``/``--num_processes``/``--process_id``) or by
   torchrun or SLURM (``--multihost``).
-- :func:`launch`: ``--n_devices N`` runs a function on N local ranks
-  (``torch.multiprocessing``, start method ``spawn``, a free port on
-  127.0.0.1), one per GPU, and returns rank 0's result.
+- :func:`launch`: ``--n_devices N`` (times ``--n_model K``) runs a function
+  on N K local ranks (``torch.multiprocessing``, start method ``spawn``, a
+  free port on 127.0.0.1), one per GPU, and returns rank 0's result.
 """
 
 from __future__ import annotations
@@ -41,8 +49,8 @@ DATA_AXIS = "data"
 SPACE_AXIS = "space"
 MODEL_AXIS = "model"
 
-NOT_PORTED = ("waits for slice 10 of the port (tensor parallelism over 'model', "
-              "the 'space' axis); the port runs data parallelism over 'data' only")
+NOT_PORTED = ("waits for slice 11 of the port (the 'space' axis); the port shards the "
+              "batch over 'data' and the channels over 'model' only")
 
 _ENV_TORCHRUN = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
 _ENV_SLURM = ("SLURM_PROCID", "SLURM_NTASKS")
@@ -74,6 +82,41 @@ def is_main_process() -> bool:
     return rank() == 0
 
 
+# The mesh make_mesh built last: its 'model' width and sub-groups.
+_MESH = {"n_model": 1, "data": None, "model": None}
+
+
+def model_size() -> int:
+    """Ranks per tensor-parallel group (1 without tensor parallelism)."""
+    return _MESH["n_model"]
+
+
+def model_rank() -> int:
+    """This rank's index on the 'model' axis."""
+    return rank() % model_size()
+
+
+def data_size() -> int:
+    """Ranks on the 'data' axis: the number of distinct batch blocks."""
+    return world_size() // model_size()
+
+
+def data_rank() -> int:
+    """This rank's index on the 'data' axis: the block of each batch it holds."""
+    return rank() // model_size()
+
+
+def data_group():
+    """The 'data' sub-group of a tensor-parallel mesh; None (the default
+    group) otherwise."""
+    return _MESH["data"]
+
+
+def model_group():
+    """The 'model' sub-group of a tensor-parallel mesh; None otherwise."""
+    return _MESH["model"]
+
+
 def barrier() -> None:
     """Wait for every rank of the group (no-op without one)."""
     if dist.is_initialized() and dist.get_world_size() > 1:
@@ -90,18 +133,21 @@ def visible_devices(device_type: str = "cuda") -> List[torch.device]:
 
 def make_mesh(n_data: Optional[int] = None, n_space: int = 1, n_model: int = 1,
               devices: Optional[Sequence] = None, device_type: Optional[str] = None):
-    """The ``'data'`` mesh of this run.
+    """The mesh of this run.
 
     ``devices`` defaults to one per rank of the process group, or to this
     process's visible devices without a group. Raises ValueError where the
     JAX package's ``make_mesh`` does: a size below 1, more devices than
     exist, a defaulted data axis that comes out below 1; then
-    NotImplementedError for ``n_space`` or ``n_model`` > 1. Returns a
+    NotImplementedError for ``n_space`` > 1. Returns a
     :class:`~torch.distributed.device_mesh.DeviceMesh` with the one dim
-    ``'data'`` over the group's ranks (``n_data`` must be the world size),
-    or None for one process without a group. ``device_type`` (the ranks'
-    tensors) defaults to ``cuda`` under NCCL and ``cpu`` under gloo; ranks
-    sharing a GPU over gloo pass ``cuda``.
+    ``'data'`` over the group's ranks, or for ``n_model`` > 1 the dims
+    ``('data', 'space', 'model')`` of shape ``(n_data, 1, n_model)``
+    (``n_data * n_model`` must be the world size); None for one process
+    without a group. ``device_type`` (the ranks' tensors) defaults to
+    ``cuda`` under NCCL and ``cpu`` under gloo; ranks sharing a GPU over
+    gloo pass ``cuda``. The mesh's 'model' width and sub-groups become
+    :func:`model_size`, :func:`data_group` and :func:`model_group`.
     """
     if n_space < 1 or n_model < 1 or (n_data is not None and n_data < 1):
         raise ValueError(
@@ -124,25 +170,36 @@ def make_mesh(n_data: Optional[int] = None, n_space: int = 1, n_model: int = 1,
                          f"have {len(devices)}")
     if n_space > 1:
         raise not_ported("n_space")
-    if n_model > 1:
-        raise not_ported("n_model")
+    _MESH.update(n_model=1, data=None, model=None)
     if not dist.is_initialized():
-        if n_data > 1:
-            raise ValueError(f"a {n_data}-rank data mesh needs a process group: run "
-                             f"under launch() or torchrun")
+        if need > 1:
+            raise ValueError(f"a {n_data}x{n_model} (data x model) mesh needs a process "
+                             f"group: run under launch() or torchrun")
         return None
-    if n_data != dist.get_world_size():
-        raise ValueError(f"n_data={n_data} but the process group has "
+    if need != dist.get_world_size():
+        raise ValueError(f"n_data={n_data} x n_model={n_model} but the process group has "
                          f"{dist.get_world_size()} ranks")
     from torch.distributed.device_mesh import init_device_mesh
     if device_type is None:
         device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    return init_device_mesh(device_type, (n_data,), mesh_dim_names=(DATA_AXIS,))
+    if n_model == 1:
+        return init_device_mesh(device_type, (n_data,), mesh_dim_names=(DATA_AXIS,))
+    mesh = init_device_mesh(device_type, (n_data, 1, n_model),
+                            mesh_dim_names=(DATA_AXIS, SPACE_AXIS, MODEL_AXIS))
+    _MESH.update(n_model=n_model, data=mesh.get_group(DATA_AXIS),
+                 model=mesh.get_group(MODEL_AXIS))
+    return mesh
 
 
 def group_of(mesh):
-    """The mesh's process group (None for no mesh)."""
-    return None if mesh is None else mesh.get_group(DATA_AXIS)
+    """The mesh's 'data' process group, over which the steps average the
+    gradients and BatchNorm takes its statistics: None for no mesh, and for
+    a tensor-parallel mesh whose 'data' axis is 1 wide (the plain path)."""
+    if mesh is None:
+        return None
+    if MODEL_AXIS in (mesh.mesh_dim_names or ()) and mesh[DATA_AXIS].size() == 1:
+        return None
+    return mesh.get_group(DATA_AXIS)
 
 
 # ---------------------------------------------------------------------------
@@ -211,19 +268,25 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def local_rank_devices(n_devices: Optional[int], device_type: str) -> List[torch.device]:
-    """The devices of a local launch of ``n_devices`` ranks: one GPU each on
-    ``cuda`` (None: every visible GPU; more ranks than GPUs raises, as
-    :func:`make_mesh` does), the CPU for every rank on ``cpu`` (None: 1)."""
+def local_rank_devices(n_devices: Optional[int], device_type: str,
+                       n_model: int = 1) -> List[torch.device]:
+    """The devices of a local launch of ``n_devices`` data ranks times
+    ``n_model`` model ranks: one GPU each on ``cuda`` (None: as many data
+    ranks as the visible GPUs hold; more ranks than GPUs raises, as
+    :func:`make_mesh` does), the CPU for every rank on ``cpu`` (None: 1 data
+    rank)."""
     if n_devices is not None and n_devices < 1:
         raise ValueError(f"--n_devices must be >= 1, got {n_devices}")
+    if n_model < 1:
+        raise ValueError(f"--n_model must be >= 1, got {n_model}")
     if device_type != "cuda":
-        return [torch.device("cpu")] * (n_devices or 1)
+        return [torch.device("cpu")] * ((n_devices or 1) * n_model)
     gpus = visible_devices("cuda")
-    n = len(gpus) if n_devices is None else n_devices
-    if n > len(gpus):
-        raise ValueError(f"--n_devices {n} needs {n} GPUs, have {len(gpus)}")
-    return gpus[:max(n, 1)]
+    n = (len(gpus) // n_model if n_devices is None else n_devices) * n_model
+    if n > len(gpus) or n < n_model:
+        raise ValueError(f"--n_devices {n_devices} x --n_model {n_model} needs "
+                         f"{max(n, n_model)} GPUs, have {len(gpus)}")
+    return gpus[:n]
 
 
 def _rank_main(index: int, fn: Callable, args: tuple, devices: List[str], backend: str,
@@ -246,9 +309,10 @@ def _rank_main(index: int, fn: Callable, args: tuple, devices: List[str], backen
 
 def launch(fn: Callable, args: tuple = (), n_devices: Optional[int] = None,
            device_type: str = "cuda", devices: Optional[Sequence] = None,
-           backend: Optional[str] = None) -> Any:
-    """``fn(*args)`` on every rank of a data-parallel run; returns this
-    process's result (rank 0's, for a local launch).
+           backend: Optional[str] = None, n_model: int = 1) -> Any:
+    """``fn(*args)`` on every rank of a run over ``n_devices`` data ranks
+    times ``n_model`` model ranks; returns this process's result (rank 0's,
+    for a local launch).
 
     - Inside a process group (a rank, torchrun after :func:`maybe_initialize`):
       calls ``fn`` here.
@@ -266,7 +330,7 @@ def launch(fn: Callable, args: tuple = (), n_devices: Optional[int] = None,
     if dist.is_initialized():
         return fn(*args)
     if devices is None:
-        devices = local_rank_devices(n_devices, device_type)
+        devices = local_rank_devices(n_devices, device_type, n_model)
     devices = [str(torch.device(d)) for d in devices]
     if len(devices) == 1:
         return fn(*args)
@@ -289,13 +353,14 @@ def launch(fn: Callable, args: tuple = (), n_devices: Optional[int] = None,
 
 def batch_rows(n: int, grad_accum: int = 1, world: Optional[int] = None,
                index: Optional[int] = None) -> np.ndarray:
-    """The global rows of a batch of ``n`` that rank ``index`` of ``world``
-    holds, in its order: the contiguous block ``[r n/W, (r+1) n/W)``, or
+    """The global rows of a batch of ``n`` that data rank ``index`` of
+    ``world`` (default: :func:`data_rank` of :func:`data_size`) holds, in
+    its order: the contiguous block ``[r n/W, (r+1) n/W)``, or
     under ``grad_accum`` G its block of each microbatch in turn (the JAX
     step's microbatch i is the global rows ``[i n/G, (i+1) n/G)``), so that
     chunking the rank's rows in G gives its part of each microbatch."""
-    world = world_size() if world is None else world
-    index = rank() if index is None else index
+    world = data_size() if world is None else world
+    index = data_rank() if index is None else index
     if n % (world * grad_accum):
         raise ValueError(f"global batch {n} is not divisible by {world} ranks x "
                          f"grad_accum {grad_accum}")
@@ -366,19 +431,22 @@ def _under_torchrun() -> bool:
 def cli_world(args, device_type: str) -> int:
     """A CLI's world size: it joins a group launched outside the process
     (the multi-host flags, or torchrun's environment, which needs no flag)
-    and returns its size, which ``--n_devices`` must match if given; else
-    the ranks :func:`launch` will spawn for ``--n_devices``."""
+    and returns its size, which ``--n_devices`` times ``--n_model`` must
+    match if given; else the ranks :func:`launch` will spawn for
+    ``--n_devices`` and ``--n_model``."""
+    n_model = getattr(args, "n_model", 1)
     joined = maybe_initialize(getattr(args, "coordinator_address", None),
                               getattr(args, "num_processes", None),
                               getattr(args, "process_id", None),
                               auto=getattr(args, "multihost", False) or _under_torchrun(),
                               device_type=device_type)
     if joined:
-        if args.n_devices not in (None, dist.get_world_size()):
-            raise ValueError(f"--n_devices {args.n_devices} but the launched group "
-                             f"has {dist.get_world_size()} ranks")
-        return dist.get_world_size()
-    return len(local_rank_devices(args.n_devices, device_type))
+        world = dist.get_world_size()
+        if world % n_model or args.n_devices not in (None, world // n_model):
+            raise ValueError(f"--n_devices {args.n_devices} x --n_model {n_model} but the "
+                             f"launched group has {world} ranks")
+        return world
+    return len(local_rank_devices(args.n_devices, device_type, n_model))
 
 
 def check_batch(batch_size: int, world: int, grad_accum: int = 1) -> None:

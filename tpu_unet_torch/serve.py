@@ -648,7 +648,7 @@ class SegmentationPredictor(_Engine):
         ``tile_overlap`` px, blended back (``ops/tiling.py``). ``n_devices``
         (or ``devices``) holds one replica per device and splits each batch
         over them, tiled or not (module docstring); ``n_space`` > 1 waits
-        for slice 10 of the port.
+        for slice 11 of the port.
         """
         if quantize not in (None, "none", "int8"):
             raise ValueError(f"unsupported quantize mode {quantize!r}")

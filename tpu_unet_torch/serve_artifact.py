@@ -14,34 +14,46 @@ Layout:
 
 - ``meta.json``: the JAX package's keys (``format_version``, ``kind``,
   ``batch_size``, ``image_size_hw``, ``num_classes``, ``quantize``,
-  ``with_heatmap``, ``bucket_sizes``), plus the ``device`` type the programs
-  were exported on and ``torch_version``;
+  ``with_heatmap``, ``bucket_sizes``, ``platforms``: the device types that
+  have programs), plus the ``device`` type the engine ran on at export and
+  ``torch_version``;
 - ``weights.pt``: the tensors the engine's forward reads, stored once: the
   BN-folded parameters, or the int8 executor's prepared constants (K2's
   packed kernels, combined scales, biases) with the activation scales and
   the attention gates' float leaves;
 - ``program_b<N>.pt2`` (and ``heatmap_b<N>.pt2`` for an anomaly engine built
   ``with_heatmap``): one program per batch size of the engine's bucket
-  ladder, or one at ``batch_size`` without a ladder. Each takes
-  ``(weights, images_u8)``; none holds the weights, so a ladder costs one
-  copy of them. Static shapes per bucket keep each program the graph the
-  live engine runs, and the loaded engine sends each padded batch to its
-  size's program.
+  ladder, or one at ``batch_size`` without a ladder, for the engine's
+  device; ``program_<platform>_b<N>.pt2`` (and ``heatmap_...``) for each
+  other platform. Each takes ``(weights, images_u8)``; none holds the
+  weights, so a ladder and a platform cost one copy of them. Static shapes
+  per bucket keep each program the graph the live engine runs, and the
+  loaded engine sends each padded batch to its size's program.
 
-A program records the device it was traced on: an artifact loads on that
-device type only (``load_artifact`` raises otherwise; it never moves a CUDA
-artifact to the CPU). The JAX package can export one module for several
-platforms; this format cannot. The port's engines serve one device, so there
-is no sharded engine to reject.
+A program records the device it was traced on, so one is written for each
+platform, as the JAX package lowers one module per platform:
+``export_artifact(..., platforms=["cuda", "cpu"])``. The engine's own
+program is traced; another platform's is the same graph moved by
+``torch.export.passes.move_to_device_pass`` (which needs a GPU when it moves
+to ``cuda``). The weights are the engine's, the int8 constants those of its
+own calibration, and K1 and K2, operators that dispatch by device, run their
+plain versions in a CPU program (they are exact: the CPU program of an int8
+engine gives the CUDA program's activations). ``load_artifact`` runs the
+programs of its device's type and raises, naming the artifact's platforms,
+when there are none. Artifacts written before the platforms' programs
+existed (one device, ``platforms`` that device) load as they did. An engine
+with replicas on several devices is refused: export one built on one device
+and serve one artifact per device.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Optional, Sequence, Union
+from typing import List, Optional, Sequence, Union
 
 import torch
+from torch.export.passes import move_to_device_pass
 
 from tpu_unet_torch.core.device import resolve_device
 from tpu_unet_torch.ops.kernels import int8_conv, preprocess  # noqa: F401 — registers K1 and K2
@@ -74,8 +86,37 @@ def _clone_tree(tree):
     return tree.clone()
 
 
-def _program_name(stem: str, batch: int) -> str:
-    return f"{stem}_b{batch}.pt2"
+def _program_name(stem: str, batch: int, platform: Optional[str] = None) -> str:
+    """A program's file: ``platform`` None for the engine's own device."""
+    return f"{stem}_b{batch}.pt2" if platform is None else f"{stem}_{platform}_b{batch}.pt2"
+
+
+# Platform names the port exports for ('gpu' is the JAX package's name).
+_PLATFORMS = {"cuda": "cuda", "gpu": "cuda", "cpu": "cpu"}
+
+
+def artifact_platforms(platforms: Optional[Sequence[str]], device_type: str) -> List[str]:
+    """The device types of ``platforms`` (``cuda``, ``gpu`` as ``cuda``,
+    ``cpu``; duplicates dropped), or ``[device_type]`` for None. ValueError
+    for ``tpu``, which the port cannot serve, and for any other name."""
+    if platforms is None:
+        return [device_type]
+    out: List[str] = []
+    for p in platforms:
+        key = str(p).strip().lower()
+        if key == "tpu":
+            raise ValueError(
+                "artifact platforms: 'tpu' is refused: the port's programs are torch.export "
+                "graphs of PyTorch operators and of its CUDA kernels, which run on cuda and "
+                "cpu devices; a TPU artifact is exported by the JAX package")
+        if key not in _PLATFORMS:
+            raise ValueError(f"artifact platforms: unknown platform {p!r}; the port "
+                             f"exports {sorted(_PLATFORMS)}")
+        if _PLATFORMS[key] not in out:
+            out.append(_PLATFORMS[key])
+    if not out:
+        raise ValueError("artifact platforms: none named")
+    return out
 
 
 def _engine_functions(engine):
@@ -90,8 +131,8 @@ def _engine_functions(engine):
 def export_artifact(engine: Union[AnomalyScorer, SegmentationPredictor], out_dir: str,
                     platforms: Optional[Sequence[str]] = None) -> dict:
     """Write ``engine``'s serving functions to ``out_dir``; returns the meta
-    dict. ``platforms`` may only name the engine's device type (the JAX
-    package's multi-platform export has no counterpart here)."""
+    dict. ``platforms`` (:func:`artifact_platforms`; default the engine's
+    device type) are the device types to write programs for."""
     if len(engine.devices) > 1:
         raise ValueError(
             "artifacts are per-device programs; export an engine built without "
@@ -102,9 +143,10 @@ def export_artifact(engine: Union[AnomalyScorer, SegmentationPredictor], out_dir
         raise ValueError("this engine was loaded from an artifact; export the engine "
                          "built from the checkpoint instead")
     device = engine.device
-    if platforms is not None and {("cuda" if p == "gpu" else p) for p in platforms} != {device.type}:
-        raise ValueError(f"artifact platforms {list(platforms)}: a torch.export program "
-                         f"serves the device it was exported on ({device.type}) only")
+    plats = artifact_platforms(platforms, device.type)
+    if device.type != "cuda" and "cuda" in plats and not torch.cuda.is_available():
+        raise ValueError(f"artifact platforms {plats}: a cuda program is moved from the "
+                         f"traced one on a machine with a GPU, and this one has none")
     buckets = engine.bucket_sizes or (engine.batch_size,)
     # One call of each function prepares every layer its program runs (the
     # int8 executor makes each layer's constants on its first call).
@@ -120,11 +162,16 @@ def export_artifact(engine: Union[AnomalyScorer, SegmentationPredictor], out_dir
             example = torch.zeros((int(b), h, w, 3), dtype=torch.uint8, device=device)
             program = torch.export.export(_Program(fn, bind), (params, example), strict=False)
             program.example_inputs = None  # else each program keeps a copy of the weights
-            torch.export.save(program, os.path.join(out_dir, _program_name(stem, int(b))))
+            if device.type in plats:
+                torch.export.save(program, os.path.join(out_dir, _program_name(stem, int(b))))
+            for plat in plats:
+                if plat != device.type:
+                    torch.export.save(move_to_device_pass(program, plat), os.path.join(
+                        out_dir, _program_name(stem, int(b), plat)))
 
     meta = {"format_version": _FORMAT_VERSION, "kind": kind,
             "batch_size": engine.batch_size, "image_size_hw": [int(h), int(w)],
-            "device": device.type, "platforms": [device.type],
+            "device": device.type, "platforms": plats,
             "torch_version": torch.__version__}
     if getattr(engine, "num_classes", None) is not None:
         meta["num_classes"] = int(engine.num_classes)
@@ -154,8 +201,8 @@ def _shape_dispatch(calls: dict, weights, what: str):
 def load_artifact(artifact_dir: str, device="cuda") -> Union[AnomalyScorer,
                                                               SegmentationPredictor]:
     """Rebuild a serving engine from an exported artifact, on ``device``
-    (``cuda`` unless the caller asks for ``cpu``), which must be of the
-    device type it was exported on."""
+    (``cuda`` unless the caller asks for ``cpu``), whose type must be one of
+    the artifact's ``platforms``."""
     meta_path = os.path.join(artifact_dir, _META_NAME)
     if not os.path.exists(meta_path):
         raise FileNotFoundError(f"not a serving artifact (no {_META_NAME}): "
@@ -166,9 +213,12 @@ def load_artifact(artifact_dir: str, device="cuda") -> Union[AnomalyScorer,
         raise ValueError(f"unsupported artifact format_version "
                          f"{meta.get('format_version')!r} in {artifact_dir!r} (or an "
                          "artifact of the JAX package, which this package cannot load)")
-    if torch.device(device).type != meta["device"]:
-        raise ValueError(f"artifact {artifact_dir!r} was exported on {meta['device']} and "
-                         f"serves there only, not on {device}")
+    plats = meta.get("platforms") or [meta["device"]]
+    kind_of = torch.device(device).type
+    if kind_of not in plats:
+        raise ValueError(f"artifact {artifact_dir!r} was exported on {meta['device']} with "
+                         f"programs for the platforms {plats}; it has none for {device}")
+    platform = None if kind_of == meta["device"] else kind_of
     device = resolve_device(device)
 
     def path_of(name: str) -> str:
@@ -182,8 +232,8 @@ def load_artifact(artifact_dir: str, device="cuda") -> Union[AnomalyScorer,
     buckets = meta.get("bucket_sizes") or [meta["batch_size"]]
 
     def programs(stem: str):
-        calls = {int(b): torch.export.load(path_of(_program_name(stem, int(b)))).module()
-                 for b in buckets}
+        calls = {int(b): torch.export.load(
+            path_of(_program_name(stem, int(b), platform))).module() for b in buckets}
         return _shape_dispatch(calls, weights, stem)
 
     h, w = meta["image_size_hw"]

@@ -18,11 +18,13 @@ otherwise take them from the file.
 
 Under a data-parallel process group rank 0 writes and barriers surround the
 write; under FSDP every rank first joins the gather of each sharded tensor
-(``DTensor.full_tensor``), so the file holds whole tensors in the same
-layout. A checkpoint thus restores at any world size: every rank loads the
-whole file before the state is placed on the mesh
-(``parallel/fsdp.py::shard_state``), which shards the parameters and the
-moments again.
+(:func:`_whole`), and under tensor parallelism the gather of each
+channel slice over 'model' (``parallel/tensor.py::full_tensors``), so the
+file holds whole tensors in the reference layout. A checkpoint thus
+restores at any world size and mesh: every rank loads the whole file before
+the state is placed on the mesh (``parallel/fsdp.py::shard_state``), which
+shards the parameters and the moments again; a tensor-parallel state
+already placed takes its slices of the file (``local_tensors``).
 """
 
 from __future__ import annotations
@@ -34,12 +36,37 @@ import time
 from typing import List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from tpu_unet_torch.parallel.mesh import barrier, is_main_process
+from tpu_unet_torch.parallel.tensor import full_tensors, local_tensors
 from tpu_unet_torch.train.state import TrainState
 
 _IMPL_FLAGS = ("fused", "foreach", "capturable", "differentiable")
 _EPOCH_FILE = re.compile(r"^checkpoint_epoch_(\d+)\.pth$")
+
+
+def _whole(t) -> torch.Tensor:
+    """A DTensor's whole tensor: each rank's shard of a 1-D mesh (FSDP2's
+    placement) gathered with c10d's all_gather over the mesh's group. (Its
+    ``full_tensor()`` runs a functional collective, which dies of SIGSEGV
+    under gloo with CUDA tensors: torch 2.11, two ranks sharing an H100.)"""
+    from torch.distributed.tensor import Shard
+
+    local = t.to_local()
+    placement = t.placements[0]
+    if len(t.placements) != 1 or not isinstance(placement, Shard):
+        return t.full_tensor()
+    group = t.device_mesh.get_group()
+    d, size, n = placement.dim, t.shape[placement.dim], dist.get_world_size(group)
+    chunk = -(-size // n)  # torch.chunk's split: ceil, the last ranks short or empty
+    if local.shape[d] < chunk:
+        pad = list(local.shape)
+        pad[d] = chunk - local.shape[d]
+        local = torch.cat([local, local.new_zeros(pad)], d)
+    parts = [torch.empty_like(local) for _ in range(n)]
+    dist.all_gather(parts, local.contiguous(), group=group)
+    return torch.cat(parts, d).narrow(d, 0, size)
 
 
 def _full(obj):
@@ -49,7 +76,7 @@ def _full(obj):
     from torch.distributed.tensor import DTensor
 
     if isinstance(obj, DTensor):
-        return obj.full_tensor()
+        return _whole(obj)
     if isinstance(obj, dict):
         return {k: _full(v) for k, v in obj.items()}
     if isinstance(obj, (list, tuple)):
@@ -58,10 +85,10 @@ def _full(obj):
 
 
 def _payload(state: TrainState, epoch: int, loss: float) -> dict:
-    return {"epoch": int(epoch),
-            "model_state_dict": _full(state.model.state_dict()),
-            "optimizer_state_dict": _full(state.optimizer.state_dict()),
-            "loss": float(loss)}
+    model_sd, opt_sd = full_tensors(state, _full(state.model.state_dict()),
+                                    _full(state.optimizer.state_dict()))
+    return {"epoch": int(epoch), "model_state_dict": model_sd,
+            "optimizer_state_dict": opt_sd, "loss": float(loss)}
 
 
 def _write(payload: dict, path: str) -> int:
@@ -186,7 +213,8 @@ def load_checkpoint(state: TrainState, path: str,
     """Restore ``state`` in place from ``path``; returns (state, epoch, loss).
 
     The model loads with ``strict=True``, before the state is placed on a
-    mesh. ``path`` may also hold a bare
+    mesh (or after, under tensor parallelism: each rank takes its slices).
+    ``path`` may also hold a bare
     state_dict (a reference model file): then epoch is -1 (no epoch
     completed), loss 0.0, and the optimizer is left as it is.
     """
@@ -196,6 +224,7 @@ def load_checkpoint(state: TrainState, path: str,
         epoch, loss = int(blob.get("epoch", -1)), float(blob.get("loss", 0.0))
     else:
         model_sd, opt_sd, epoch, loss = blob, None, -1, 0.0
+    model_sd, opt_sd = local_tensors(state, model_sd, opt_sd)
     state.model.load_state_dict(model_sd, strict=True)
     if restore_optimizer and opt_sd is not None:
         flags = [{k: g[k] for k in _IMPL_FLAGS if k in g}

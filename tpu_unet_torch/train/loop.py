@@ -35,7 +35,7 @@ import torch
 from tpu_unet_torch.metrics.binary import calculate_metrics
 from tpu_unet_torch.metrics.confusion import SegmentationMetrics
 from tpu_unet_torch.parallel.collectives import all_gather_host_values, gather_batches
-from tpu_unet_torch.parallel.mesh import is_main_process, world_size
+from tpu_unet_torch.parallel.mesh import data_size, is_main_process
 
 _LOSS_NAMES = ("total_loss", "recon_loss", "seg_loss")
 
@@ -170,7 +170,7 @@ def _host(parts: List[torch.Tensor]) -> np.ndarray:
 def _global_counts(valids: List[torch.Tensor]) -> np.ndarray:
     """Each batch's valid rows over every rank, as float64."""
     local = torch.stack([v.sum() for v in valids]).cpu().numpy().astype(np.float64)
-    if world_size() == 1:
+    if data_size() == 1:
         return local
     return all_gather_host_values(local).reshape(-1, len(valids)).sum(0)
 

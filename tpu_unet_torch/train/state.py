@@ -37,5 +37,8 @@ def create_train_state(model: torch.nn.Module, optimizer_name: str = "adam",
 
 
 def num_params(state_or_model) -> int:
+    """The model's parameter count, whole: a tensor-parallel model's slices
+    count at their whole size."""
     model = getattr(state_or_model, "model", state_or_model)
-    return sum(p.numel() for p in model.parameters())
+    dims, n = getattr(model, "tp_dims", {}), getattr(model, "tp_size", 1)
+    return sum(p.numel() * (n if name in dims else 1) for name, p in model.named_parameters())

@@ -34,6 +34,13 @@ its reduce-scatter). The returned loss scalars and confusion matrices are
 the global batch's, the same on every rank. The eval steps take the group
 for their loss scalars (and the seg matrix) and return per-row outputs of
 the rank's rows.
+
+Under tensor parallelism (``parallel/tensor.py``) ``group`` is the mesh's
+'data' group (``parallel/mesh.py::group_of``; None when it is 1 wide):
+every model rank of a data index holds the same rows and draws, the
+gradients are averaged and the denominators summed over 'data' only, and
+the model's forward runs the collectives over 'model' itself, so the
+replicated leaves stay equal on every rank.
 """
 
 from __future__ import annotations
