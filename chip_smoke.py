@@ -19,7 +19,9 @@
    as a yardstick a bfloat16 channels_last F.conv2d of the same shape
    (cuDNN: the same work at half the int8 tensor-core rate, not the same
    function; the port never calls it). Seven shapes off the main path that
-   exercise the tiling's edges are held bit for bit too.
+   exercise the tiling's edges are held bit for bit too. At b8, the 18
+   SegmentationUNet convs at 1024 x 512 and 512², UNet++'s 30, and the 18
+   at one of two 'space' ranks' halo'd rows (514 x 512 at the top level).
 4. The main path at full width: AnomalyUNet(base_features=64) at 256², weights
    from a seed and BN statistics warmed on synthetic images, served by
    AnomalyScorer in bf16 and int8 (calibrated on 2 batches of 16) at batch
@@ -92,7 +94,7 @@
    seg shapes in phases 2 and 3 (K1 at (8,1024,512,3) and (8,512,512,3), K2
    at SegmentationUNet's 18 convs at 1024 x 512 and 512², b8).
 10. The model extensions at full width on the same trees: UNet++ with deep
-   supervision on Gear (3 epochs, tested in bf16, f32 --fold_bn and int8 at
+   supervision on Gear (2 epochs, tested in bf16, f32 --fold_bn and int8 at
    --heads 4 and 1), the attention UNet on KolektorSDD (1 epoch, 3 test
    modes), bilinear AnomalyUNet serving, and base 8 on the CPU against the
    card.
@@ -177,6 +179,28 @@
    ``python3 chip_smoke.py fsdp_widths`` instead runs FSDP at base 64, 32,
    16 and 8 (the flagship's geometry), at base 64 with 2 rows of 64² per
    rank, and at base 64 with CPU tensors, each in a child process.
+15. The 'space' axis on the one card ([space] lines; gloo ranks sharing
+   cuda:0, so correctness and memory figures, not scaling).
+   train_kolektorsdd's step (SegmentationUNet base 64, 1024 x 512, b8,
+   class weights 1/50/50, dropout) on a (1, 2, 1) mesh: one f32 SGD step
+   against world size 1 (DP_UPDATE_TOL, DP_STAT_TOL, losses 1e-5, logits
+   SPACE_LOGIT_TOL, the confusion matrix equal but for ties at that
+   rounding), the halo's exchanges and bytes per rank, then SPACE_STEPS
+   bf16 Adam steps: ms per step and peak GB per rank beside the
+   one-process step's. The int8 seg eval on the same mesh: bit for bit
+   one process's, K1 1x and K2 18x per rank (K2 is also held at the
+   halo'd shapes in phase 3, ``kolektorsdd_space2``). One
+   ``train_kolektorsdd --n_space 2`` epoch of a --debug subset of phase 9's
+   tree and its f32 test against one process's (metrics within 1e-5; the
+   .pth loads strict at world size 1). SegmentationPredictor(n_space=2) on
+   [cuda:0, cuda:0]: int8 bit for bit one device, f32 masks equal but for
+   ties and confidences within SPACE_CONF_RTOL, bf16 within
+   SPACE_MAX_DISAGREE. The attention UNet on (1, 2, 1) and SegmentationUNet
+   on (1, 2, 2) at base TP_SEG_BASE on Gear's 512² batch against world size
+   1, their logits held as the step's. ``python3 chip_smoke.py
+   halo_probe`` instead runs gloo's ``batch_isend_irecv`` and
+   ``all_gather`` of edge rows on CUDA tensors, each dtype in a child
+   process.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit
 (nvidia-smi), and as the last line ``{"ok": true, "device": {...}}``; the
@@ -228,6 +252,10 @@ _SEG_LEVELS = [0, 0, 1, 1, 2, 2, 3, 3, 4, 4, 3, 3, 2, 2, 1, 1, 0, 0]
 SEG_CONVS = {name: [(h >> lv, w >> lv, cin, cout)
                     for lv, (cin, cout) in zip(_SEG_LEVELS, _SEG_CHANNELS)]
              for name, (h, w) in (("kolektorsdd", (1024, 512)), ("gear", (512, 512)))}
+# The same convs as one of two 'space' ranks runs them at 1024 x 512 (phase
+# 15): its 512 >> level rows with one halo row above and below.
+SEG_CONVS["kolektorsdd_space2"] = [(h // 2 + 2, w, cin, cout)
+                                   for h, w, cin, cout in SEG_CONVS["kolektorsdd"]]
 
 
 def unetpp_convs(base, h, w, max_j=4):
@@ -2187,7 +2215,8 @@ def phase_extensions(torch, np, report, tmp, keep=None):
     """Phase 10: the model extensions at full width. (a) UNet++ with deep
     supervision on phase 9's synthetic Gear tree through the seg CLIs'
     functions (train_gear's defaults: base 64, bf16, 512², b8, Adam 1e-3):
-    3 epochs (epoch 0 decodes cold, epoch 1 profiled, epoch 2 clean), then
+    2 epochs (epoch 0 decodes cold, epoch 1 cached; not profiled since PR
+    12, whose phase 15 took the time of the profile and a third epoch), then
     the test path on best_model.pth in bf16, f32 --fold_bn and int8, at
     --heads 4 and --heads 1 (K2 30 and 6 times per int8 batch). (b) The
     attention UNet on the synthetic KolektorSDD tree at its defaults
@@ -2204,9 +2233,9 @@ def phase_extensions(torch, np, report, tmp, keep=None):
                     + seg_test_modes(6, extra=["--heads", "1"], suffix="_heads1",
                                      limits=EXT_MAX_DISAGREE["gear_unetpp_heads1"]))
     exp, _, _ = _seg_dataset(torch, np, out, legs, "gear_unetpp", train_gear, test_gear,
-                             os.path.join(tmp, "gear"), tmp, epochs=3, test_modes=unetpp_modes,
+                             os.path.join(tmp, "gear"), tmp, epochs=2, test_modes=unetpp_modes,
                              model_flags=["--model", "unetpp", "--deep_supervision"],
-                             profile_epoch=1, flops_fn=unetpp_forward_flops,
+                             flops_fn=unetpp_forward_flops,
                              checkpoint="best_model.pth")
     if keep:  # for phase 12's visualize_seg
         shutil.copy(os.path.join(exp, "checkpoints", "best_model.pth"),
@@ -3764,35 +3793,48 @@ def _tp_segs(names, base, n_model):
     return {name: _tp_seg(name, base, n_model) for name in names}
 
 
-def _tp_seg(name, base, n_model):
+def _tp_seg(name, base, n_model, n_space=1):
     """One f32 SGD seg step (dropout drawn from the global batch's
-    generator) of ``name`` at ``base`` on Gear's batch, on a (1, 1,
-    ``n_model``) mesh (1: this process alone); the whole state before and
-    after, and the losses and confusion matrix."""
+    generator) of ``name`` at ``base`` on Gear's batch, on a (1, ``n_space``,
+    ``n_model``) mesh (1, 1: this process alone); the whole state before and
+    after, the losses and confusion matrix, and the logits it counts (the
+    whole images' under 'space')."""
+    import numpy as np
     import torch
+    import torch.distributed as dist
 
     from tpu_unet_torch.core.precision import get_policy
     from tpu_unet_torch.models import build_model
     from tpu_unet_torch.parallel.fsdp import shard_state
-    from tpu_unet_torch.parallel.mesh import group_of, make_mesh
+    from tpu_unet_torch.parallel.mesh import group_of, make_mesh, model_rank
+    from tpu_unet_torch.parallel.spatial import mesh_exchanger
+    from tpu_unet_torch.train import steps
     from tpu_unet_torch.train.state import create_train_state
     from tpu_unet_torch.train.steps import AugmentConfig, make_seg_train_step
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    mesh = make_mesh(1, n_model=n_model, device_type="cuda") if n_model > 1 else None
+    mesh = (make_mesh(1, n_space=n_space, n_model=n_model, device_type="cuda")
+            if n_model * n_space > 1 else None)
     torch.manual_seed(4)
     model = build_model(name, n_classes=4, base_features=base, policy=get_policy("f32"))
     state = create_train_state(model, "sgd", 1e-2, 1e-4, device="cuda")
     before = _cpu_state_dict(state)
     state = shard_state(mesh, state, tp=n_model > 1)
     images, labels = _gear_batch(torch)
-    step = make_seg_train_step(4, aug_cfg=AugmentConfig(), group=group_of(mesh))
+    step = make_seg_train_step(4, aug_cfg=AugmentConfig(), group=group_of(mesh),
+                               space=mesh_exchanger(mesh))
     augment, dropout = step.draws(state.model, len(images),
                                   torch.Generator(device="cuda").manual_seed(0))
-    losses, cm = step.with_draws(state, images, labels, augment, dropout)
+    with _keeping_logits(steps, "sliced_argmax") as logits:
+        losses, cm = step.with_draws(state, images, labels, augment, dropout)
+    logits = logits[0]
+    if n_space > 1:  # ranks (s, m) in rank order: model rank 0's rows of each s
+        parts = [None] * dist.get_world_size()
+        dist.all_gather_object(parts, (model_rank(), logits))
+        logits = np.concatenate([x for m, x in parts if m == 0], axis=1)
     return {"before": before, "sd": _cpu_state_dict(state), "cm": cm.cpu().numpy(),
-            "losses": {k: float(v) for k, v in losses.items()},
+            "losses": {k: float(v) for k, v in losses.items()}, "logits": logits,
             "dropped": float((~dropout[0]).float().mean())}
 
 
@@ -4049,6 +4091,506 @@ def phase_tp(torch, np, report, tmp, keep, dp_ref):
     return legs
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the 'space' axis on the one card
+# ---------------------------------------------------------------------------
+
+# Timed bf16 Adam steps of the KolektorSDD step on the (1, 2, 1) mesh and in
+# one process (after one warm-up step each).
+SPACE_STEPS = 3
+# The CLI leg's --debug subset of phase 9's KolektorSDD tree (train, and the
+# test split's evaluation).
+SPACE_CLI_SAMPLES = 16
+# train_kolektorsdd's defaults: SegmentationUNet base 64, 3 classes, 1024 x
+# 512, b8, class weights 1/50/50, dropout 0.1, the KolektorSDD augment.
+SPACE_HW = (1024, 512)
+# Largest f32 logit difference of phase 15's sharded runs against one
+# process, relative to the largest logit: 1.5e-6 to 5.3e-6 on an H100
+# (the KolektorSDD step in two runs, the predictor and both Gear steps in
+# one), so 1e-4 leaves
+# rounding room; a halo fault moves logits by their own size.
+SPACE_LOGIT_TOL = 1e-4
+# SegmentationPredictor(n_space=2) against one device: f32 (TF32 off) masks
+# equal but for ties and mean confidences within SPACE_CONF_RTOL (the CPU
+# test's; 6.8e-8 measured twice on an H100); int8 bit for bit. The
+# bf16 leg is a secondary check: the share of pixels whose class may differ,
+# about 5x what two H100 runs measured (1.88e-4 both). The weights are
+# seeded, not trained, so the class logits nearly tie (phase 11's
+# SERVE_MAX_DISAGREE), and cuDNN's bf16 algorithms differ between the
+# 514-row and 1024-row inputs.
+SPACE_CONF_RTOL = 2e-5
+SPACE_MAX_DISAGREE = 1e-3
+
+
+@contextlib.contextmanager
+def _keeping_logits(module, name):
+    """Within the block, ``module.name`` (a head taking NHWC logits first)
+    also keeps a host copy of each call's logits, in the list yielded."""
+    kept, fn = [], getattr(module, name)
+
+    def keep(logits, *args, **kwargs):
+        kept.append(logits.detach().float().cpu().numpy())
+        return fn(logits, *args, **kwargs)
+
+    setattr(module, name, keep)
+    try:
+        yield kept
+    finally:
+        setattr(module, name, fn)
+
+
+def _ties_only(np, one, other, what):
+    """Hold two runs' f32 NHWC logits of the same batch: their largest
+    difference within SPACE_LOGIT_TOL of the largest logit (a halo fault
+    moves logits by their own size), and every pixel whose class differs a
+    tie at that rounding (its top-two margin in ``one`` within twice that
+    difference). Returns the numbers."""
+    d_logit = float(np.abs(other - one).max())
+    scale = float(np.abs(one).max())
+    top2 = np.sort(one, axis=-1)[..., -2:]
+    moved = one.argmax(-1) != other.argmax(-1)
+    margin = float((top2[..., 1] - top2[..., 0])[moved].max()) if moved.any() else 0.0
+    check(d_logit <= SPACE_LOGIT_TOL * scale,
+          f"{what}: f32 logits differ by {d_logit:.2e} (largest logit {scale:.2e}, "
+          f"tol {SPACE_LOGIT_TOL})")
+    check(margin <= 2 * d_logit,
+          f"{what}: {int(moved.sum())} pixels changed class, top-two margin up to "
+          f"{margin:.2e} against logits {d_logit:.2e} apart")
+    return {"logit_max_diff": d_logit, "logit_scale": scale, "moved_pixels": int(moved.sum()),
+            "moved_max_margin": margin}
+
+
+def _tie_note(t):
+    return (f"logits within {t['logit_max_diff']:.2e} (largest {t['logit_scale']:.2e}), "
+            + ("no pixel changed class" if not t["moved_pixels"] else
+               f"{t['moved_pixels']} pixels changed class, each a tie (top-two margin at "
+               f"most {t['moved_max_margin']:.2e})"))
+
+
+def _ksdd_batch(torch, seed):
+    """A KolektorSDD batch of 8: seeded textures and 3-class label maps."""
+    images = torch.from_numpy(synth_hw(torch, 8, SPACE_HW, seed)).cuda()
+    a = synth_masks(torch, 8, SPACE_HW[0], seed + 1, "cuda")[:, :, :SPACE_HW[1]]
+    b = synth_masks(torch, 8, SPACE_HW[0], seed + 2, "cuda")[:, :, :SPACE_HW[1]]
+    return images, (a + 2 * b).clamp(max=2)[..., 0].to(torch.uint8).contiguous()
+
+
+def _ksdd_step(torch, precision, opt, lr, mesh=None):
+    """train_kolektorsdd's model and seg step from seed 5, placed on
+    ``mesh`` (None: this process alone): (state, step)."""
+    from tpu_unet_torch.cli.train_kolektorsdd import make_workload
+    from tpu_unet_torch.core.precision import get_policy
+    from tpu_unet_torch.models import build_model
+    from tpu_unet_torch.parallel.fsdp import shard_state
+    from tpu_unet_torch.parallel.mesh import group_of
+    from tpu_unet_torch.parallel.spatial import mesh_exchanger
+    from tpu_unet_torch.train.state import create_train_state
+    from tpu_unet_torch.train.steps import SegLossConfig, make_seg_train_step
+
+    torch.manual_seed(5)
+    model = build_model("seg_unet", n_classes=3, base_features=64, dropout=0.1,
+                        policy=get_policy(precision))
+    state = shard_state(mesh, create_train_state(model, opt, lr, 1e-4, device="cuda"))
+    step = make_seg_train_step(3, SegLossConfig(class_weights=(1.0, 50.0, 50.0)),
+                               make_workload().augment, group=group_of(mesh),
+                               space=mesh_exchanger(mesh))
+    return state, step
+
+
+def _ksdd_leg(torch, mesh=None):
+    """One f32 SGD step of the KolektorSDD step (the state before and
+    after, losses, matrix, halo bytes), then the bf16 Adam step's ms per
+    step and peak GB on this process's allocator."""
+    from tpu_unet_torch.parallel import spatial
+
+    from tpu_unet_torch.train import steps
+
+    images, labels = _ksdd_batch(torch, 160)
+    state, step = _ksdd_step(torch, "f32", "sgd", 1e-2, mesh)
+    before = _cpu_state_dict(state)
+    draws = step.draws(state.model, len(images), torch.Generator(device="cuda").manual_seed(0))
+    spatial.COUNTERS.update(exchanges=0, bytes=0)
+    with _keeping_logits(steps, "sliced_argmax") as logits:  # what the matrix counts
+        losses, cm = step.with_draws(state, images, labels, *draws)
+    out = {"before": before, "sd": _cpu_state_dict(state), "cm": cm.cpu().numpy(),
+           "losses": {k: float(v) for k, v in losses.items()}, "halo": dict(spatial.COUNTERS),
+           "dropped": float((~draws[1][0]).float().mean()), "logits": logits[0]}
+    del state, step
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state, step = _ksdd_step(torch, "bf16", "adam", 1e-3, mesh)
+    g = torch.Generator(device="cuda").manual_seed(1)
+    float(step(state, images, labels, g)[0]["total_loss"])  # warm-up
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(SPACE_STEPS):
+        loss = step(state, images, labels, g)[0]["total_loss"]
+    t1.record()
+    out["bf16_loss"] = float(loss)
+    torch.cuda.synchronize()
+    out["bf16_ms"] = t0.elapsed_time(t1) / SPACE_STEPS
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del state, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def _int8_eval(torch, qparams, images, labels, mesh=None):
+    """The int8 seg eval step (SegmentationUNet) on ``mesh`` with the launch
+    counters zeroed just before and read just after: predictions, matrix,
+    losses and launches."""
+    from tpu_unet_torch.ops.quantize import make_quantized_seg_eval_step, tree_to
+    from tpu_unet_torch.parallel.mesh import group_of
+    from tpu_unet_torch.parallel.spatial import mesh_exchanger
+    from tpu_unet_torch.train.steps import SegLossConfig
+
+    step = make_quantized_seg_eval_step(3, SegLossConfig(class_weights=(1.0, 50.0, 50.0)),
+                                        group=group_of(mesh), space=mesh_exchanger(mesh))
+    qparams = tree_to(qparams, "cuda")
+    _zero_launches()
+    losses, preds, cm = step(qparams, images, labels)
+    torch.cuda.synchronize()
+    return {"preds": preds.cpu().numpy(), "cm": cm.cpu().numpy(), "launches": _launches(),
+            "losses": {k: float(v) for k, v in losses.items()}}
+
+
+def _space_rank(qparams):
+    """Phase 15.1-15.2 on one of two ranks sharing cuda:0 over gloo, a (1,
+    2, 1) mesh: the KolektorSDD leg and the int8 eval; rank 0's results,
+    with every rank's launches and peak."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from tpu_unet_torch.parallel.mesh import make_mesh
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(1, n_space=2, device_type="cuda")
+    out = _ksdd_leg(torch, mesh)
+    out["int8"] = _int8_eval(torch, qparams, *_ksdd_batch(torch, 170), mesh)
+    parts = [None] * dist.get_world_size()
+    dist.all_gather_object(parts, {"launches": out["int8"]["launches"], "logits": out["logits"],
+                                   "peak_gb": out["peak_gb"], "bf16_ms": out["bf16_ms"]})
+    out["logits"] = np.concatenate([p.pop("logits") for p in parts], axis=1)  # whole images
+    out["per_rank"] = parts
+    return out
+
+
+def _space_cli_rank(data_root, work, train_flags, test_flags):
+    """train_seg (train_kolektorsdd --n_space 2 on the --debug subset), then
+    the test split's evaluation on its last checkpoint in f32 (load_seg_model,
+    make_eval_loader, validate_seg_epoch): rank 0's results, metrics and
+    launches."""
+    import torch
+
+    from tpu_unet_torch.cli import test_kolektorsdd, train_kolektorsdd
+    from tpu_unet_torch.cli._seg_common import _Subset, train_seg
+    from tpu_unet_torch.parallel.mesh import synced_timestamp
+
+    torch.backends.cudnn.allow_tf32 = False  # the f32 test is held to one process's
+    torch.backends.cuda.matmul.allow_tf32 = False
+    args = train_kolektorsdd.parse_args(train_flags)
+    workload = train_kolektorsdd.make_workload()
+    train_ds, val_ds, _, n_classes, _ = workload.make_datasets(args)
+    train_ds = _Subset(train_ds, args.debug_samples, args.seed)
+    val_ds = _Subset(val_ds, args.debug_samples, args.seed + 1)
+    exp = os.path.join(work, f"ksdd_space_{synced_timestamp()}")
+    t0 = time.perf_counter()
+    results = train_seg(args, workload, train_ds, val_ds, n_classes, torch.device("cuda"), exp)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    ckpt = os.path.join(exp, "checkpoints", "checkpoint_epoch_0.pth")
+    test = _seg_test(torch, test_kolektorsdd.parse_args(test_flags + ["--checkpoint", ckpt]))
+    return {"results": results, "ckpt": ckpt, "train_s": train_s, "test": test}
+
+
+def _seg_test(torch, targs):
+    """The seg evaluator's work (run_seg_evaluation without its plots) with
+    the launch counters zeroed just before and read just after: the
+    metrics, losses, matrix, batches and launches."""
+    from tpu_unet_torch.cli import test_kolektorsdd
+    from tpu_unet_torch.cli._seg_common import (_Subset, eval_mesh, load_seg_model,
+                                                make_eval_loader)
+    from tpu_unet_torch.train.loop import validate_seg_epoch
+
+    workload = test_kolektorsdd.make_workload()
+    train_ds, _, test_ds, n_classes, _ = workload.make_datasets(targs)
+    ds = _Subset(test_ds, targs.debug_samples, 0)
+    dev = torch.device("cuda")
+    _zero_launches()
+    t0 = time.perf_counter()
+    mesh = eval_mesh(targs, dev)
+    state, eval_step, loss_cfg = load_seg_model(targs, n_classes, dev, train_ds, mesh)
+    loader = make_eval_loader(targs, ds, dev, mesh)
+    losses, cm = validate_seg_epoch(state, eval_step, loader, n_classes)
+    torch.cuda.synchronize()
+    metrics = {k: float(v) for k, v in cm.compute_all_metrics().items()
+               if getattr(v, "ndim", 0) == 0}
+    return {"metrics": metrics, "losses": losses, "cm": cm.confusion_matrix,
+            "batches": len(loader), "launches": _launches(),
+            "seconds": time.perf_counter() - t0}
+
+
+def _space_legs(torch, np, out, legs, tmp, label):
+    """Phase 15's legs (module docstring, phase 15)."""
+    from tpu_unet_torch.models import build_model
+    from tpu_unet_torch.ops.quantize import chunk_calibration, quantize_from_train_state, tree_to
+    from tpu_unet_torch import serve
+    from tpu_unet_torch.parallel.mesh import launch
+    from tpu_unet_torch.serve import SegmentationPredictor
+
+    two, four = ["cuda:0"] * 2, ["cuda:0"] * 4
+    res = {}
+
+    # --- 15.1-15.2: the KolektorSDD step and the int8 eval on (1, 2, 1) --------
+    one = _ksdd_leg(torch)
+    sd = warm_seg_state_dict(torch, "seg_unet", 3, SPACE_HW)
+    calib = synth_hw(torch, 16, SPACE_HW, 171)
+    qparams = quantize_from_train_state("seg_unet", sd, chunk_calibration(calib, 8),
+                                        device="cuda")
+    one_int8 = _int8_eval(torch, qparams, *_ksdd_batch(torch, 170))
+    legs["space_int8_eval_one"] = one_int8["launches"]
+    check(one_int8["launches"] == {"normalize_u8": 1, "conv3x3_int8": 18},
+          f"one-process int8 eval launched {one_int8['launches']}")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    r0 = launch(_space_rank, (tree_to(qparams, "cpu"),), devices=two, backend="gloo")
+    launch_s = time.perf_counter() - t0
+    e = (_update_err(r0["sd"], one["sd"], one["before"]),
+         _state_dict_errs(r0["sd"], one["sd"])[1])
+    check(e[0] <= DP_UPDATE_TOL and e[1] <= DP_STAT_TOL,
+          f"space f32 SGD step vs world size 1: the update {e[0]:.2e} (tol {DP_UPDATE_TOL}), "
+          f"BN statistics {e[1]:.2e} (tol {DP_STAT_TOL})")
+    for k, v in r0["losses"].items():
+        check(abs(v - one["losses"][k]) <= 1e-5 * abs(one["losses"][k]) + 1e-7,
+              f"space f32 loss {k} {v} vs world size 1 {one['losses'][k]}")
+    # The matrix counts each pixel's argmax: equal but for ties.
+    ties = _ties_only(np, one["logits"], r0["logits"], "space f32 step vs world size 1")
+    cm_moved = int(np.abs(r0["cm"] - one["cm"]).sum())
+    check(cm_moved <= 2 * ties["moved_pixels"],
+          f"space confusion matrix {r0['cm'].tolist()} vs {one['cm'].tolist()}")
+    halo_mb = r0["halo"]["bytes"] / 1e6
+    res["ksdd"] = {"update_err": e[0], "stat_err": e[1], "cm_moved": cm_moved, **ties,
+                   "losses": r0["losses"], "halo_exchanges": r0["halo"]["exchanges"],
+                   "halo_mb_per_rank_step": halo_mb, "launch_s": launch_s,
+                   "bf16_ms": [p["bf16_ms"] for p in r0["per_rank"]],
+                   "peak_gb": [p["peak_gb"] for p in r0["per_rank"]],
+                   "one_bf16_ms": one["bf16_ms"], "one_peak_gb": one["peak_gb"]}
+    print(f"[space] train_kolektorsdd's step (SegmentationUNet base 64, 1024 x 512, b8, class "
+          f"weights 1/50/50, dropout dropped {r0['dropped']:.3f}) on a (1, 2, 1) mesh of two "
+          f"gloo ranks sharing cuda:0, one f32 SGD step against world size 1 on the same batch "
+          f"and draws: the update {e[0]:.2e} (rel L2, tol {DP_UPDATE_TOL}), BN statistics "
+          f"{e[1]:.2e} (tol {DP_STAT_TOL}), losses within 1e-5, {_tie_note(ties)} of "
+          f"{int(one['cm'].sum())} (confusion matrix {'equal' if cm_moved == 0 else 'moved by '
+          'those pixels only'}); halo {r0['halo']['exchanges']} "
+          f"exchanges, {halo_mb:.2f} MB sent per rank per step (f32)", flush=True)
+    print(f"[space] bf16 Adam, {SPACE_STEPS} steps: "
+          + ", ".join(f"rank {i} {p['bf16_ms']:.1f} ms per step, peak {p['peak_gb']:.2f} GB"
+                      for i, p in enumerate(r0["per_rank"]))
+          + f"; one process {one['bf16_ms']:.1f} ms, peak {one['peak_gb']:.2f} GB; {label}",
+          flush=True)
+    for i, p in enumerate(r0["per_rank"]):
+        legs[f"space_int8_eval_rank{i}"] = p["launches"]
+        check(p["launches"] == {"normalize_u8": 1, "conv3x3_int8": 18},
+              f"space int8 eval on rank {i} launched {p['launches']}")
+    q = r0["int8"]
+    check(np.array_equal(q["preds"], one_int8["preds"]) and
+          np.array_equal(q["cm"], one_int8["cm"]),
+          f"space int8 eval differs from one process: "
+          f"{int((q['preds'] != one_int8['preds']).sum())} pixels")
+    res["int8"] = {"bit_for_bit": True, "launches_per_rank": [p["launches"]
+                                                             for p in r0["per_rank"]]}
+    print(f"[space] int8 seg eval (SegmentationUNet base 64, 1024 x 512, b8) on (1, 2, 1): "
+          f"predictions and matrix bit for bit one process's; per rank K1 1x and K2 18x (on "
+          f"514-row halo'd inputs at the top level); launch and run of 15.1-15.2 "
+          f"{launch_s:.1f} s", flush=True)
+    del one, r0
+    torch.cuda.empty_cache()
+
+    # --- 15.3: train_kolektorsdd --n_space 2, then its test -----------------------
+    work = tempfile.mkdtemp(prefix="chip_smoke_space_", dir=tmp)
+    data_root = os.path.join(tmp, "ksdd")
+    common = ["--data_root", data_root, "--debug", "--debug_samples", str(SPACE_CLI_SAMPLES),
+              "--num_workers", "4", "--device", "cuda"]
+    train_flags = common + ["--epochs", "1", "--val_freq", "1", "--progress_every", "0",
+                            "--n_space", "2", "--save_dir", work]
+    test_flags = common + ["--precision", "f32", "--batch_size", "8",
+                           "--output_dir", os.path.join(work, "test")]
+    cli = launch(_space_cli_rank, (data_root, work, train_flags,
+                                   test_flags + ["--n_space", "2"]), devices=two, backend="gloo")
+    blob = torch.load(cli["ckpt"], map_location="cpu", weights_only=True)
+    build_model("seg_unet", n_classes=3, base_features=64).load_state_dict(
+        blob["model_state_dict"], strict=True)
+    from tpu_unet_torch.cli import test_kolektorsdd
+    whole = _seg_test(torch, test_kolektorsdd.parse_args(test_flags + ["--checkpoint",
+                                                                       cli["ckpt"]]))
+    t = cli["test"]
+    legs["space_cli_test_f32"] = t["launches"]
+    check(t["launches"] == {"normalize_u8": t["batches"], "conv3x3_int8": 0},
+          f"test_kolektorsdd --n_space 2 launched {t['launches']} for {t['batches']} batches")
+    worst = max(abs(t["metrics"][k] - v) for k, v in whole["metrics"].items())
+    check(worst <= 1e-5, f"test_kolektorsdd --n_space 2 metrics differ from one process's by "
+                         f"{worst:.2e}: {t['metrics']} vs {whole['metrics']}")
+    r = cli["results"]
+    res["cli"] = {"train_s": cli["train_s"], "train_losses": r["train_losses"],
+                  "val_losses": r["val_losses"], "metric_max_diff": worst,
+                  "cm_equal": bool(np.array_equal(t["cm"], whole["cm"])),
+                  "test_s": t["seconds"], "mean_iou": t["metrics"]["mean_iou"]}
+    print(f"[space] train_kolektorsdd --n_space 2 (two gloo ranks on cuda:0, defaults: base 64, "
+          f"bf16, 1024 x 512, b8) one epoch of --debug_samples {SPACE_CLI_SAMPLES}: "
+          f"{cli['train_s']:.1f} s (train loss {r['train_losses'][0]:.4f}, val loss "
+          f"{r['val_losses'][0]:.4f}); its .pth loads strict at world size 1; test_kolektorsdd "
+          f"--n_space 2 --precision f32 on it ({t['batches']} batches, K1 once per batch per "
+          f"rank): metrics within {worst:.1e} of one process's, confusion matrix "
+          f"{'equal' if res['cli']['cm_equal'] else 'within the metrics'}, mIoU "
+          f"{t['metrics']['mean_iou']:.6f}", flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # --- 15.4: SegmentationPredictor with n_space=2 in one process ----------------
+    images = synth_hw(torch, 8, SPACE_HW, 172)
+    kw = dict(num_classes=3, image_size_hw=SPACE_HW, batch_size=8, base_features=64)
+    pred = {}
+    for prec, extra, k2 in (("int8", {"quantize": "int8", "qparams": qparams}, 18),
+                            ("f32", {"precision": "f32"}, 0),
+                            ("bf16", {"precision": "bf16"}, 0)):
+        single = SegmentationPredictor.from_state_dict(sd, device="cuda", **kw, **extra)
+        rows = SegmentationPredictor.from_state_dict(sd, devices=two, n_space=2, **kw, **extra)
+        with _keeping_logits(serve, "sliced_pred_confidence") as logits:
+            m1, c1 = single.predict_array(images)
+            _zero_launches()
+            t0 = time.perf_counter()
+            m2, c2 = rows.predict_array(images)
+            p_s = time.perf_counter() - t0
+        legs[f"space_predictor_{prec}"] = _launches()
+        want = {"normalize_u8": 2, "conv3x3_int8": 2 * k2}
+        check(legs[f"space_predictor_{prec}"] == want,
+              f"{prec} predictor n_space=2 launched {legs[f'space_predictor_{prec}']} "
+              f"(want {want}: each of the two threads K1 1x, K2 {k2}x)")
+        share = float((m1 != m2).mean())
+        conf_err = float((np.abs(c2 - c1) / np.abs(c1)).max())
+        pred[prec] = {"disagree": share, "conf_rel_err": conf_err, "predict_s": p_s}
+        print(f"[space] predictor n_space=2 {prec}: {share:.2e} of pixels differ from one "
+              f"device, mean confidences {conf_err:.2e} apart (relative)", flush=True)
+        if prec == "int8":
+            check(np.array_equal(m1, m2) and np.array_equal(c1, c2),
+                  f"int8 predictor n_space=2 differs from one device: {share:.2e} of pixels")
+        elif prec == "f32":  # masks equal but for ties at f32 rounding
+            pred[prec].update(_ties_only(np, *logits, "f32 predictor n_space=2 vs one device"))
+            check(int((m1 != m2).sum()) == pred[prec]["moved_pixels"]
+                  and conf_err <= SPACE_CONF_RTOL,
+                  f"f32 predictor n_space=2 differs from one device: {share:.2e} of pixels, "
+                  f"confidences {conf_err:.2e} (rtol {SPACE_CONF_RTOL})")
+        else:
+            check(share <= SPACE_MAX_DISAGREE,
+                  f"bf16 predictor n_space=2: {share:.2e} of pixels differ from one device "
+                  f"(limit {SPACE_MAX_DISAGREE})")
+        del single, rows, logits
+        torch.cuda.empty_cache()
+    res["predictor"] = pred
+    print(f"[space] SegmentationPredictor(n_space=2, devices=[cuda:0, cuda:0]) at 1024 x 512 "
+          f"b8, base 64, 3 classes: int8 masks and confidences bit for bit one device's (K1 1x "
+          f"and K2 18x per thread); f32 (TF32 off): {_tie_note(pred['f32'])}, "
+          f"confidences within {pred['f32']['conf_rel_err']:.2e} (rtol {SPACE_CONF_RTOL}); "
+          f"bf16 masks differ on "
+          f"{pred['bf16']['disagree']:.2e} of pixels (limit {SPACE_MAX_DISAGREE})", flush=True)
+
+    # --- 15.5: the attention UNet on (1, 2, 1), SegmentationUNet on (1, 2, 2) -------
+    comp = {}
+    for name, n_model, devs in (("attn_unet", 1, two), ("seg_unet", 2, four)):
+        ref = _tp_seg(name, TP_SEG_BASE, 1)
+        t0 = time.perf_counter()
+        got = launch(_tp_seg, (name, TP_SEG_BASE, n_model, 2), devices=devs,
+                     backend="gloo")
+        c_s = time.perf_counter() - t0
+        e = (_update_err(got["sd"], ref["sd"], ref["before"]),
+             _state_dict_errs(got["sd"], ref["sd"])[1])
+        check(e[0] <= DP_UPDATE_TOL and e[1] <= DP_STAT_TOL,
+              f"space {name} (1, 2, {n_model}) vs world size 1: the update {e[0]:.2e}, BN "
+              f"statistics {e[1]:.2e}")
+        for k, v in got["losses"].items():
+            check(abs(v - ref["losses"][k]) <= 1e-5 * abs(ref["losses"][k]) + 1e-7,
+                  f"space {name} loss {k} {v} vs world size 1 {ref['losses'][k]}")
+        ties = _ties_only(np, ref["logits"], got["logits"], f"space {name} vs world size 1")
+        eq = bool(np.array_equal(got["cm"], ref["cm"]))
+        check(np.abs(got["cm"] - ref["cm"]).sum() <= 2 * ties["moved_pixels"],
+              f"space {name} confusion matrix {got['cm'].tolist()} vs {ref['cm'].tolist()}")
+        comp[f"{name}_1x2x{n_model}"] = {"update_err": e[0], "stat_err": e[1], "cm_equal": eq,
+                                        "launch_s": c_s, **ties}
+        print(f"[space] {name} base {TP_SEG_BASE}, Gear 512² b8, one f32 SGD step on a (1, 2, "
+              f"{n_model}) mesh ({len(devs)} gloo ranks on cuda:0) against world size 1: the "
+              f"update {e[0]:.2e}, BN statistics {e[1]:.2e}, losses within 1e-5, "
+              f"{_tie_note(ties)} (confusion matrix {'equal' if eq else 'moved by those only'});"
+              f" launch and run {c_s:.1f} s", flush=True)
+    res["compose"] = comp
+    out["space"] = res
+
+
+def phase_space(torch, np, report, tmp):
+    """Phase 15: the 'space' axis on the one card (gloo ranks sharing it;
+    correctness and memory figures, not scaling). Returns the launch
+    counts."""
+    out, legs = {}, {}
+    label = f"one card ({nvidia_smi_line()}); ranks share it: not a scaling figure"
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _space_legs(torch, np, out, legs, tmp, label)
+    out["space"]["phase_seconds"] = time.perf_counter() - t0
+    report["main_path"]["space"] = out["space"]
+    return legs
+
+
+def _halo_probe_rank(op, dtype_name):
+    """One exchange of edge rows (``op`` 'p2p': ``batch_isend_irecv``;
+    'all_gather') between two gloo ranks sharing cuda:0 in ``dtype_name``:
+    whether the rows arrived."""
+    import torch
+    import torch.distributed as dist
+
+    r, other = dist.get_rank(), 1 - dist.get_rank()
+    dtype = getattr(torch, dtype_name)
+    edge = torch.full((2, 64, 1, 512), r + 1, device="cuda").to(dtype)
+    if op == "p2p":
+        got = torch.empty_like(edge)
+        ops = [dist.P2POp(dist.isend, edge, other), dist.P2POp(dist.irecv, got, other)]
+        for w in dist.batch_isend_irecv(ops):
+            w.wait()
+        return bool((got.float() == other + 1).all())
+    parts = [torch.empty_like(edge) for _ in range(2)]
+    dist.all_gather(parts, edge)
+    return all(bool((p.float() == i + 1).all()) for i, p in enumerate(parts))
+
+
+HALO_PROBES = [(op, dt) for op in ("p2p", "all_gather")
+               for dt in ("float32", "bfloat16", "int8")]
+
+
+def halo_probe():
+    """``python3 chip_smoke.py halo_probe``: each of HALO_PROBES in a child
+    process with a time limit (a crash in gloo does not take this process
+    with it): its exit code and the end of its output."""
+    for probe in HALO_PROBES:
+        t0 = time.perf_counter()
+        try:
+            r = subprocess.run([sys.executable, os.path.abspath(__file__), "halo_probe_run",
+                                *probe], capture_output=True, text=True, timeout=120)
+            rc, tail = r.returncode, " ".join((r.stdout + r.stderr).split())[-240:]
+        except subprocess.TimeoutExpired:
+            rc, tail = "timeout", ""
+        print(f"[halo-probe] {probe}: rc {rc} in {time.perf_counter() - t0:.1f} s: {tail}",
+              flush=True)
+    return 0
+
+
+def halo_probe_run(op, dtype_name):
+    from tpu_unet_torch.parallel.mesh import launch
+    ok = launch(_halo_probe_rank, (op, dtype_name), devices=["cuda:0", "cuda:0"],
+                backend="gloo")
+    print(f"{op} of {dtype_name} edge rows over gloo on cuda:0: rows arrived {ok}", flush=True)
+    return 0
+
+
 # FSDP widths (``python3 chip_smoke.py fsdp_widths``): does FSDP2 over two
 # gloo ranks run at the flagship's geometry? (device, base_features, rows
 # per rank, image size), each in a process of its own with a time limit.
@@ -4162,6 +4704,7 @@ def main():
         path_launches.update(dp_legs)
         path_launches.update(timed("14 tp, artifacts", phase_tp, torch, np, report, tmp, keep,
                                    dp_ref))
+        path_launches.update(timed("15 space", phase_space, torch, np, report, tmp))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -4226,4 +4769,8 @@ if __name__ == "__main__":
         sys.exit(fsdp_widths())
     if sys.argv[1:2] == ["fsdp_width"]:
         sys.exit(fsdp_width(*sys.argv[2:6]))
+    if sys.argv[1:2] == ["halo_probe"]:
+        sys.exit(halo_probe())
+    if sys.argv[1:2] == ["halo_probe_run"]:
+        sys.exit(halo_probe_run(*sys.argv[2:4]))
     sys.exit(main())

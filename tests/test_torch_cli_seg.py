@@ -270,8 +270,9 @@ def test_unported_train_flags_raise(ksdd_root, tmp_path, variant_runs, flag):
     trains on two ranks); here their parsing and refusals, before anything
     is written: ``--n_devices 2`` plans 2 ranks and refuses a global batch
     that does not split over them; ``--fsdp`` on one device warns and
-    trains whole; ``--n_space`` still raises NotImplementedError, naming
-    slice 11; ``--n_model 2`` plans 2 ranks (one data rank times two model
+    trains whole; ``--n_space 2`` plans 2 ranks (one data rank times two
+    space ranks) and refuses a height that does not split at every level
+    (tests/test_torch_parallel_spatial_cli.py trains with it); ``--n_model 2`` plans 2 ranks (one data rank times two model
     ranks) and refuses a batch that does not split over the data ranks and
     ``--grad_accum`` (tests/test_torch_parallel_tensor_cli.py trains with
     it); a half-specified multi-host
@@ -297,8 +298,10 @@ def test_unported_train_flags_raise(ksdd_root, tmp_path, variant_runs, flag):
         with pytest.raises(SystemExit, match="2 ranks"):
             _train(ksdd_root, tmp_path, *flag, "--batch_size", "3")
     elif flag[0] == "--n_space":
-        with pytest.raises(NotImplementedError, match="slice 11"):
-            _train(ksdd_root, tmp_path, *flag)
+        args = train_kolektorsdd.parse_args(["--device", "cpu", *flag])
+        assert args.n_space == 2 and seg.check_train_flags(args, 64) == 2
+        with pytest.raises(ValueError, match="multiple of n_space x 2\\^4 = 32"):
+            _train(ksdd_root, tmp_path, *flag, "--image_height", "48")
     elif flag[0] == "--n_model":
         args = train_kolektorsdd.parse_args(["--device", "cpu", *flag])
         assert args.n_model == 2 and seg.check_train_flags(args) == 2
@@ -320,8 +323,9 @@ def test_unported_train_flags_raise(ksdd_root, tmp_path, variant_runs, flag):
 def test_unported_test_flags_raise(ksdd_root, tmp_path, variant_runs, flag):
     """``--n_devices`` is ported (tests/test_torch_parallel_cli_seg.py
     evaluates on two ranks): a batch that does not split over the ranks
-    raises SystemExit. ``--n_space`` still raises NotImplementedError,
-    naming slice 11; ``--heads`` without UNet++'s deep supervision raises
+    raises SystemExit. ``--n_space 2`` plans 2 ranks and refuses a height
+    that 2 does not divide with the JAX package's ValueError
+    (tests/test_torch_parallel_spatial_cli.py evaluates with it); ``--heads`` without UNet++'s deep supervision raises
     the JAX package's ValueError. The bilinear decoder and UNet++ (pruned
     to head X[0][2]) evaluate their checkpoints end to end."""
     if flag == ["--bilinear"]:
@@ -333,9 +337,13 @@ def test_unported_test_flags_raise(ksdd_root, tmp_path, variant_runs, flag):
         if flag[0] == "--n_devices":
             with pytest.raises(SystemExit, match="2 ranks"):
                 _test(ksdd_root, "x.pth", tmp_path, *flag, "--batch_size", "3")
+        elif flag[0] == "--n_space":
+            args = test_kolektorsdd.parse_args(["--device", "cpu", "--checkpoint", "x", *flag])
+            assert seg.check_eval_flags(args, 64) == 2
+            with pytest.raises(ValueError, match="must divide the image height 63"):
+                _test(ksdd_root, "x.pth", tmp_path, *flag, "--image_height", "63")
         else:
-            with pytest.raises(ValueError if flag[0] == "--heads" else NotImplementedError,
-                               match="heads" if flag[0] == "--heads" else "slice 11"):
+            with pytest.raises(ValueError, match="heads"):
                 _test(ksdd_root, "x.pth", tmp_path, *flag)
         return
     assert _json(tmp_path, "evaluation_results.json")["overall_metrics"] == \

@@ -130,7 +130,7 @@ def test_serve_seg_tiles_int8_qparams_and_artifact(seg_ckpt, tmp_path):
     (["--checkpoint", "CKPT", "--export_artifact", "X", "--artifact_platforms", "tpu,cpu"],
      SystemExit),
     (["--checkpoint", "CKPT", "--n_devices", "3"], ValueError),      # batch 4 over 3 replicas
-    (["--checkpoint", "CKPT", "--n_space", "2"], NotImplementedError),
+    (["--checkpoint", "CKPT", "--n_space", "4"], ValueError),        # 8-row blocks: 4 pools
     (["--checkpoint", "CKPT", "--n_space", "2", "--export_artifact", "X"], SystemExit),
     (["--checkpoint", "CKPT", "--bucket_sizes", "8"], SystemExit),  # above --batch_size 4
 ])
@@ -146,6 +146,25 @@ def test_serve_seg_flag_checks(seg_ckpt, tmp_path, flags, error):
         serve_seg.main(flags + ["--input_dir", root, "--image_height", "32",
                                 "--image_width", "32", "--output_dir", str(tmp_path / "o")]
                        + (BASE if "--artifact" not in flags else ["--device", "cpu"]))
+
+
+def test_serve_seg_with_n_space_writes_the_one_device_masks(seg_ckpt, tmp_path):
+    """``--n_space 2``: one replica over two CPU "devices", each thread on
+    16 of the 32 rows; the same masks and predictions.json as one device."""
+    _, pth = seg_ckpt
+    root = str(tmp_path / "in")
+    _write_pngs(root, _images(6, n=5))
+    flags = ["--checkpoint", pth, "--input_dir", root, "--image_height", "32",
+             "--image_width", "32", "--precision", "f32"] + BASE
+    rows = serve_seg.main(flags + ["--n_space", "2", "--output_dir", str(tmp_path / "rows")])
+    one = serve_seg.main(flags + ["--output_dir", str(tmp_path / "one")])
+    m_rows, m_one = _masks(tmp_path / "rows", rows), _masks(tmp_path / "one", one)
+    assert set(m_rows) == set(m_one) and all(np.array_equal(m_rows[k], m_one[k])
+                                             for k in m_one)
+    for rel, w in one["predictions"].items():
+        g = rows["predictions"][rel]
+        assert g["class_pixel_share"] == w["class_pixel_share"]
+        assert g["mean_confidence"] == pytest.approx(w["mean_confidence"], rel=2e-5)
 
 
 @pytest.fixture(scope="module")

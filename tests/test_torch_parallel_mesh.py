@@ -93,10 +93,10 @@ def test_leaf_policy_matches_jax_on_every_full_size_leaf(name, n):
 
 
 def test_make_mesh_refuses_what_jax_refuses(devices):
-    """The counterparts of the JAX package's mesh tests (ValueError), then
-    NotImplementedError for the 'space' axis, which waits for slice 11; a
-    'model' axis needs a process group (tests/test_torch_parallel_tensor.py
-    builds one)."""
+    """The counterparts of the JAX package's mesh tests (ValueError); a
+    'space' or a 'model' axis needs a process group
+    (tests/test_torch_parallel_spatial.py and tests/test_torch_parallel_tensor.py
+    build one)."""
     eight = list(range(8))
     for kw in ({"n_data": 16}, {"n_data": 4, "n_space": 2, "n_model": 2},
                {"n_model": 16}):
@@ -110,7 +110,8 @@ def test_make_mesh_refuses_what_jax_refuses(devices):
         with pytest.raises(ValueError, match=">= 1"):
             make_mesh(devices=eight, **kw)
     jax_make_mesh(n_data=4, n_space=2)
-    with pytest.raises(NotImplementedError, match="slice 11"):
+    with pytest.raises(ValueError, match="4x2x1 \\(data x space x model\\) mesh needs a "
+                                         "process group"):
         make_mesh(devices=eight, n_data=4, n_space=2)
     jax_make_mesh(n_data=2, n_model=2)
     with pytest.raises(ValueError, match="process group"):

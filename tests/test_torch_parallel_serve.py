@@ -56,7 +56,8 @@ def test_two_scorer_replicas_equal_the_single_engine(anomaly_sd, quantize):
 
 def test_two_predictor_replicas_equal_the_single_engine_tiled():
     """Tiled inference (32 x 32 tiles over 48 x 64 images) composes with the
-    replicas: each replica tiles its chunk."""
+    replicas: each replica tiles its chunk. It does not compose with
+    ``n_space``, as in the JAX predictor."""
     sd = seeded_state_dict("seg_unet", 43, n_classes=C, base_features=4)
     kw = dict(SEG_KW, image_size_hw=(48, 64), tile_hw=(32, 32), tile_overlap=16, device="cpu")
     one = SegmentationPredictor.from_state_dict(sd, **kw)
@@ -66,7 +67,7 @@ def test_two_predictor_replicas_equal_the_single_engine_tiled():
     m2, c2 = two.predict_array(images)
     assert np.mean(m1 != m2) < 1e-3
     np.testing.assert_allclose(c2, c1, rtol=1e-5)
-    with pytest.raises(NotImplementedError, match="slice 11"):
+    with pytest.raises(ValueError, match="tiled inference does not compose with --n_space"):
         SegmentationPredictor.from_state_dict(sd, n_space=2, **kw)
 
 

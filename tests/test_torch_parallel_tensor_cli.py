@@ -3,7 +3,8 @@
 
 - The JAX package's 3-D mesh CLI case (tests/test_tensor_parallel.py,
   ``--n_devices 2 --n_space 2 --n_model 2``) as a 2 x 1 x 2 run of
-  train_gear: the 'space' axis waits for slice 11 of the port. Its losses
+  train_gear (tests/test_torch_parallel_spatial_cli.py runs it at its own
+  2 x 2 x 2 shape). Its losses
   and checkpoint against the same CLI at world size 1 under SGD (losses
   1e-5 relative, parameters 1e-5 after an epoch of two steps; Adam's first
   update, about lr * sign(g), turns the reorder noise of a gradient near 0

@@ -142,7 +142,7 @@ def test_kolektorsdd_masks_are_clipped_and_resized(ksdd_root):
 
 
 @pytest.mark.parametrize("make", ["gear", "ksdd"])
-def test_disk_cache_is_not_ported(gear_root, ksdd_root, make, tmp_path):
+def test_disk_cache_is_ported(gear_root, ksdd_root, make, tmp_path):
     """The packed store is ported: a pack of each dataset serves the JAX
     package's direct decode, sample for sample."""
     cache = str(tmp_path / "packs")

@@ -208,8 +208,13 @@ def test_heads_validation_pruned_notice_and_multi_device(capsys):
     two = SegmentationPredictor.from_state_dict(sd, model_name="unetpp", deep_supervision=True,
                                                 device="cpu", n_devices=2, **KW)
     assert two.devices == [torch.device("cpu")] * 2  # one replica each
+    rows = SegmentationPredictor.from_state_dict(sd, model_name="unetpp", deep_supervision=True,
+                                                 device="cpu", n_space=2, **KW)
+    assert rows.devices == [torch.device("cpu")] * 2 and rows.n_space == 2  # one replica
+    images = np.random.default_rng(1).integers(0, 256, (4, 32, 32, 3), dtype=np.uint8)
+    np.testing.assert_array_equal(rows.predict_array(images)[0], two.predict_array(images)[0])
     for flags, error, match in (({"n_devices": 3}, ValueError, "divisible"),
-                                ({"n_space": 2}, NotImplementedError, "slice 11")):
+                                ({"n_space": 3}, ValueError, "n_space 3 must divide the image height")):
         with pytest.raises(error, match=match):
             SegmentationPredictor.from_state_dict(sd, model_name="unetpp",
                                                   deep_supervision=True, device="cpu",

@@ -254,7 +254,7 @@ def test_eval_step_matches_jax_with_padded_rows(one_step):
 
 
 @pytest.mark.parametrize("remat", ["full", "full_res"])
-def test_remat_is_not_ported(remat):
+def test_remat_is_ported(remat):
     """remat is ported: a step with it gives the plain step's losses and BN
     statistics exactly (tests/test_torch_remat.py holds it in full); other
     modes and grad_accum < 1 raise."""

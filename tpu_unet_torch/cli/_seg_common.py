@@ -13,7 +13,7 @@ Each entry point is split as ``cli/train_mvtec.py`` is:
 :func:`run_seg_training` and :func:`run_seg_evaluation` check the flags, pick
 the device, index the datasets and draw the plots (matplotlib); the work
 runs in functions that take the datasets and a device: :func:`train_seg`
-for training; :func:`make_eval_loader`, :func:`load_seg_model`,
+for training; :func:`eval_mesh`, :func:`make_eval_loader`, :func:`load_seg_model`,
 ``train/loop.py::validate_seg_epoch`` and :func:`save_seg_results` for
 evaluation. Entry points run on ``cuda`` unless ``--device cpu``.
 
@@ -21,9 +21,13 @@ Data parallelism (``--n_devices``, ``--fsdp``, the multi-host flags, or a
 torchrun launch): :func:`run_seg_training` and :func:`run_seg_evaluation`
 run their work on every rank (``parallel/mesh.py::launch``); the loaders
 give each rank its rows of the global ``--batch_size``, the steps reduce
-over the group, and rank 0 logs and writes. ``--n_model`` slices the
-channels over that many ranks per data rank (tensor parallelism); the
-trainers take it. ``--n_space`` waits for slice 11 of the port.
+over the group, and rank 0 logs and writes. ``--n_space`` splits each
+image's rows over that many ranks per data rank (``parallel/spatial.py``):
+every space rank of a data index loads the same images, the steps split
+the rows, and the eval steps gather the predictions' rows back, so the
+panels, the metrics and ``evaluation_results.json`` see whole images.
+``--n_model`` slices the channels over that many ranks per (data, space)
+rank (tensor parallelism); the trainers take it.
 """
 
 from __future__ import annotations
@@ -45,9 +49,10 @@ from tpu_unet_torch.data.loader import DataLoader, to_device
 from tpu_unet_torch.models import build_model
 from tpu_unet_torch.models.unet import ATTN_NAMES, UNETPP_NAMES, check_model_flags
 from tpu_unet_torch.parallel.fsdp import shard_state
-from tpu_unet_torch.parallel.mesh import (broadcast_tensors, check_batch, cli_world, group_of,
-                                          is_main_process, launch, make_mesh, not_ported,
-                                          synced_timestamp, world_size)
+from tpu_unet_torch.parallel.mesh import (broadcast_tensors, check_batch, cli_world,
+                                          data_coords, group_of, is_main_process, launch,
+                                          make_mesh, synced_timestamp, world_size)
+from tpu_unet_torch.parallel.spatial import check_rows, mesh_exchanger
 from tpu_unet_torch.train.checkpoint import CheckpointWriter, load_checkpoint, load_params
 from tpu_unet_torch.train.interrupt import (INTERRUPT_EXIT_CODE, GracefulInterrupt,
                                             interrupt_checkpoint_path)
@@ -99,26 +104,29 @@ def cli_device(name: str) -> torch.device:
     return resolve_device("cuda" if name == "auto" else name)
 
 
-def check_train_flags(args) -> int:
+def check_train_flags(args, height: Optional[int] = None) -> int:
     """The run's world size (joining a launched group: ``--n_devices``
-    times ``--n_model`` ranks); NotImplementedError for ``--n_space`` > 1,
-    SystemExit for a ``--batch_size`` that does not split over the data
-    ranks and ``--grad_accum``."""
-    if args.n_space > 1:
-        raise not_ported("--n_space")
+    times ``--n_space`` times ``--n_model`` ranks); ValueError for an image
+    ``height`` that ``--n_space`` does not split at every level
+    (``parallel/spatial.py::check_rows``), SystemExit for a
+    ``--batch_size`` that does not split over the data ranks and
+    ``--grad_accum``."""
     check_model_flags(args.model, args.deep_supervision)
+    if height is not None:
+        check_rows(height, args.n_space)
     world = cli_world(args, cli_device(args.device).type)
-    check_batch(args.batch_size, world // args.n_model, args.grad_accum)
+    check_batch(args.batch_size, world // (args.n_space * args.n_model), args.grad_accum)
     return world
 
 
-def check_eval_flags(args) -> int:
-    """As :func:`check_train_flags` for the evaluators (``--n_devices``)."""
-    if args.n_space > 1:
-        raise not_ported("--n_space")
+def check_eval_flags(args, height: Optional[int] = None) -> int:
+    """As :func:`check_train_flags` for the evaluators (``--n_devices``,
+    ``--n_space``)."""
     check_model_flags(args.model, args.deep_supervision, args.heads)
+    if height is not None:
+        check_rows(height, args.n_space)
     world = cli_world(args, cli_device(args.device).type)
-    check_batch(args.batch_size, world)
+    check_batch(args.batch_size, world // args.n_space)
     return world
 
 
@@ -131,11 +139,13 @@ def _logger(output_dirs, experiment_dir: str) -> logging.Logger:
     return quiet
 
 
-def _device_line(device: torch.device, world: int = 1, n_model: int = 1) -> str:
+def _device_line(device: torch.device, world: int = 1, n_model: int = 1,
+                 n_space: int = 1) -> str:
+    space = f" x {n_space} space" if n_space > 1 else ""
     return (f"Device: {device}" + (f" ({torch.cuda.get_device_name(device)})"
                                    if device.type == "cuda" else "")
-            + (f", {world} ranks ({world // n_model} data x {n_model} model)"
-               if world > 1 else ""))
+            + (f", {world} ranks ({world // (n_model * n_space)} data{space} x "
+               f"{n_model} model)" if world > 1 else ""))
 
 
 # ---------------------------------------------------------------------------
@@ -146,14 +156,15 @@ def run_seg_training(args, workload: Workload):
     """The trainer: flag checks, device, datasets, then :func:`train_seg`
     on every rank. Returns the experiment directory (None on ranks other
     than 0); exits with code 75 after SIGTERM."""
-    world = check_train_flags(args)
+    world = check_train_flags(args, workload.image_size_hw(args)[0])
     device = cli_device(args.device)
     if is_main_process():
-        print(_device_line(device, world, args.n_model))
+        print(_device_line(device, world, args.n_model, args.n_space))
     experiment_name = f"{workload.name}_{args.model}_{synced_timestamp()}"
     experiment_dir = os.path.join(args.save_dir, experiment_name)
     results = launch(_train_rank, (args, workload, experiment_dir),
-                     n_devices=args.n_devices, device_type=device.type, n_model=args.n_model)
+                     n_devices=args.n_devices, device_type=device.type, n_model=args.n_model,
+                     n_space=args.n_space)
     if not is_main_process():
         return None
     if results["interrupted"]:
@@ -205,17 +216,19 @@ def train_seg(args, workload: Workload, train_ds, val_ds, num_classes: int,
     logger.info(f"Train samples: {len(train_ds)}, Val samples: {len(val_ds)}, "
                 f"classes: {num_classes}")
 
-    n_model = getattr(args, "n_model", 1)
-    mesh = make_mesh(world_size() // n_model, n_model=n_model,
+    n_model, n_space = getattr(args, "n_model", 1), getattr(args, "n_space", 1)
+    mesh = make_mesh(world_size() // (n_model * n_space), n_space=n_space, n_model=n_model,
                      device_type=device.type)  # None in one process
     # Masks ship as uint8 (class ids <= 3): 4x less to copy than int32.
     to_dev = lambda b: to_device(b, device)  # noqa: E731
+    count, index = data_coords(mesh)
     train_loader = DataLoader(train_ds, args.batch_size, shuffle=True, seed=args.seed,
                               drop_last=len(train_ds) >= args.batch_size,
                               num_workers=args.num_workers, grad_accum=args.grad_accum,
-                              transform=to_dev)
+                              transform=to_dev, process_count=count, process_index=index)
     val_loader = DataLoader(val_ds, args.batch_size, pad_last=True,
-                            num_workers=args.num_workers, transform=to_dev)
+                            num_workers=args.num_workers, transform=to_dev,
+                            process_count=count, process_index=index)
 
     torch.manual_seed(args.seed)  # the same initial weights on the CPU and the card
     model = build_model(args.model, n_channels=3, n_classes=num_classes,
@@ -235,7 +248,7 @@ def train_seg(args, workload: Workload, train_ds, val_ds, num_classes: int,
         # per-epoch sample order as an uninterrupted one.
         train_loader.epoch = start_epoch
     state = shard_state(mesh, state, fsdp=args.fsdp, tp=n_model > 1)
-    group = group_of(mesh)
+    group, space = group_of(mesh), mesh_exchanger(mesh)
 
     class_weights = parse_class_weights(args.class_weights, num_classes)
     loss_cfg = SegLossConfig(ce_weight=args.ce_weight, dice_weight=args.dice_weight,
@@ -243,8 +256,8 @@ def train_seg(args, workload: Workload, train_ds, val_ds, num_classes: int,
     augment = dataclasses.replace(workload.augment, rotation_mode=args.rotation_mode,
                                   color_jitter_random_order=args.color_jitter_random_order)
     train_step = make_seg_train_step(num_classes, loss_cfg, augment,
-                                     grad_accum=args.grad_accum, group=group)
-    eval_step = make_seg_eval_step(num_classes, loss_cfg, group=group)
+                                     grad_accum=args.grad_accum, group=group, space=space)
+    eval_step = make_seg_eval_step(num_classes, loss_cfg, group=group, space=space)
 
     logger.info("Starting training...")
     train_losses, val_losses = [], []
@@ -351,12 +364,12 @@ def run_seg_evaluation(args, workload: Workload, split: str = "test"):
     ``--save_predictions``, the prediction panels. Returns the summary (None
     on ranks other than 0). Under ``--n_devices`` every rank evaluates its
     rows and rank 0 writes."""
-    world = check_eval_flags(args)
+    world = check_eval_flags(args, workload.image_size_hw(args)[0])
     device = cli_device(args.device)
     if is_main_process():
-        print(_device_line(device, world))
+        print(_device_line(device, world, n_space=args.n_space))
     summary = launch(_eval_rank, (args, workload, split), n_devices=args.n_devices,
-                     device_type=device.type)
+                     device_type=device.type, n_space=args.n_space)
     return summary if is_main_process() else None
 
 
@@ -370,8 +383,9 @@ def _eval_rank(args, workload: Workload, split: str):
     if main_rank:
         print(f"Eval samples ({split}): {len(ds)}")
 
-    loader = make_eval_loader(args, ds, device)
-    state, eval_step, loss_cfg = load_seg_model(args, num_classes, device, train_ds)
+    mesh = eval_mesh(args, device)
+    state, eval_step, loss_cfg = load_seg_model(args, num_classes, device, train_ds, mesh)
+    loader = make_eval_loader(args, ds, device, mesh)
     losses, cm = validate_seg_epoch(state, eval_step, loader, num_classes,
                                     ignore_index=loss_cfg.ignore_index)
     summary = None
@@ -384,11 +398,20 @@ def _eval_rank(args, workload: Workload, split: str):
     return summary
 
 
-def make_eval_loader(args, ds, device: torch.device) -> DataLoader:
+def eval_mesh(args, device: torch.device):
+    """The evaluator's mesh: the group's ranks over ('data', 'space') with
+    ``--n_space`` (None in one process)."""
+    n_space = getattr(args, "n_space", 1)
+    return make_mesh(world_size() // n_space, n_space=n_space, device_type=device.type)
+
+
+def make_eval_loader(args, ds, device: torch.device, mesh=None) -> DataLoader:
     """The evaluated split's loader: padded last batch, batches on ``device``
-    (this rank's rows of each)."""
+    (this data rank of ``mesh``'s rows of each; :func:`eval_mesh`)."""
+    count, index = data_coords(mesh)
     return DataLoader(ds, args.batch_size, pad_last=True, num_workers=args.num_workers,
-                      transform=lambda b: to_device(b, device))
+                      transform=lambda b: to_device(b, device), process_count=count,
+                      process_index=index)
 
 
 def int8_arch(model: str) -> str:
@@ -403,10 +426,12 @@ def int8_arch(model: str) -> str:
                      "decoder modes; bilinear upsamples run as float islands)")
 
 
-def load_seg_model(args, num_classes: int, device: torch.device, calib_ds=None):
+def load_seg_model(args, num_classes: int, device: torch.device, calib_ds=None,
+                   mesh=None):
     """``(state, eval_step, loss_cfg)`` for ``--checkpoint`` on ``device``
-    (the step reduces its losses and matrix over the process group, if
-    any):
+    (the step reduces its losses and matrix over ``mesh``'s batch group,
+    and under ``--n_space`` runs on the rank's rows of each image;
+    :func:`eval_mesh`, None in one process):
     BN folded with ``--fold_bn``; ``--heads k < 4`` evaluates UNet++'s
     deep-supervision head X[0][k] alone (the full parameter tree is built
     and loaded). With ``--quantize int8`` the step is the int8 one (K2 for
@@ -429,11 +454,12 @@ def load_seg_model(args, num_classes: int, device: torch.device, calib_ds=None):
     if heads != 4:
         say(f"Pruned fast mode: evaluating head X[0][{heads}] only")
 
-    group = group_of(make_mesh(world_size(), device_type=device.type))
+    group, space = group_of(mesh), mesh_exchanger(mesh)
     loss_cfg = SegLossConfig(class_weights=parse_class_weights(args.class_weights,
                                                                num_classes))
     if args.quantize != "int8":
-        return state, make_seg_eval_step(num_classes, loss_cfg, group=group), loss_cfg
+        return (state, make_seg_eval_step(num_classes, loss_cfg, group=group, space=space),
+                loss_cfg)
     arch = int8_arch(args.model)
     from tpu_unet_torch.ops.quantize import (chunk_calibration, make_quantized_seg_eval_step,
                                              quantize_from_train_state)
@@ -447,7 +473,7 @@ def load_seg_model(args, num_classes: int, device: torch.device, calib_ds=None):
     say(f"int8 quantized inference (calibrated on {n_calib} train images)")
     qstep = make_quantized_seg_eval_step(num_classes, loss_cfg, arch=arch,
                                          deep_supervision=args.deep_supervision, heads=heads,
-                                         group=group)
+                                         group=group, space=space)
     return state, QuantizedEvalStep(qstep, qparams), loss_cfg
 
 

@@ -77,8 +77,9 @@ def parse_args(argv=None):
                    help="Split each batch over this many replicas, one per GPU "
                         "(on the CPU all share it)")
     p.add_argument("--n_space", type=int, default=1,
-                   help="Shard image height over this many devices (waits for "
-                        "slice 11 of the port: more than 1 raises)")
+                   help="Shard image height over this many devices per replica "
+                        "(one thread each; the height must be a multiple of "
+                        "16 x n_space; not with tiling or --export_artifact)")
     p.add_argument("--tile_height", type=int, default=None,
                    help="Serve NATIVE-resolution images by tiling: run the "
                         "model at tile_height x tile_width (its training "

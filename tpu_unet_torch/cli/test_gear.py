@@ -59,8 +59,9 @@ def add_eval_args(parser, class_weights, output_dir):
                         help="Data-parallel ranks, one per GPU (default: all "
                              "visible GPUs; 1 on the CPU)")
     parser.add_argument("--n_space", type=int, default=1,
-                        help="Shard image height over devices (waits for slice 11 "
-                             "of the port: 1 only)")
+                        help="Shard image height over this many ranks per data rank "
+                             "(halo exchanges at every 3x3 conv; the height must be "
+                             "a multiple of 16 x n_space)")
     parser.add_argument("--base_features", type=int, default=64)
     parser.add_argument("--fold_bn", action="store_true",
                         help="Fold BatchNorm into conv weights for inference")

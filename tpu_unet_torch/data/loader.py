@@ -99,8 +99,9 @@ class DataLoader:
         consumer's thread (e.g. ``lambda b: to_device(b, "cuda")``).
       process_count, process_index: data ranks of the run and this one's
         index; default from the mesh (``parallel/mesh.py::data_size``,
-        ``data_rank``: 1 and 0 without a process group; every model rank of
-        a data index gets the same rows). ``batch_size`` is the global batch.
+        ``data_rank``: 1 and 0 without a process group; every space and
+        model rank of a data index gets the same rows, whole images, which
+        the steps split over 'space'). ``batch_size`` is the global batch.
       grad_accum: microbatches of each global batch; a rank's rows are its
         block of each microbatch in turn.
     """

@@ -14,7 +14,11 @@ loss, and the mean of their gradients (what the train steps all-reduce) is
 its gradient. A plain mean needs no exchange, since every rank holds as
 many rows. Under tensor parallelism ``group`` is the 'data' group: the
 model ranks of a data index hold the same rows, so their denominators are
-not added again.
+not added again. Under the 'space' axis ``group`` is the batch group
+(data x space): each rank holds a block of every image's rows, as many
+pixels as the others, so the same holds pixel for pixel; a per-image
+weight counted by each space rank of the image is added n_space times and
+divided by n_space more ranks, which cancels.
 """
 
 from __future__ import annotations

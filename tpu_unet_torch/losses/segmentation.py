@@ -16,6 +16,17 @@ A (N,) ``sample_weight`` of 0/1 keeps the padded rows of an eval batch out
 of every term. Under a data-parallel ``group`` every ratio divides by the
 global batch's denominator (``losses/reduction.py``), the class-weighted
 CE's ``sum(w[y_i])`` included.
+
+Under the 'space' axis (``space``, an exchanger of
+``parallel/spatial.py``) each rank holds a block of every image's rows and
+``group`` is the batch group (data x space). CE and focal need nothing
+more: every rank holds as many pixels. Dice is the one per-image ratio: its
+(N, C) intersection and union sums are added over the space ranks before
+the ratio (:func:`~tpu_unet_torch.parallel.spatial.space_sum`), so every
+space rank of an image holds its whole-image Dice. The sum's backward
+all-reduces too: rank s's Dice term then carries the sum over the space
+ranks r of d(loss_r)/d(its logits), and the train step's mean of the
+ranks' gradients is the global loss's gradient, as for the other terms.
 """
 
 from __future__ import annotations
@@ -27,6 +38,7 @@ import torch
 from tpu_unet_torch.losses.reduction import global_denominator, weighted_mean
 from tpu_unet_torch.ops.augment import device_constant
 from tpu_unet_torch.ops.seg_head import SMALL_C_MAX
+from tpu_unet_torch.parallel.spatial import space_sum
 
 
 def _row_weight(sample_weight: torch.Tensor) -> torch.Tensor:
@@ -72,12 +84,15 @@ def _one_hot(labels: torch.Tensor, num_classes: int) -> torch.Tensor:
 
 
 def dice_loss(probs: torch.Tensor, labels: torch.Tensor, smooth: float = 1e-8,
-              sample_weight: Optional[torch.Tensor] = None, group=None) -> torch.Tensor:
+              sample_weight: Optional[torch.Tensor] = None, group=None,
+              space=None) -> torch.Tensor:
     """Dice loss on softmax probabilities (N, H, W, C) against labels (N, H, W)."""
     probs = probs.to(torch.float32)
     one_hot = _one_hot(labels, probs.shape[-1])
-    intersection = torch.sum(probs * one_hot, dim=(1, 2))  # (N, C)
-    union = torch.sum(probs, dim=(1, 2)) + torch.sum(one_hot, dim=(1, 2))
+    sums = space_sum(torch.stack([
+        torch.sum(probs * one_hot, dim=(1, 2)),  # (N, C)
+        torch.sum(probs, dim=(1, 2)) + torch.sum(one_hot, dim=(1, 2))]), space)
+    intersection, union = sums[0], sums[1]
     dice = (2.0 * intersection + smooth) / (union + smooth)
     return 1.0 - weighted_mean(dice, sample_weight, group)
 
@@ -97,8 +112,8 @@ def _combined_unsliced(logits: torch.Tensor, labels: torch.Tensor, *,
                        focal_weight: float = 0.0,
                        class_weights: Optional[Sequence[float]] = None,
                        ignore_index: Optional[int] = None,
-                       sample_weight: Optional[torch.Tensor] = None, group=None
-                       ) -> Dict[str, torch.Tensor]:
+                       sample_weight: Optional[torch.Tensor] = None, group=None,
+                       space=None) -> Dict[str, torch.Tensor]:
     """The per-term losses composed on (N, H, W, C) tensors: the oracle of
     the sliced path and the path for C > SMALL_C_MAX."""
     total = torch.zeros((), dtype=torch.float32, device=logits.device)
@@ -110,7 +125,7 @@ def _combined_unsliced(logits: torch.Tensor, labels: torch.Tensor, *,
         total = total + ce_weight * ce
     if dice_weight > 0:
         d = dice_loss(torch.softmax(logits.to(torch.float32), dim=-1), labels,
-                      sample_weight=sample_weight, group=group)
+                      sample_weight=sample_weight, group=group, space=space)
         out["dice_loss"] = d
         total = total + dice_weight * d
     if focal_weight > 0:
@@ -126,7 +141,7 @@ def _combined_sliced(logits: torch.Tensor, labels: torch.Tensor, *,
                      ce_weight: float, dice_weight: float, focal_weight: float,
                      class_weights: Optional[Sequence[float]],
                      ignore_index: Optional[int],
-                     sample_weight: Optional[torch.Tensor], group=None
+                     sample_weight: Optional[torch.Tensor], group=None, space=None
                      ) -> Dict[str, torch.Tensor]:
     """CE, Dice and focal from the C channel slices of the logits, each an
     (N, H, W) plane: the JAX package's small-C path, the same shifted
@@ -182,13 +197,15 @@ def _combined_sliced(logits: torch.Tensor, labels: torch.Tensor, *,
 
     if dice_weight > 0:
         smooth = 1e-8
-        dice_cols = []
+        inters, unions = [], []
         for c in range(num_classes):
             p_c = es[c] / se
-            inter = torch.sum(p_c * dice_masks[c], dim=(1, 2))
-            union = torch.sum(p_c, dim=(1, 2)) + torch.sum(dice_masks[c], dim=(1, 2))
-            dice_cols.append((2.0 * inter + smooth) / (union + smooth))
-        d = 1.0 - weighted_mean(torch.stack(dice_cols, dim=-1), sample_weight, group)
+            inters.append(torch.sum(p_c * dice_masks[c], dim=(1, 2)))
+            unions.append(torch.sum(p_c, dim=(1, 2)) + torch.sum(dice_masks[c], dim=(1, 2)))
+        sums = space_sum(torch.stack([torch.stack(inters, -1), torch.stack(unions, -1)]),
+                         space)
+        dice = (2.0 * sums[0] + smooth) / (sums[1] + smooth)
+        d = 1.0 - weighted_mean(dice, sample_weight, group)
         out["dice_loss"] = d
         total = total + dice_weight * d
 
@@ -208,9 +225,11 @@ def combined_segmentation_loss(logits: torch.Tensor, labels: torch.Tensor, *,
                                class_weights: Optional[Sequence[float]] = None,
                                ignore_index: Optional[int] = None,
                                sample_weight: Optional[torch.Tensor] = None,
-                               group=None) -> Dict[str, torch.Tensor]:
+                               group=None, space=None) -> Dict[str, torch.Tensor]:
     """Weighted CE + Dice + focal, each term gated on its weight being > 0;
-    returns the terms and ``total_loss``, float32 0-dim tensors.
+    returns the terms and ``total_loss``, float32 0-dim tensors. ``space``:
+    the exchanger of a rank that holds a block of the images' rows (module
+    docstring).
 
     2 <= C <= SMALL_C_MAX on 4-d logits (with class weights, if any, one
     per class) takes the sliced path, as the JAX package does; anything else
@@ -218,7 +237,7 @@ def combined_segmentation_loss(logits: torch.Tensor, labels: torch.Tensor, *,
     """
     kw = dict(ce_weight=ce_weight, dice_weight=dice_weight, focal_weight=focal_weight,
               class_weights=class_weights, ignore_index=ignore_index,
-              sample_weight=sample_weight, group=group)
+              sample_weight=sample_weight, group=group, space=space)
     num_classes = logits.shape[-1]
     if (2 <= num_classes <= SMALL_C_MAX and logits.dim() == 4
             and (class_weights is None or len(class_weights) == num_classes)):

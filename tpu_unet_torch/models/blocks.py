@@ -54,6 +54,7 @@ import torch.utils.checkpoint
 
 from tpu_unet_torch.core.precision import DEFAULT_POLICY, Policy
 from tpu_unet_torch.ops.resize import upsample2x_bilinear_align_corners
+from tpu_unet_torch.parallel import spatial
 from tpu_unet_torch.parallel.tensor import copy_to_model, gather_channels, reduce_from_model
 
 
@@ -78,10 +79,18 @@ def _recompute_mode():
 def checkpoint(fn, *args):
     """``fn(*args)``, keeping ``args`` and recomputing the rest in the
     backward (``torch.utils.checkpoint``, non-reentrant) in
-    :func:`recomputing` mode."""
+    :func:`recomputing` mode, under the 'space' scope of the forward (the
+    backward may run in another thread)."""
+    ex = spatial.current()
     return torch.utils.checkpoint.checkpoint(
         fn, *args, use_reentrant=False,
-        context_fn=lambda: (contextlib.nullcontext(), _recompute_mode()))
+        context_fn=lambda: (contextlib.nullcontext(), _recompute_scope(ex)))
+
+
+@contextlib.contextmanager
+def _recompute_scope(ex):
+    with _recompute_mode(), spatial.scope(ex):
+        yield
 
 
 @contextlib.contextmanager
@@ -200,7 +209,10 @@ def conv_bn(conv: nn.Conv2d, norm: nn.Module, x: torch.Tensor, policy: Policy,
     same sums as a stride-2 conv, whose backward on a channels_last CPU
     tensor corrupts memory in PyTorch's CPU build. A tensor-parallel conv
     (module docstring) takes its collective: a row conv's all-reduce runs on
-    the float32 output, before the bias."""
+    the float32 output, before the bias. Under a 'space' scope
+    (``parallel/spatial.py``) a padded conv takes one halo row above and
+    below from the neighbouring ranks and pads the columns only, which gives
+    exactly the rank's rows of the whole image's conv."""
     cd = policy.compute_dtype
     if stride > 1:
         x = x[:, :, ::stride, ::stride]
@@ -208,6 +220,11 @@ def conv_bn(conv: nn.Conv2d, norm: nn.Module, x: torch.Tensor, policy: Policy,
     x = x.to(cd)
     if tp == "column":
         x = copy_to_model(x, conv.tp_group)
+    ex = spatial.current()
+    if padding and ex is not None:
+        if padding != 1:
+            raise ValueError(f"a 'space' halo is one row; got padding {padding}")
+        x, padding = spatial.halo_rows(x, ex), (0, 1)
     y = F.conv2d(x, conv.weight.to(cd), padding=padding).to(policy.norm_dtype)
     if tp == "row":
         y = reduce_from_model(y, conv.tp_group)
@@ -225,6 +242,14 @@ def up_conv(up: nn.ConvTranspose2d, x: torch.Tensor, cd: torch.dtype) -> torch.T
         x = copy_to_model(x, up.tp_group)
     y = F.conv_transpose2d(x, up.weight.to(cd), up.bias.to(cd), stride=2)
     return gather_channels(y, up.tp_group) if tp else y
+
+
+def check_even_pad(dh: int) -> None:
+    """Under a 'space' scope every level's rows split evenly
+    (``parallel/spatial.py::check_rows``), so no row pad may be needed."""
+    if dh and spatial.current() is not None:
+        raise ValueError(f"a {dh}-row pad to the skip under 'space' sharding; "
+                         f"{spatial.UNEVEN}")
 
 
 class DoubleConv(nn.Module):
@@ -320,6 +345,7 @@ class Up(nn.Module):
         # Static pad to the skip's extent (zero for power-of-two sizes).
         dh = x2.shape[2] - x1.shape[2]
         dw = x2.shape[3] - x1.shape[3]
+        check_even_pad(dh)
         if dh or dw:
             x1 = F.pad(x1, (dw // 2, dw - dw // 2, dh // 2, dh - dh // 2))
         return self.conv(torch.cat([x2.to(x1.dtype), x1], dim=1))

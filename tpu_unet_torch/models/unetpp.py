@@ -32,7 +32,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from tpu_unet_torch.core.precision import DEFAULT_POLICY, Policy
-from tpu_unet_torch.models.blocks import DoubleConv, OutConv, up_conv
+from tpu_unet_torch.models.blocks import DoubleConv, OutConv, check_even_pad, up_conv
 from tpu_unet_torch.models.unet import BottleneckDropout
 from tpu_unet_torch.ops.resize import upsample2x_bilinear_align_corners
 
@@ -94,6 +94,7 @@ class UNetPlusPlus(BottleneckDropout, nn.Module):
             row = [grid[i, k] for k in range(j)]
             dh = row[0].shape[2] - below.shape[2]
             dw = row[0].shape[3] - below.shape[3]
+            check_even_pad(dh)
             if dh or dw:
                 below = F.pad(below, (dw // 2, dw - dw // 2, dh // 2, dh - dh // 2))
             grid[i, j] = node(torch.cat([r.to(below.dtype) for r in row] + [below], dim=1))

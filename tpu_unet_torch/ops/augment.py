@@ -49,8 +49,11 @@ def device_constant(values: Tuple[float, ...], dtype: torch.dtype,
                     device: torch.device) -> torch.Tensor:
     """``torch.tensor(values)`` on ``device``, made once: a copy from host
     memory to a GPU waits for the GPU to drain, so a train step must not
-    make one per call. Callers must not write to it."""
-    return torch.tensor(values, dtype=dtype, device=device)
+    make one per call. Callers must not write to it. Made outside inference
+    mode, since a constant first made while serving may later enter a
+    train step's autograd."""
+    with torch.inference_mode(False):
+        return torch.tensor(values, dtype=dtype, device=device)
 
 
 def normalize(images: torch.Tensor,

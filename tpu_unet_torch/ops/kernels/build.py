@@ -20,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
@@ -100,8 +101,21 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
     return result
 
 
+# Serving threads (one per 'space' device) call the kernels at once: the
+# first load and the launch counters are taken under this lock.
+LOCK = threading.RLock()
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of one kernel, built first if needed."""
+    lib = _LOADED.get(name)
+    if lib is not None:
+        return lib
+    with LOCK:
+        return _load(name)
+
+
+def _load(name: str) -> ctypes.CDLL:
     lib = _LOADED.get(name)
     if lib is None:
         path = build([name])[name]["path"]

@@ -185,7 +185,8 @@ def _launch(x, w, scale, bias, out_scale, relu):
                  out_scale.data_ptr(), out.data_ptr(), n, h, wd, x.shape[3], cout,
                  int(relu), build.current_stream(x.device))
     build.check(lib, "conv3x3_int8", err)
-    conv3x3_int8.launches += 1
+    with build.LOCK:
+        conv3x3_int8.launches += 1
     return out
 
 

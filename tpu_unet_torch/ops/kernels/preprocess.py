@@ -71,7 +71,8 @@ def _launch(images_u8: torch.Tensor, mean, std, out_dtype: torch.dtype) -> torch
             int(out_dtype == torch.bfloat16), *mean, *std,
             build.current_stream(images_u8.device))
     build.check(lib, "normalize_u8", err)
-    normalize_u8.launches += 1
+    with build.LOCK:
+        normalize_u8.launches += 1
     return out
 
 

@@ -63,7 +63,8 @@ import torch.nn.functional as F
 from tpu_unet_torch.core.device import resolve_device
 from tpu_unet_torch.ops.augment import eval_transform
 from tpu_unet_torch.ops.kernels.int8_conv import conv3x3_int8, pack_weights, pad_cout
-from tpu_unet_torch.ops.resize import interp_axis
+from tpu_unet_torch.ops.resize import interp_axis, interp_rows
+from tpu_unet_torch.parallel import spatial
 from tpu_unet_torch.utils.weights import (CONV_BN, UP_LEAF, layout_of, qparams_from_numpy,
                                           qparams_to_numpy)
 
@@ -186,7 +187,10 @@ def _percentile(a: torch.Tensor, q: float) -> torch.Tensor:
 
 def _pad_to(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
     """Static pad of NHWC x up to ref's spatial dims (models/blocks.py::Up)."""
+    from tpu_unet_torch.models.blocks import check_even_pad
+
     dh, dw = ref.shape[1] - x.shape[1], ref.shape[2] - x.shape[2]
+    check_even_pad(dh)
     if dh or dw:
         x = F.pad(x, (0, 0, dw // 2, dw - dw // 2, dh // 2, dh - dh // 2))
     return x
@@ -194,7 +198,7 @@ def _pad_to(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
 
 def _upsample2x_nhwc(x: torch.Tensor) -> torch.Tensor:
     """The align-corners 2x upsample of an NHWC tensor (H, then W)."""
-    return interp_axis(interp_axis(x, 2 * x.shape[1], 1), 2 * x.shape[2], 2)
+    return interp_axis(interp_rows(x, 2 * x.shape[1], 1), 2 * x.shape[2], 2)
 
 
 def _gate_float(p, g, x, path):
@@ -209,7 +213,7 @@ def _gate_float(p, g, x, path):
     # W_x's stride 2 (a 1x1 kernel): the even rows and columns
     xp = conv(x[:, ::2, ::2], _get(p, f"{path}/x/conv1"))[:, :gp.shape[1], :gp.shape[2]]
     a = conv(torch.relu(gp + xp), _get(p, f"{path}/conv2"))
-    alpha = interp_axis(interp_axis(torch.sigmoid(a), x.shape[1], 1), x.shape[2], 2)
+    alpha = interp_axis(interp_rows(torch.sigmoid(a), x.shape[1], 1), x.shape[2], 2)
     return x * alpha
 
 
@@ -380,11 +384,20 @@ class _QuantExec:
         return self._requant(x, s), s
 
     def double_conv(self, xs, path):
+        """Two K2 convs. Under a 'space' scope each takes its input with one
+        halo row above and below (a new contiguous tensor, as K2 needs)
+        and keeps output rows 1..h: K2's SAME padding touches only the two
+        rows that are cropped, so the rows are the whole image's."""
         x, s_in = xs
+        ex = spatial.current()
         for i in (1, 2):
             c = self._leaf(f"{path}/conv{i}", s_in, "conv")
             s_out = self.scales[f"{path}/relu{i}"]
+            if ex is not None:
+                x = spatial.halo_rows(x, ex, dim=1)
             x = self.conv3x3(x, c["kernel"], c["scale"], c["bias"], s_out, relu=True)
+            if ex is not None:
+                x = x[:, 1:-1]
             if x.shape[3] != c["cout"]:  # K2's padded channels are zeros
                 x = x[..., :c["cout"]].contiguous()
             s_in = s_out
@@ -754,7 +767,7 @@ def make_quantized_anomaly_eval_step(loss_cfg=None, group=None):
 
 def make_quantized_seg_eval_step(num_classes: int, loss_cfg=None, arch: str = "seg_unet",
                                  deep_supervision: bool = False, heads: int = 4,
-                                 group=None):
+                                 group=None, space=None):
     """int8 drop-in for ``train/steps.py::make_seg_eval_step``.
 
     Returns ``step(qparams, images_u8, labels, valid=None) -> (losses, preds,
@@ -765,10 +778,13 @@ def make_quantized_seg_eval_step(num_classes: int, loss_cfg=None, arch: str = "s
     attention UNet, 30 for UNet++ (6 with deep supervision and ``heads`` 1).
     One executor is kept while the same qparams come back. ``arch``
     'seg_unet', 'unet', 'attn_unet' or 'unetpp' (``deep_supervision``,
-    ``heads``: see :func:`make_quantized_forward`). ``group``: as
-    ``seg_eval_outputs``'s.
+    ``heads``: see :func:`make_quantized_forward`). ``group`` and ``space``:
+    as ``seg_eval_outputs``'s: under ``space`` K1 and every K2 launch run
+    on the rank's rows (K2's input with its halo rows), and the predictions
+    come back whole.
     """
-    from tpu_unet_torch.train.steps import SegLossConfig, _as_tensor, seg_eval_outputs
+    from tpu_unet_torch.train.steps import (SegLossConfig, _as_tensor, seg_eval_outputs,
+                                            space_rows)
 
     cfg = loss_cfg if loss_cfg is not None else SegLossConfig()
     plan = build_plan(arch, deep_supervision=deep_supervision, heads=heads)
@@ -779,11 +795,13 @@ def make_quantized_seg_eval_step(num_classes: int, loss_cfg=None, arch: str = "s
         if cache.get("layers") is not qparams["layers"]:
             cache["layers"], cache["exec"] = qparams["layers"], _QuantExec(qparams)
         device = _tree_device(qparams["layers"])
-        logits = _run(cache["exec"], eval_transform(_as_tensor(images_u8, device)), plan)
-        lbl = _as_tensor(labels, device).to(torch.int64)
-        if valid is not None:
-            valid = _as_tensor(valid, device)
-        return seg_eval_outputs(logits, lbl, num_classes, cfg, valid, group)
+        img, lbl = space_rows(_as_tensor(images_u8, device), _as_tensor(labels, device),
+                              space)
+        with spatial.scope(space):
+            logits = _run(cache["exec"], eval_transform(img), plan)
+            if valid is not None:
+                valid = _as_tensor(valid, device)
+            return seg_eval_outputs(logits, lbl, num_classes, cfg, valid, group, space)
 
     return step
 

@@ -11,7 +11,9 @@ float32, which ``F.interpolate`` would not reproduce.
 
 Each matrix is built once per (in, out, dtype, device) and kept: a
 host-to-device copy per call would wait for the stream to drain.
-Tensors are NCHW; :func:`interp_axis` resizes any one axis.
+Tensors are NCHW; :func:`interp_axis` resizes any one axis,
+:func:`interp_rows` the rows, which under a 'space' scope are this rank's
+block of the image's (``parallel/spatial.py::resize_rows``).
 """
 
 from __future__ import annotations
@@ -49,9 +51,16 @@ def interp_matrix(in_size: int, out_size: int, dtype: torch.dtype,
     key = (in_size, out_size, dtype, torch.device(device))
     m = _MATRICES.get(key)
     if m is None:
-        m = torch.from_numpy(_interp_matrix(in_size, out_size).astype(np.float32))
-        m = _MATRICES[key] = m.to(device=device, dtype=dtype)
+        m = _MATRICES[key] = kept_constant(_interp_matrix(in_size, out_size), dtype, device)
     return m
+
+
+def kept_constant(a: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
+    """``a`` (float64) -> float32 -> ``dtype`` on ``device``, made outside
+    inference mode: a matrix first made while serving is kept and later
+    read by a train step's autograd, which refuses inference tensors."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(a.astype(np.float32)).to(device=device, dtype=dtype)
 
 
 def interp_axis(x: torch.Tensor, out_size: int, dim: int) -> torch.Tensor:
@@ -64,9 +73,22 @@ def interp_axis(x: torch.Tensor, out_size: int, dim: int) -> torch.Tensor:
     return torch.movedim(torch.movedim(x, dim, -1) @ m.t(), -1, dim)
 
 
+def interp_rows(x: torch.Tensor, out_size: int, dim: int) -> torch.Tensor:
+    """Resize the rows (axis ``dim``) of ``x`` to ``out_size``; under a
+    'space' scope ``x`` holds this rank's rows and ``out_size`` is its
+    share of the output's."""
+    from tpu_unet_torch.parallel import spatial
+
+    ex = spatial.current()
+    if ex is None:
+        return interp_axis(x, out_size, dim)
+    return spatial.resize_rows(x, out_size, dim, ex)
+
+
 def resize_bilinear_align_corners(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
-    """Resize an NCHW tensor to (out_h, out_w), align_corners=True bilinear."""
-    return interp_axis(interp_axis(x, out_h, 2), out_w, 3)
+    """Resize an NCHW tensor to (out_h, out_w), align_corners=True bilinear
+    (under a 'space' scope, ``out_h`` is this rank's rows)."""
+    return interp_axis(interp_rows(x, out_h, 2), out_w, 3)
 
 
 def upsample2x_bilinear_align_corners(x: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,7 @@
-"""Data and tensor parallelism over ``torch.distributed`` process groups
-(counterpart of ``tpu_unet/parallel``; the 'space' axis waits for slice 11
-of the port)."""
+"""Data, spatial and tensor parallelism over ``torch.distributed`` process
+groups (counterpart of ``tpu_unet/parallel``): the ('data', 'space',
+'model') mesh (``mesh.py``), the halo exchanges of H-sharded activations
+(``spatial.py``), FSDP2 (``fsdp.py``) and channel slices (``tensor.py``)."""
 
 from tpu_unet_torch.parallel.collectives import (
     all_gather_host_values,

@@ -6,7 +6,9 @@ Inside a step the collectives are explicit (``train/steps.py``,
 seams of the epoch drivers and the CLIs: each rank holds its rows of every
 batch, and the epoch's arrays are gathered so that every rank computes the
 same global metrics. Without a process group (or at world size 1) each is
-a passthrough.
+a passthrough. Under the 'space' axis the eval steps hand back whole
+images (``parallel/spatial.py::gather_rows``), so these gather over
+'data' alone, as under tensor parallelism.
 
 Host values travel as tensors on the group's device: the rank's GPU under
 NCCL, the CPU under gloo. Under tensor parallelism every model rank of a

@@ -32,7 +32,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from tpu_unet_torch.parallel.mesh import DATA_AXIS, group_of, replicate
+from tpu_unet_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, SPACE_AXIS, group_of, replicate
 
 # Leaves below this many ELEMENTS stay replicated in the JAX package: the BN
 # vectors and biases fall under it; every conv kernel from the second block
@@ -91,7 +91,10 @@ def shard_state(mesh, state, fsdp: bool = False, min_size: int = DEFAULT_MIN_SIZ
     all-reduces the gradients), or with ``fsdp`` on a mesh wider than 1 the
     parameters are sharded by FSDP2 under the leaf policy and the optimizer
     is rebuilt over the shards. ``fsdp`` on a 1-wide mesh warns and
-    replicates, as the JAX package does.
+    replicates, as the JAX package does. Under a 'space' axis the group is
+    the batch group (data x space) and FSDP2 shards over 'data' and
+    replicates over 'space' (:func:`fsdp_mesh`), as the JAX package's
+    leaf policy does.
     """
     if tp:
         from tpu_unet_torch.parallel import tensor
@@ -107,16 +110,35 @@ def shard_state(mesh, state, fsdp: bool = False, min_size: int = DEFAULT_MIN_SIZ
     sync_batchnorm(state.model, group)
     replicate(state.model, group)
     if fsdp:
-        fully_shard_state(mesh, state, min_size)
+        fully_shard_state(fsdp_mesh(mesh), state, min_size)
     return state
 
 
+def fsdp_mesh(mesh):
+    """The mesh FSDP2 places the state on: the 'data' ranks (of this
+    rank's 'model' index), or with a 'space' axis wider than 1 the 2-D
+    ``('space', 'data')`` mesh of this rank's model index, FSDP2's hybrid
+    form: shard over 'data' (the last dim), replicate over 'space'. Its
+    gradient reduction divides by both dims' ranks: the mean over the batch
+    group."""
+    names = mesh.mesh_dim_names or ()
+    if SPACE_AXIS not in names or mesh[SPACE_AXIS].size() == 1:
+        return mesh[DATA_AXIS] if MODEL_AXIS in names else mesh
+    from torch.distributed.device_mesh import DeviceMesh
+
+    d, s, m = (mesh[a].size() for a in (DATA_AXIS, SPACE_AXIS, MODEL_AXIS))
+    ranks = torch.arange(d * s * m).reshape(d, s, m).permute(1, 0, 2)
+    full = DeviceMesh(mesh.device_type, ranks,
+                      mesh_dim_names=(SPACE_AXIS, DATA_AXIS, MODEL_AXIS))
+    return full[SPACE_AXIS, DATA_AXIS]
+
+
 def fully_shard_state(mesh, state, min_size: int = DEFAULT_MIN_SIZE) -> None:
-    """FSDP2 over the 1-D ``mesh`` (the 'data' ranks, whose states are
-    already equal): every parameter sharded under the leaf policy, the
-    optimizer rebuilt over the shards. A 1-wide mesh warns and leaves the
-    state whole, as the JAX package does."""
-    n = mesh.size()
+    """FSDP2 over ``mesh`` (:func:`fsdp_mesh`; ranks whose states are
+    already equal): every parameter sharded over its last dim under the
+    leaf policy, the optimizer rebuilt over the shards. A 1-wide shard dim
+    warns and leaves the state whole, as the JAX package does."""
+    n = mesh.size(mesh.ndim - 1)
     if n == 1:
         warnings.warn(f"--fsdp requested but the '{DATA_AXIS}' mesh axis is 1-wide; "
                       "state stays fully replicated", stacklevel=3)

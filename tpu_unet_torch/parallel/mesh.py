@@ -8,28 +8,34 @@ port runs the PyTorch way: one process per device (a rank), joined by a
 chosen from the device type and never swapped in silently. A run over W
 ranks computes what the JAX package computes on a W-device mesh: data rank d
 holds the d-th contiguous block of each global batch (:func:`shard_batch`,
-``data/loader.py``), BatchNorm takes the global batch's statistics
+``data/loader.py``), space rank s the s-th block of its rows
+(``parallel/spatial.py``), BatchNorm takes the global batch's statistics
 (``models/blocks.py``), the losses divide by global denominators
 (``losses/reduction.py``) and the steps average the gradients over the
-'data' group (``train/steps.py``).
+batch group (``train/steps.py``).
 
 - :func:`make_mesh`: the ``'data'`` :class:`DeviceMesh` over the ranks of
-  the process group, or with ``n_model > 1`` the 3-axis ``('data', 'space',
-  'model')`` mesh of tensor parallelism (``parallel/tensor.py``; 'space' 1
-  wide), ranks in JAX's ``reshape(n_data, n_space, n_model)`` order: rank =
-  d * n_model + m. None for one process without a group (the plain path).
-  The ``'space'`` axis waits for slice 11 of the port.
-- :func:`data_rank`, :func:`data_size`, :func:`model_rank`,
-  :func:`model_size`: this rank's coordinates on the mesh :func:`make_mesh`
-  built last (``model_size()`` 1 without tensor parallelism). Everything
-  that splits or gathers a batch keys on the data coordinate, so every model
-  rank of data index d holds the same rows.
+  the process group, or with ``n_space > 1`` or ``n_model > 1`` the 3-axis
+  ``('data', 'space', 'model')`` mesh, ranks in JAX's ``reshape(n_data,
+  n_space, n_model)`` order: rank = (d * n_space + s) * n_model + m. None
+  for one process without a group (the plain path).
+- :func:`data_rank`, :func:`data_size`, :func:`space_rank`,
+  :func:`space_size`, :func:`model_rank`, :func:`model_size`: this rank's
+  coordinates on the mesh :func:`make_mesh` built last (a size is 1 where
+  the axis is absent). Everything that splits or gathers a batch keys on
+  the data coordinate, so every (space, model) rank of data index d holds
+  the same images.
+- :func:`group_of`: the batch group (the data x space ranks of one model
+  index), over which BatchNorm, the losses' denominators, the confusion
+  matrices and the gradient mean reduce; :func:`space_group` the ranks that
+  split one image's rows.
 - :func:`maybe_initialize`: joins a group launched by hand
   (``--coordinator_address``/``--num_processes``/``--process_id``) or by
   torchrun or SLURM (``--multihost``).
-- :func:`launch`: ``--n_devices N`` (times ``--n_model K``) runs a function
-  on N K local ranks (``torch.multiprocessing``, start method ``spawn``, a
-  free port on 127.0.0.1), one per GPU, and returns rank 0's result.
+- :func:`launch`: ``--n_devices N`` (times ``--n_space S`` times
+  ``--n_model K``) runs a function on N S K local ranks
+  (``torch.multiprocessing``, start method ``spawn``, a free port on
+  127.0.0.1), one per GPU, and returns rank 0's result.
 """
 
 from __future__ import annotations
@@ -39,7 +45,7 @@ import os
 import pickle
 import socket
 import tempfile
-from typing import Any, Callable, List, Optional, Sequence
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -49,18 +55,11 @@ DATA_AXIS = "data"
 SPACE_AXIS = "space"
 MODEL_AXIS = "model"
 
-NOT_PORTED = ("waits for slice 11 of the port (the 'space' axis); the port shards the "
-              "batch over 'data' and the channels over 'model' only")
-
 _ENV_TORCHRUN = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
 _ENV_SLURM = ("SLURM_PROCID", "SLURM_NTASKS")
 # Collectives of a group that waits for a slow rank (a checkpoint written
 # by rank 0, a first CUDA build) must not time out before the work ends.
 _TIMEOUT = datetime.timedelta(minutes=30)
-
-
-def not_ported(flag: str) -> NotImplementedError:
-    return NotImplementedError(f"{flag} > 1 {NOT_PORTED}")
 
 
 def backend_for(device_type: str) -> str:
@@ -82,8 +81,9 @@ def is_main_process() -> bool:
     return rank() == 0
 
 
-# The mesh make_mesh built last: its 'model' width and sub-groups.
-_MESH = {"n_model": 1, "data": None, "model": None}
+# The mesh make_mesh built last: its 'space' and 'model' widths and sub-groups.
+_MESH = {"n_space": 1, "n_model": 1, "data": None, "space": None, "model": None,
+         "batch": None}
 
 
 def model_size() -> int:
@@ -96,20 +96,44 @@ def model_rank() -> int:
     return rank() % model_size()
 
 
+def space_size() -> int:
+    """Ranks that split one image's rows (1 without the 'space' axis)."""
+    return _MESH["n_space"]
+
+
+def space_rank() -> int:
+    """This rank's index on the 'space' axis: the block of rows it holds."""
+    return rank() // model_size() % space_size()
+
+
 def data_size() -> int:
     """Ranks on the 'data' axis: the number of distinct batch blocks."""
-    return world_size() // model_size()
+    return world_size() // (space_size() * model_size())
 
 
 def data_rank() -> int:
     """This rank's index on the 'data' axis: the block of each batch it holds."""
-    return rank() // model_size()
+    return rank() // (space_size() * model_size())
+
+
+def data_coords(mesh) -> Tuple[int, int]:
+    """``(data ranks, this rank's data index)`` of ``mesh`` itself, (1, 0)
+    for None: a loader's ``process_count``/``process_index`` that does not
+    depend on which mesh was made last."""
+    if mesh is None:
+        return 1, 0
+    return mesh.size(0), mesh.get_local_rank(DATA_AXIS)
 
 
 def data_group():
-    """The 'data' sub-group of a tensor-parallel mesh; None (the default
-    group) otherwise."""
+    """The 'data' sub-group of a 3-axis mesh; None (the default group)
+    otherwise."""
     return _MESH["data"]
+
+
+def space_group():
+    """The 'space' sub-group of a mesh with a 'space' axis; None otherwise."""
+    return _MESH["space"]
 
 
 def model_group():
@@ -138,16 +162,17 @@ def make_mesh(n_data: Optional[int] = None, n_space: int = 1, n_model: int = 1,
     ``devices`` defaults to one per rank of the process group, or to this
     process's visible devices without a group. Raises ValueError where the
     JAX package's ``make_mesh`` does: a size below 1, more devices than
-    exist, a defaulted data axis that comes out below 1; then
-    NotImplementedError for ``n_space`` > 1. Returns a
+    exist, a defaulted data axis that comes out below 1. Returns a
     :class:`~torch.distributed.device_mesh.DeviceMesh` with the one dim
-    ``'data'`` over the group's ranks, or for ``n_model`` > 1 the dims
-    ``('data', 'space', 'model')`` of shape ``(n_data, 1, n_model)``
-    (``n_data * n_model`` must be the world size); None for one process
+    ``'data'`` over the group's ranks, or for ``n_space`` > 1 or ``n_model``
+    > 1 the dims ``('data', 'space', 'model')`` of shape ``(n_data, n_space,
+    n_model)`` (their product must be the world size); None for one process
     without a group. ``device_type`` (the ranks' tensors) defaults to
     ``cuda`` under NCCL and ``cpu`` under gloo; ranks sharing a GPU over
-    gloo pass ``cuda``. The mesh's 'model' width and sub-groups become
-    :func:`model_size`, :func:`data_group` and :func:`model_group`.
+    gloo pass ``cuda``. The mesh's widths and sub-groups become
+    :func:`space_size`, :func:`model_size`, :func:`data_group`,
+    :func:`space_group`, :func:`model_group` and, through :func:`group_of`,
+    the batch group.
     """
     if n_space < 1 or n_model < 1 or (n_data is not None and n_data < 1):
         raise ValueError(
@@ -168,36 +193,47 @@ def make_mesh(n_data: Optional[int] = None, n_space: int = 1, n_model: int = 1,
     if need > len(devices):
         raise ValueError(f"mesh {n_data}x{n_space}x{n_model} needs {need} devices, "
                          f"have {len(devices)}")
-    if n_space > 1:
-        raise not_ported("n_space")
-    _MESH.update(n_model=1, data=None, model=None)
+    _MESH.update(n_space=1, n_model=1, data=None, space=None, model=None, batch=None)
     if not dist.is_initialized():
         if need > 1:
-            raise ValueError(f"a {n_data}x{n_model} (data x model) mesh needs a process "
-                             f"group: run under launch() or torchrun")
+            raise ValueError(f"a {n_data}x{n_space}x{n_model} (data x space x model) mesh "
+                             f"needs a process group: run under launch() or torchrun")
         return None
     if need != dist.get_world_size():
-        raise ValueError(f"n_data={n_data} x n_model={n_model} but the process group has "
-                         f"{dist.get_world_size()} ranks")
+        raise ValueError(f"n_data={n_data} x n_space={n_space} x n_model={n_model} but the "
+                         f"process group has {dist.get_world_size()} ranks")
     from torch.distributed.device_mesh import init_device_mesh
     if device_type is None:
         device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-    if n_model == 1:
+    if n_space == 1 and n_model == 1:
         return init_device_mesh(device_type, (n_data,), mesh_dim_names=(DATA_AXIS,))
-    mesh = init_device_mesh(device_type, (n_data, 1, n_model),
+    mesh = init_device_mesh(device_type, (n_data, n_space, n_model),
                             mesh_dim_names=(DATA_AXIS, SPACE_AXIS, MODEL_AXIS))
-    _MESH.update(n_model=n_model, data=mesh.get_group(DATA_AXIS),
-                 model=mesh.get_group(MODEL_AXIS))
+    batch = None
+    if n_space > 1:
+        # One batch group per model index m: the data x space ranks, in (d, s)
+        # order, so a rank's index in it is d * n_space + s.
+        grid = np.arange(need).reshape(n_data * n_space, n_model)
+        batch, _ = dist.new_subgroups_by_enumeration([grid[:, m].tolist()
+                                                      for m in range(n_model)])
+    _MESH.update(n_space=n_space, n_model=n_model, data=mesh.get_group(DATA_AXIS),
+                 space=mesh.get_group(SPACE_AXIS) if n_space > 1 else None,
+                 model=mesh.get_group(MODEL_AXIS) if n_model > 1 else None, batch=batch)
     return mesh
 
 
 def group_of(mesh):
-    """The mesh's 'data' process group, over which the steps average the
-    gradients and BatchNorm takes its statistics: None for no mesh, and for
-    a tensor-parallel mesh whose 'data' axis is 1 wide (the plain path)."""
+    """The mesh's batch group, over which the steps average the gradients,
+    BatchNorm takes its statistics, the losses their denominators and the
+    confusion matrices their sums: the 'data' group of a mesh without a
+    'space' axis (None for no mesh, and for a 1-wide 'data' axis: the plain
+    path), and with one the data x space ranks of this rank's model index."""
     if mesh is None:
         return None
-    if MODEL_AXIS in (mesh.mesh_dim_names or ()) and mesh[DATA_AXIS].size() == 1:
+    names = mesh.mesh_dim_names or ()
+    if SPACE_AXIS in names and mesh[SPACE_AXIS].size() > 1:
+        return _MESH["batch"]
+    if MODEL_AXIS in names and mesh[DATA_AXIS].size() == 1:
         return None
     return mesh.get_group(DATA_AXIS)
 
@@ -269,23 +305,27 @@ def _free_port() -> int:
 
 
 def local_rank_devices(n_devices: Optional[int], device_type: str,
-                       n_model: int = 1) -> List[torch.device]:
+                       n_model: int = 1, n_space: int = 1) -> List[torch.device]:
     """The devices of a local launch of ``n_devices`` data ranks times
-    ``n_model`` model ranks: one GPU each on ``cuda`` (None: as many data
-    ranks as the visible GPUs hold; more ranks than GPUs raises, as
-    :func:`make_mesh` does), the CPU for every rank on ``cpu`` (None: 1 data
-    rank)."""
+    ``n_space`` space ranks times ``n_model`` model ranks: one GPU each on
+    ``cuda`` (None: as many data ranks as the visible GPUs hold; more ranks
+    than GPUs raises, as :func:`make_mesh` does), the CPU for every rank on
+    ``cpu`` (None: 1 data rank)."""
     if n_devices is not None and n_devices < 1:
         raise ValueError(f"--n_devices must be >= 1, got {n_devices}")
     if n_model < 1:
         raise ValueError(f"--n_model must be >= 1, got {n_model}")
+    if n_space < 1:
+        raise ValueError(f"--n_space must be >= 1, got {n_space}")
+    per = n_space * n_model
     if device_type != "cuda":
-        return [torch.device("cpu")] * ((n_devices or 1) * n_model)
+        return [torch.device("cpu")] * ((n_devices or 1) * per)
     gpus = visible_devices("cuda")
-    n = (len(gpus) // n_model if n_devices is None else n_devices) * n_model
-    if n > len(gpus) or n < n_model:
-        raise ValueError(f"--n_devices {n_devices} x --n_model {n_model} needs "
-                         f"{max(n, n_model)} GPUs, have {len(gpus)}")
+    n = (len(gpus) // per if n_devices is None else n_devices) * per
+    if n > len(gpus) or n < per:
+        space = f" x --n_space {n_space}" if n_space > 1 else ""
+        raise ValueError(f"--n_devices {n_devices}{space} x --n_model {n_model} needs "
+                         f"{max(n, per)} GPUs, have {len(gpus)}")
     return gpus[:n]
 
 
@@ -309,10 +349,10 @@ def _rank_main(index: int, fn: Callable, args: tuple, devices: List[str], backen
 
 def launch(fn: Callable, args: tuple = (), n_devices: Optional[int] = None,
            device_type: str = "cuda", devices: Optional[Sequence] = None,
-           backend: Optional[str] = None, n_model: int = 1) -> Any:
+           backend: Optional[str] = None, n_model: int = 1, n_space: int = 1) -> Any:
     """``fn(*args)`` on every rank of a run over ``n_devices`` data ranks
-    times ``n_model`` model ranks; returns this process's result (rank 0's,
-    for a local launch).
+    times ``n_space`` space ranks times ``n_model`` model ranks; returns
+    this process's result (rank 0's, for a local launch).
 
     - Inside a process group (a rank, torchrun after :func:`maybe_initialize`):
       calls ``fn`` here.
@@ -330,7 +370,7 @@ def launch(fn: Callable, args: tuple = (), n_devices: Optional[int] = None,
     if dist.is_initialized():
         return fn(*args)
     if devices is None:
-        devices = local_rank_devices(n_devices, device_type, n_model)
+        devices = local_rank_devices(n_devices, device_type, n_model, n_space)
     devices = [str(torch.device(d)) for d in devices]
     if len(devices) == 1:
         return fn(*args)
@@ -431,10 +471,12 @@ def _under_torchrun() -> bool:
 def cli_world(args, device_type: str) -> int:
     """A CLI's world size: it joins a group launched outside the process
     (the multi-host flags, or torchrun's environment, which needs no flag)
-    and returns its size, which ``--n_devices`` times ``--n_model`` must
-    match if given; else the ranks :func:`launch` will spawn for
-    ``--n_devices`` and ``--n_model``."""
+    and returns its size, which ``--n_devices`` times ``--n_space`` times
+    ``--n_model`` must match if given; else the ranks :func:`launch` will
+    spawn for ``--n_devices``, ``--n_space`` and ``--n_model``."""
     n_model = getattr(args, "n_model", 1)
+    n_space = getattr(args, "n_space", 1)
+    per = n_model * n_space
     joined = maybe_initialize(getattr(args, "coordinator_address", None),
                               getattr(args, "num_processes", None),
                               getattr(args, "process_id", None),
@@ -442,11 +484,12 @@ def cli_world(args, device_type: str) -> int:
                               device_type=device_type)
     if joined:
         world = dist.get_world_size()
-        if world % n_model or args.n_devices not in (None, world // n_model):
-            raise ValueError(f"--n_devices {args.n_devices} x --n_model {n_model} but the "
-                             f"launched group has {world} ranks")
+        if world % per or args.n_devices not in (None, world // per):
+            space = f" x --n_space {n_space}" if n_space > 1 else ""
+            raise ValueError(f"--n_devices {args.n_devices}{space} x --n_model {n_model} but "
+                             f"the launched group has {world} ranks")
         return world
-    return len(local_rank_devices(args.n_devices, device_type, n_model))
+    return len(local_rank_devices(args.n_devices, device_type, n_model, n_space))
 
 
 def check_batch(batch_size: int, world: int, grad_accum: int = 1) -> None:

@@ -55,10 +55,10 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-from tpu_unet_torch.parallel.fsdp import (DEFAULT_MIN_SIZE, fully_shard_state,
+from tpu_unet_torch.parallel.fsdp import (DEFAULT_MIN_SIZE, fsdp_mesh, fully_shard_state,
                                           leaf_partition_spec)
-from tpu_unet_torch.parallel.mesh import (DATA_AXIS, MODEL_AXIS, group_of, model_group,
-                                          model_rank, model_size, replicate)
+from tpu_unet_torch.parallel.mesh import (MODEL_AXIS, group_of, model_group, model_rank,
+                                          model_size, replicate)
 
 # Level-up ConvTranspose names: 'up' (blocks.Up) and 'up{i}_{j}' (UNet++).
 _UP_NAME = re.compile(r"up(\d+_\d+)?")
@@ -281,7 +281,7 @@ def shard_state(mesh, state, fsdp: bool = False, min_size: int = DEFAULT_MIN_SIZ
     _mark_convs(model, dims, group)
     sync_batchnorm(model, group_of(mesh))
     if fsdp:
-        fully_shard_state(mesh[DATA_AXIS], state, min_size)
+        fully_shard_state(fsdp_mesh(mesh), state, min_size)
     return state
 
 

@@ -32,6 +32,13 @@ devices: each batch splits into contiguous chunks, each chunk runs on its
 replica's device on that replica's own CUDA stream (K1 and K2 on every
 replica), and the outputs are concatenated in order on the first device.
 The batch and each bucket must divide by the replica count.
+:class:`SegmentationPredictor` also takes ``n_space``: each replica then
+spans ``n_space`` devices (``n_devices`` x ``n_space`` in all, the JAX
+predictor's (data, space) mesh), one thread per device runs the ordinary
+forward on its block of the image's rows under a ``parallel/spatial.py``
+scope, the threads swap their edge rows at a barrier for every halo, and
+the rows' logits are gathered on the replica's first device before the
+masks and confidences are taken.
 
 Usage:
     scorer = AnomalyScorer.from_checkpoint("best_model.pth", quantize="int8",
@@ -64,7 +71,8 @@ from tpu_unet_torch.ops.quantize import (_QuantExec, _run, build_plan, chunk_cal
                                          quantize_from_train_state, tree_to)
 from tpu_unet_torch.ops.seg_head import sliced_pred_confidence
 from tpu_unet_torch.ops.tiling import make_tiled_logits_fn
-from tpu_unet_torch.parallel.mesh import local_rank_devices, not_ported
+from tpu_unet_torch.parallel import spatial
+from tpu_unet_torch.parallel.mesh import local_rank_devices
 from tpu_unet_torch.utils.weights import load_reference_checkpoint
 
 
@@ -215,20 +223,67 @@ def _lagged_host_fetch(device_fn):
 
 def _replica_devices(n_devices: Optional[int], devices, device,
                      n_space: int = 1) -> list:
-    """The devices an engine holds a replica on: ``devices`` as given, else
-    ``n_devices`` (default 1) of ``device``'s type (one GPU each; more than
-    there are raises; on the CPU every replica shares it)."""
-    if n_space > 1:
-        raise not_ported("n_space")
+    """The devices an engine holds a replica on, ``n_space`` consecutive
+    ones per replica: ``devices`` as given, else ``n_devices`` (default 1)
+    times ``n_space`` of ``device``'s type (one GPU each; more than there
+    are raises; on the CPU every replica shares it)."""
+    if n_space < 1:
+        raise ValueError(f"n_space must be >= 1, got {n_space}")
     if devices is not None:
         devices = [resolve_device(d) for d in devices]
-        if n_devices not in (None, len(devices)):
-            raise ValueError(f"n_devices={n_devices} but {len(devices)} devices given")
+        if len(devices) % n_space or n_devices not in (None, len(devices) // n_space):
+            raise ValueError(f"n_devices={n_devices} x n_space={n_space} but "
+                             f"{len(devices)} devices given")
         return devices
     device = resolve_device(device)
-    if (n_devices or 1) == 1:
+    if (n_devices or 1) * n_space == 1:
         return [device]
-    return local_rank_devices(n_devices, device.type)
+    return local_rank_devices(n_devices or 1, device.type, n_space=n_space)
+
+
+def _row_sharded(fns: list, devices: list):
+    """One batch function over ``len(fns)`` space devices: thread i takes
+    block i of the batch's rows (NHWC, on ``devices[0]``), runs ``fns[i]``
+    on ``devices[i]`` (on a stream of its own there) under a
+    ``parallel/spatial.py`` scope of a :class:`~tpu_unet_torch.parallel.
+    spatial.ThreadRing`, and the blocks of the NHWC outputs are concatenated
+    on ``devices[0]``. A failed thread breaks the ring's barrier, so the
+    others raise instead of waiting."""
+    n, home = len(fns), devices[0]
+    streams = [torch.cuda.Stream(device=d) if d.type == "cuda" else None for d in devices]
+    pool = ThreadPoolExecutor(max_workers=n, thread_name_prefix="space")
+
+    def run(images_u8):
+        spatial.check_rows(images_u8.shape[1], n)
+        ring, h = spatial.ThreadRing(n), images_u8.shape[1] // n
+        src = torch.cuda.current_stream(home) if home.type == "cuda" else None
+
+        def work(i):
+            dev, stream = devices[i], streams[i]
+            try:
+                with torch.inference_mode(), spatial.scope(ring.exchanger(i)), \
+                        (torch.cuda.device(dev) if stream is not None
+                         else contextlib.nullcontext()), \
+                        (torch.cuda.stream(stream) if stream is not None
+                         else contextlib.nullcontext()):
+                    if stream is not None:
+                        stream.wait_stream(src)
+                    x = images_u8[:, i * h:(i + 1) * h].to(dev, copy=True)
+                    return fns[i](x)
+            except BaseException:
+                ring.abort()
+                raise
+
+        outs = [f.result() for f in [pool.submit(work, i) for i in range(n)]]
+        if src is not None:
+            for stream in streams:
+                src.wait_stream(stream)
+            for o in outs:
+                if o.device == home:
+                    o.record_stream(src)
+        return torch.cat([o.to(home) for o in outs], dim=1)
+
+    return run
 
 
 def _replicated(fns: list, devices: list):
@@ -297,12 +352,13 @@ class _Engine:
     per-thread serving context, and the export state."""
 
     def __init__(self, batch_size: int, device, bucket_sizes, export_state,
-                 devices: Optional[Sequence] = None):
+                 devices: Optional[Sequence] = None, n_space: int = 1):
         self.batch_size = int(batch_size)
         self.device = resolve_device(device)
         self.devices = [resolve_device(d) for d in devices] if devices else [self.device]
+        self.n_space = n_space
         self.bucket_sizes = _normalize_buckets(bucket_sizes, self.batch_size,
-                                               len(self.devices))
+                                               len(self.devices) // n_space)
         # (params(), bind(params)) for serve_artifact.export_artifact; None for
         # an engine loaded from an artifact.
         self._export_state = export_state
@@ -607,8 +663,8 @@ class SegmentationPredictor(_Engine):
     def __init__(self, predict_fn: Callable, image_size_hw, batch_size: int, device,
                  num_classes: Optional[int] = None, quantize: Optional[str] = None,
                  bucket_sizes: Optional[Sequence[int]] = None, qparams=None,
-                 export_state=None, devices: Optional[Sequence] = None):
-        super().__init__(batch_size, device, bucket_sizes, export_state, devices)
+                 export_state=None, devices: Optional[Sequence] = None, n_space: int = 1):
+        super().__init__(batch_size, device, bucket_sizes, export_state, devices, n_space)
         self._predict_fn = predict_fn
         self.image_size_hw = tuple(int(x) for x in image_size_hw)
         self.num_classes = num_classes  # advisory (mask values encode classes)
@@ -647,8 +703,10 @@ class SegmentationPredictor(_Engine):
         training shape) over a static grid of tiles overlapping by
         ``tile_overlap`` px, blended back (``ops/tiling.py``). ``n_devices``
         (or ``devices``) holds one replica per device and splits each batch
-        over them, tiled or not (module docstring); ``n_space`` > 1 waits
-        for slice 11 of the port.
+        over them, tiled or not (module docstring). ``n_space`` splits each
+        replica's rows over that many devices (module docstring; the JAX
+        package's refusals: not with ``tile_hw``, and the height must split,
+        here at every level: ``parallel/spatial.py::check_rows``).
         """
         if quantize not in (None, "none", "int8"):
             raise ValueError(f"unsupported quantize mode {quantize!r}")
@@ -667,9 +725,16 @@ class SegmentationPredictor(_Engine):
             print(f"unetpp pruned fast mode: serving the single head "
                   f"X[0][{heads}] (not a head average; deeper grid columns "
                   f"do not run)", flush=True)
+        if n_space > 1:
+            if tile_hw is not None:
+                raise ValueError(
+                    "tiled inference does not compose with --n_space spatial "
+                    "sharding (the tile batch already fills the device; "
+                    "shard it over 'data' with n_devices instead)")
+            spatial.check_rows(image_size_hw[0], n_space)
         devices = _replica_devices(n_devices, devices, device, n_space)
         # fail before any model work
-        _normalize_buckets(bucket_sizes, batch_size, len(devices))
+        _normalize_buckets(bucket_sizes, batch_size, len(devices) // n_space)
         device = devices[0]
         if quantize == "int8" and qparams is None:
             if calib_images is None:
@@ -701,24 +766,29 @@ class SegmentationPredictor(_Engine):
                     x = eval_transform(images_u8).permute(0, 3, 1, 2)
                     return model(x).permute(0, 2, 3, 1)
 
-            logits_fn = apply_logits
             if tile_hw is not None:
-                logits_fn = make_tiled_logits_fn(apply_logits, image_size_hw, tile_hw,
-                                                 tile_overlap)
+                return make_tiled_logits_fn(apply_logits, image_size_hw, tile_hw,
+                                            tile_overlap), export_state
+            return apply_logits, export_state
 
+        def predict(logits_fn):
             def predict_fn(images_u8):
                 preds, conf = sliced_pred_confidence(logits_fn(images_u8))
                 return preds, conf.mean(dim=(1, 2))
 
-            return predict_fn, export_state
+            return predict_fn
 
         reps = [replica(d) for d in devices]
-        return cls(_replicated([r[0] for r in reps], devices), image_size_hw, batch_size,
-                   device, num_classes=num_classes,
+        fns = [r[0] for r in reps]
+        if n_space > 1:  # each replica: its n_space devices' rows, then whole images
+            fns = [_row_sharded(fns[i:i + n_space], devices[i:i + n_space])
+                   for i in range(0, len(fns), n_space)]
+        return cls(_replicated([predict(f) for f in fns], devices[::n_space]), image_size_hw,
+                   batch_size, device, num_classes=num_classes,
                    quantize="int8" if quantize == "int8" else None,
                    bucket_sizes=bucket_sizes,
                    qparams=tree_to(qparams, device) if quantize == "int8" else None,
-                   export_state=reps[0][1], devices=devices)
+                   export_state=reps[0][1], devices=devices, n_space=n_space)
 
     @classmethod
     def from_checkpoint(cls, checkpoint: str, **kwargs) -> "SegmentationPredictor":

@@ -48,16 +48,19 @@ _EPOCH_FILE = re.compile(r"^checkpoint_epoch_(\d+)\.pth$")
 
 def _whole(t) -> torch.Tensor:
     """A DTensor's whole tensor: each rank's shard of a 1-D mesh (FSDP2's
-    placement) gathered with c10d's all_gather over the mesh's group. (Its
-    ``full_tensor()`` runs a functional collective, which dies of SIGSEGV
-    under gloo with CUDA tensors: torch 2.11, two ranks sharing an H100.)"""
-    from torch.distributed.tensor import Shard
+    placement), or of the shard dim of a (space, data) mesh whose other dim
+    replicates (FSDP2's hybrid placement under 'space'), gathered with c10d's
+    all_gather over that dim's group. (Its ``full_tensor()`` runs a
+    functional collective, which dies of SIGSEGV under gloo with CUDA
+    tensors: torch 2.11, two ranks sharing an H100.)"""
+    from torch.distributed.tensor import Replicate, Shard
 
     local = t.to_local()
-    placement = t.placements[0]
-    if len(t.placements) != 1 or not isinstance(placement, Shard):
+    shards = [i for i, p in enumerate(t.placements) if isinstance(p, Shard)]
+    if len(shards) != 1 or not all(isinstance(p, (Shard, Replicate)) for p in t.placements):
         return t.full_tensor()
-    group = t.device_mesh.get_group()
+    placement = t.placements[shards[0]]
+    group = t.device_mesh.get_group(shards[0])
     d, size, n = placement.dim, t.shape[placement.dim], dist.get_world_size(group)
     chunk = -(-size // n)  # torch.chunk's split: ceil, the last ranks short or empty
     if local.shape[d] < chunk:

@@ -41,6 +41,20 @@ every model rank of a data index holds the same rows and draws, the
 gradients are averaged and the denominators summed over 'data' only, and
 the model's forward runs the collectives over 'model' itself, so the
 replicated leaves stay equal on every rank.
+
+The 'space' axis (the seg steps' ``space``, an exchanger of
+``parallel/spatial.py``; ``group`` is then the batch group, data x space,
+whose rank index is d * n_space + s): every space rank of data index d
+takes the same images and draws, runs the augment on its block's whole
+images (rotation moves rows between ranks and the contrast jitter takes
+each image's mean), then keeps its block of the rows of the images and
+labels; under ``grad_accum`` the batch splits over N first, then over H.
+The model runs under ``spatial.scope(space)`` (halo rows for the 3x3 convs,
+the row resizes on global coordinates), Dice adds its sums over the space
+ranks, and the gradient mean, BatchNorm, the denominators and the confusion
+matrix reduce over the batch group. The eval steps take the data rank's
+whole images too, run K1 and the model on the rank's rows and return the
+predictions' rows gathered over 'space', whole images.
 """
 
 from __future__ import annotations
@@ -59,6 +73,7 @@ from tpu_unet_torch.models.blocks import checkpoint, remat_scope
 from tpu_unet_torch.ops.augment import (AugmentDraws, eval_transform,
                                         sample_augment_draws, train_transform)
 from tpu_unet_torch.ops.seg_head import sliced_argmax
+from tpu_unet_torch.parallel import spatial
 from tpu_unet_torch.train.state import TrainState
 
 
@@ -135,25 +150,30 @@ def _remat_call(remat: str, fn, *args):
         return fn(*args)
 
 
-def _world(group) -> int:
-    return 1 if group is None else dist.get_world_size(group)
+def _data_coords(group, space=None) -> Tuple[int, int]:
+    """``(n_data, d)``: the data ranks of the batch ``group`` and this
+    rank's index among them (a group's rank index is d * n_space + s)."""
+    if group is None:
+        return 1, 0
+    n_space = 1 if space is None else space.size
+    return dist.get_world_size(group) // n_space, dist.get_rank(group) // n_space
 
 
-def _rows(x: torch.Tensor, group, m: int) -> torch.Tensor:
-    """This rank's ``m`` rows of a global microbatch's per-row draw."""
-    r = dist.get_rank(group)
-    return x[r * m:(r + 1) * m]
+def _rows(x: torch.Tensor, group, m: int, space=None) -> torch.Tensor:
+    """This data rank's ``m`` rows of a global microbatch's per-row draw."""
+    d = _data_coords(group, space)[1]
+    return x[d * m:(d + 1) * m]
 
 
-def _local_draws(d: AugmentDraws, group, m: int) -> AugmentDraws:
-    """This rank's rows of a global microbatch's draws; a per-batch angle
-    and the jitter order are shared."""
+def _local_draws(d: AugmentDraws, group, m: int, space=None) -> AugmentDraws:
+    """This data rank's rows of a global microbatch's draws; a per-batch
+    angle and the jitter order are shared."""
     if group is None:
         return d
+    rows = lambda x: _rows(x, group, m, space)  # noqa: E731
     return dataclasses.replace(
-        d, flip=_rows(d.flip, group, m), fb=_rows(d.fb, group, m),
-        fc=_rows(d.fc, group, m), fs=_rows(d.fs, group, m), fh=_rows(d.fh, group, m),
-        angle=d.angle if d.angle.dim() == 0 else _rows(d.angle, group, m))
+        d, flip=rows(d.flip), fb=rows(d.fb), fc=rows(d.fc), fs=rows(d.fs), fh=rows(d.fh),
+        angle=d.angle if d.angle.dim() == 0 else rows(d.angle))
 
 
 def _group_mean(values: Dict[str, torch.Tensor], group) -> Dict[str, torch.Tensor]:
@@ -236,7 +256,7 @@ class AnomalyTrainStep:
         """One draw set per microbatch of the global batch, whose rows this
         rank's ``n`` are."""
         self._check_batch(n)
-        m = n * _world(self.group) // self.grad_accum
+        m = n * _data_coords(self.group)[0] // self.grad_accum
         return [sample_augment_draws(m, self.aug_cfg, generator)
                 for _ in range(self.grad_accum)]
 
@@ -382,33 +402,37 @@ def _seg_logits(model, img: torch.Tensor, keep: Optional[torch.Tensor] = None):
     return out.permute(0, 2, 3, 1)
 
 
-def _seg_train_losses(logits, labels: torch.Tensor, loss_cfg: SegLossConfig, group=None):
+def _seg_train_losses(logits, labels: torch.Tensor, loss_cfg: SegLossConfig, group=None,
+                      space=None):
     """The loss dict of a train-mode forward, and the logits the predictions
     come from. Deep supervision (a tuple of head logits): one loss per head,
     averaged key by key, and the deepest head's logits."""
     if not isinstance(logits, tuple):
-        return combined_segmentation_loss(logits, labels, group=group,
+        return combined_segmentation_loss(logits, labels, group=group, space=space,
                                           **loss_cfg.kwargs()), logits
-    per = [combined_segmentation_loss(t, labels, group=group, **loss_cfg.kwargs())
+    per = [combined_segmentation_loss(t, labels, group=group, space=space,
+                                      **loss_cfg.kwargs())
            for t in logits]
     return {k: sum(p[k] for p in per) / len(per) for k in per[0]}, logits[-1]
 
 
 def seg_eval_outputs(logits: torch.Tensor, labels: torch.Tensor, num_classes: int,
-                     loss_cfg: SegLossConfig, valid=None, group=None):
+                     loss_cfg: SegLossConfig, valid=None, group=None, space=None):
     """``(losses, preds, cm)`` of an eval batch from its NHWC logits: the
     loss over the ``valid`` rows, ``sliced_argmax`` predictions and the
     batch's confusion matrix, all left on the device. The matrix, too,
     counts the ``valid`` rows only; the JAX package drops a padded batch's
     rows on the host instead, with the same counts. Under a data-parallel
     ``group`` the losses and the matrix are the global batch's and
-    ``preds`` the rank's rows."""
+    ``preds`` the rank's rows; under ``space`` the logits and labels are
+    the rank's rows of them and ``preds`` is gathered back to whole images."""
     losses = combined_segmentation_loss(logits, labels, sample_weight=valid,
-                                        group=group, **loss_cfg.kwargs())
+                                        group=group, space=space, **loss_cfg.kwargs())
     preds = sliced_argmax(logits)
     cm = confusion_matrix_batch(preds, labels, num_classes, loss_cfg.ignore_index,
                                 valid=valid)
-    return _group_mean(losses, group), preds, _group_sum(cm, group)
+    return (_group_mean(losses, group), spatial.gather_rows(preds, space),
+            _group_sum(cm, group))
 
 
 class SegTrainStep:
@@ -418,7 +442,7 @@ class SegTrainStep:
 
     def __init__(self, num_classes: int, loss_cfg: SegLossConfig,
                  aug_cfg: AugmentConfig, with_confusion: bool, grad_accum: int,
-                 remat: str = "none", group=None):
+                 remat: str = "none", group=None, space=None):
         self.num_classes = num_classes
         self.loss_cfg = loss_cfg
         self.aug_cfg = aug_cfg
@@ -426,6 +450,7 @@ class SegTrainStep:
         self.grad_accum = grad_accum
         self.remat = remat
         self.group = group
+        self.space = space
 
     def _check_batch(self, n: int) -> None:
         if n % self.grad_accum:
@@ -438,7 +463,7 @@ class SegTrainStep:
         the global batch whose rows this rank's ``n`` are, drawn in that
         order, microbatch by microbatch."""
         self._check_batch(n)
-        m = n * _world(self.group) // self.grad_accum
+        m = n * _data_coords(self.group, self.space)[0] // self.grad_accum
         sample_dropout = getattr(model, "sample_dropout", None)
         augment, dropout = [], []
         for _ in range(self.grad_accum):
@@ -464,6 +489,9 @@ class SegTrainStep:
         images_u8, labels = _as_tensor(images_u8, device), _as_tensor(labels, device)
         g = self.grad_accum
         self._check_batch(len(images_u8))
+        space = self.space
+        if space is not None:
+            spatial.check_rows(images_u8.shape[1], space.size)
         draws = [draws] if isinstance(draws, AugmentDraws) else list(draws)
         if dropout is None:
             dropout = [None] * g
@@ -480,16 +508,21 @@ class SegTrainStep:
         for img_u8, lbl, d, keep in zip(images_u8.chunk(g), labels.chunk(g), draws, dropout):
             # Labels ship as uint8; the geometry is nearest on them, so the
             # cast to int64 (which the gathers take) after it is exact.
+            # Whole images through the augment, then this space rank's rows.
             img, lbl = train_transform(img_u8, lbl[..., None],
-                                       _local_draws(d.to(device), self.group, rows),
+                                       _local_draws(d.to(device), self.group, rows, space),
                                        **self.aug_cfg.transform_kwargs())
-            lbl = lbl[..., 0].to(torch.int64)
+            img = spatial.split_rows(img, space)
+            lbl = spatial.split_rows(lbl[..., 0], space).to(torch.int64)
             if keep is not None:
                 keep = keep.to(device)
-                keep = keep if self.group is None else _rows(keep, self.group, rows)
-            logits = _remat_call(self.remat, lambda x, k=keep: _seg_logits(model, x, k), img)
-            ld, logits = _seg_train_losses(logits, lbl, self.loss_cfg, self.group)
-            ld["total_loss"].backward()
+                keep = keep if self.group is None else _rows(keep, self.group, rows, space)
+            with spatial.scope(space):
+                logits = _remat_call(self.remat,
+                                     lambda x, k=keep: _seg_logits(model, x, k), img)
+                ld, logits = _seg_train_losses(logits, lbl, self.loss_cfg, self.group,
+                                               space)
+                ld["total_loss"].backward()
             losses.append({k: v.detach() for k, v in ld.items()})
             if self.with_confusion:
                 part = confusion_matrix_batch(sliced_argmax(logits.detach()), lbl,
@@ -506,7 +539,7 @@ class SegTrainStep:
 def make_seg_train_step(num_classes: int, loss_cfg: SegLossConfig = SegLossConfig(),
                         aug_cfg: AugmentConfig = AugmentConfig(),
                         with_confusion: bool = True, grad_accum: int = 1,
-                        remat: str = "none", group=None) -> SegTrainStep:
+                        remat: str = "none", group=None, space=None) -> SegTrainStep:
     """The segmentation train step.
 
     images_u8: (N, H, W, 3) uint8; labels: (N, H, W) integer class ids
@@ -527,21 +560,25 @@ def make_seg_train_step(num_classes: int, loss_cfg: SegLossConfig = SegLossConfi
     ``SegmentationUNet(..., remat_full_res=True)`` tags; UNet++ and the
     attention UNet have no tags) or 'full' recomputes activations in the
     backward, as in :func:`make_anomaly_train_step`. ``group``: data
-    parallelism over a process group (module docstring).
+    parallelism over a process group; ``space``: the rows of each image
+    split over the space ranks, ``group`` then the batch group (module
+    docstring).
     """
     _check_step_flags(grad_accum, remat)
     return SegTrainStep(num_classes, loss_cfg, aug_cfg, with_confusion, grad_accum, remat,
-                        group)
+                        group, space)
 
 
 def make_seg_eval_step(num_classes: int, loss_cfg: SegLossConfig = SegLossConfig(),
-                       group=None):
+                       group=None, space=None):
     """``step(state, images_u8, labels, valid=None) -> (losses, preds, cm)``.
 
     The model runs in eval mode on ``eval_transform``'s output (K1 on CUDA
     tensors). ``valid`` (optional (N,) bool or float) marks the real rows of
     a padded batch: the loss and the confusion matrix cover those rows only
-    (:func:`seg_eval_outputs`). ``preds`` is (N, H, W) int64.
+    (:func:`seg_eval_outputs`). ``preds`` is (N, H, W) int64. Under
+    ``space`` K1 and the model run on this rank's rows of the images, and
+    ``preds`` comes back whole (module docstring).
     """
 
     def step(state: TrainState, images_u8, labels, valid=None):
@@ -550,14 +587,25 @@ def make_seg_eval_step(num_classes: int, loss_cfg: SegLossConfig = SegLossConfig
         was_training = model.training
         model.eval()
         try:
-            with torch.no_grad():
-                img = eval_transform(_as_tensor(images_u8, device))
-                lbl = _as_tensor(labels, device).to(torch.int64)
+            with torch.no_grad(), spatial.scope(space):
+                img, lbl = space_rows(_as_tensor(images_u8, device),
+                                      _as_tensor(labels, device), space)
+                img = eval_transform(img)
                 if valid is not None:
                     valid = _as_tensor(valid, device)
                 return seg_eval_outputs(_seg_logits(model, img), lbl, num_classes,
-                                        loss_cfg, valid, group)
+                                        loss_cfg, valid, group, space)
         finally:
             model.train(was_training)
 
     return step
+
+
+def space_rows(images_u8: torch.Tensor, labels: torch.Tensor, space):
+    """This space rank's rows of an eval batch's NHWC images and (N, H, W)
+    labels (int64), after the heights check; the whole batch without
+    ``space``."""
+    if space is not None:
+        spatial.check_rows(images_u8.shape[1], space.size)
+    return (spatial.split_rows(images_u8, space),
+            spatial.split_rows(labels, space).to(torch.int64))
