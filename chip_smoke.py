@@ -21,7 +21,11 @@
    function; the port never calls it). Seven shapes off the main path that
    exercise the tiling's edges are held bit for bit too. At b8, the 18
    SegmentationUNet convs at 1024 x 512 and 512², UNet++'s 30, and the 18
-   at one of two 'space' ranks' halo'd rows (514 x 512 at the top level).
+   at one of two 'space' ranks' halo'd rows (514 x 512 at the top level);
+   and at heights whose deeper levels split unevenly (SPACE_K2_CASES): each
+   of two ranks' 18 at 1240 x 512 (622 rows at the top, 80/79 and 41/40 at
+   the deepest levels) and a rank's of four at 48 x 512 (3-row inputs at
+   its one-row blocks).
 4. The main path at full width: AnomalyUNet(base_features=64) at 256², weights
    from a seed and BN statistics warmed on synthetic images, served by
    AnomalyScorer in bf16 and int8 (calibrated on 2 batches of 16) at batch
@@ -189,15 +193,23 @@
    bf16 Adam steps: ms per step and peak GB per rank beside the
    one-process step's. The int8 seg eval on the same mesh: bit for bit
    one process's, K1 1x and K2 18x per rank (K2 is also held at the
-   halo'd shapes in phase 3, ``kolektorsdd_space2``). One
+   halo'd shapes in phase 3, ``kolektorsdd_space2``). The same two legs at
+   SPACE_UNEVEN_HW, 1240 x 512, whose levels split 155/155, 78/77 and
+   39/38 rows (the exchanges now include the pools' and level-ups' row
+   moves). One
    ``train_kolektorsdd --n_space 2`` epoch of a --debug subset of phase 9's
    tree and its f32 test against one process's (metrics within 1e-5; the
    .pth loads strict at world size 1). SegmentationPredictor(n_space=2) on
    [cuda:0, cuda:0]: int8 bit for bit one device, f32 masks equal but for
    ties and confidences within SPACE_CONF_RTOL, bf16 within
-   SPACE_MAX_DISAGREE. The attention UNet on (1, 2, 1) and SegmentationUNet
-   on (1, 2, 2) at base TP_SEG_BASE on Gear's 512² batch against world size
-   1, their logits held as the step's. ``python3 chip_smoke.py
+   SPACE_MAX_DISAGREE; int8 and bf16 again at 1240 x 512. The attention
+   UNet on (1, 2, 1) and SegmentationUNet on (1, 2, 2) at base TP_SEG_BASE
+   on Gear's 512² batch against world size 1, their logits held as the
+   step's. On (1, 4, 1) at SPACE4_HW, 48 x 512 (one-row blocks and a
+   bottleneck rank with no rows): the attention UNet and UNet++ with deep
+   supervision at base TP_SEG_BASE against world size 1, and the int8 seg
+   eval (base 64) bit for bit one process's with K2 18, 18, 18 and 16
+   launches. ``python3 chip_smoke.py
    halo_probe`` instead runs gloo's ``batch_isend_irecv`` and
    ``all_gather`` of edge rows on CUDA tensors, each dtype in a child
    process.
@@ -256,6 +268,26 @@ SEG_CONVS = {name: [(h >> lv, w >> lv, cin, cout)
 # 15): its 512 >> level rows with one halo row above and below.
 SEG_CONVS["kolektorsdd_space2"] = [(h // 2 + 2, w, cin, cout)
                                    for h, w, cin, cout in SEG_CONVS["kolektorsdd"]]
+# Heights whose deeper levels split unevenly over the 'space' ranks (phase
+# 15's 1240 x 512 on two ranks, each rank's; 48 x 512 on four, rank 1's
+# one-row blocks at levels 3 and 4, 3-row halo'd inputs): name -> (height,
+# width, ranks, rank), made into conv shapes by space_convs.
+SPACE_K2_CASES = {"kolektorsdd_1240_space2_rank0": (1240, 512, 2, 0),
+                  "kolektorsdd_1240_space2_rank1": (1240, 512, 2, 1),
+                  "space4_48_rank1": (48, 512, 4, 1)}
+
+
+def space_convs(h, w, n_space, rank):
+    """(H, W, Cin, Cout) of the K2 inputs one 'space' rank's int8
+    SegmentationUNet (base 64) launches at an ``h`` x ``w`` image: its rows
+    of each level (``parallel/spatial.py::RowPlan``) with one halo row above
+    and below; none at a level where it holds no rows."""
+    from tpu_unet_torch.parallel.spatial import row_plan
+
+    plan = row_plan(h, n_space)
+    return [(b - a + 2, w >> lv, cin, cout)
+            for lv, (cin, cout) in zip(_SEG_LEVELS, _SEG_CHANNELS)
+            for a, b in [plan.levels[lv][rank]] if b > a]
 
 
 def unetpp_convs(base, h, w, max_j=4):
@@ -651,6 +683,8 @@ def phase_k2(torch, report):
     report["k2"] = rows
     report["k2_seg"] = {name: _k2_seg(torch, name, convs) for name, convs in SEG_CONVS.items()}
     report["k2_seg"]["unetpp_gear"] = _k2_seg(torch, "unetpp_gear", UNETPP_CONVS)
+    for name, case in SPACE_K2_CASES.items():
+        report["k2_seg"][name] = _k2_seg(torch, name, space_convs(*case))
 
 
 def _k2_seg(torch, name, convs):
@@ -3781,11 +3815,17 @@ def _tp_fsdp_rank(base):
             "jax_bytes": jax_placement_bytes(state, 2, fsdp=True)}
 
 
-def _gear_batch(torch, n=8, size=512):
-    """Gear's train batch: seeded textures and 4-class label maps."""
-    images = torch.from_numpy(synth_images(torch, n, size, 150, "cuda")).cuda()
-    a, b = synth_masks(torch, n, size, 151, "cuda"), synth_masks(torch, n, size, 152, "cuda")
-    return images, (a + 2 * b).clamp(max=3)[..., 0].to(torch.uint8)
+def _gear_batch(torch, n=8, size=512, hw=None):
+    """Gear's train batch: seeded textures and 4-class label maps (``hw``:
+    cut to that height and width)."""
+    if hw is None:
+        images = torch.from_numpy(synth_images(torch, n, size, 150, "cuda")).cuda()
+        a, b = synth_masks(torch, n, size, 151, "cuda"), synth_masks(torch, n, size, 152, "cuda")
+    else:
+        images = torch.from_numpy(synth_hw(torch, n, hw, 150)).cuda()
+        a, b = (synth_masks(torch, n, max(hw), seed, "cuda")[:, :hw[0], :hw[1]]
+                for seed in (151, 152))
+    return images, (a + 2 * b).clamp(max=3)[..., 0].to(torch.uint8).contiguous()
 
 
 def _tp_segs(names, base, n_model):
@@ -3793,12 +3833,13 @@ def _tp_segs(names, base, n_model):
     return {name: _tp_seg(name, base, n_model) for name in names}
 
 
-def _tp_seg(name, base, n_model, n_space=1):
+def _tp_seg(name, base, n_model, n_space=1, hw=None, model_kw=None):
     """One f32 SGD seg step (dropout drawn from the global batch's
-    generator) of ``name`` at ``base`` on Gear's batch, on a (1, ``n_space``,
-    ``n_model``) mesh (1, 1: this process alone); the whole state before and
-    after, the losses and confusion matrix, and the logits it counts (the
-    whole images' under 'space')."""
+    generator) of ``name`` at ``base`` (and ``model_kw``) on Gear's batch
+    (cut to ``hw``), on a (1, ``n_space``, ``n_model``) mesh (1, 1: this
+    process alone); the whole state before and after, the losses and
+    confusion matrix, and the logits it counts (the whole images' under
+    'space'; the deepest head's under deep supervision)."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -3817,11 +3858,12 @@ def _tp_seg(name, base, n_model, n_space=1):
     mesh = (make_mesh(1, n_space=n_space, n_model=n_model, device_type="cuda")
             if n_model * n_space > 1 else None)
     torch.manual_seed(4)
-    model = build_model(name, n_classes=4, base_features=base, policy=get_policy("f32"))
+    model = build_model(name, n_classes=4, base_features=base, policy=get_policy("f32"),
+                        **(model_kw or {}))
     state = create_train_state(model, "sgd", 1e-2, 1e-4, device="cuda")
     before = _cpu_state_dict(state)
     state = shard_state(mesh, state, tp=n_model > 1)
-    images, labels = _gear_batch(torch)
+    images, labels = _gear_batch(torch, hw=hw)
     step = make_seg_train_step(4, aug_cfg=AugmentConfig(), group=group_of(mesh),
                                space=mesh_exchanger(mesh))
     augment, dropout = step.draws(state.model, len(images),
@@ -4104,6 +4146,17 @@ SPACE_CLI_SAMPLES = 16
 # train_kolektorsdd's defaults: SegmentationUNet base 64, 3 classes, 1024 x
 # 512, b8, class weights 1/50/50, dropout 0.1, the KolektorSDD augment.
 SPACE_HW = (1024, 512)
+# The slice's leg: KolektorSDD at a native height (its parts are about 500 x
+# 1240-1280 px), whose levels split over two ranks as 620/620, 310/310,
+# 155/155, 78/77 and 39/38 rows: an odd level, a row the pool's floor drops,
+# unequal blocks below it.
+SPACE_UNEVEN_HW = (1240, 512)
+# The (1, 4, 1) leg: 48 rows on four ranks, levels of 12, 6, 3, 2/1/2/1 and
+# 1/1/1/0 rows (one-row blocks, 3-row K2 inputs, a bottleneck rank with no
+# rows), the attention UNet and UNet++ with deep supervision at base
+# TP_SEG_BASE, and the int8 seg eval at base 64.
+SPACE4_HW = (48, 512)
+SPACE4_MODELS = (("attn_unet", {}), ("unetpp", {"deep_supervision": True}))
 # Largest f32 logit difference of phase 15's sharded runs against one
 # process, relative to the largest logit: 1.5e-6 to 5.3e-6 on an H100
 # (the KolektorSDD step in two runs, the predictor and both Gear steps in
@@ -4167,11 +4220,12 @@ def _tie_note(t):
                f"most {t['moved_max_margin']:.2e})"))
 
 
-def _ksdd_batch(torch, seed):
-    """A KolektorSDD batch of 8: seeded textures and 3-class label maps."""
-    images = torch.from_numpy(synth_hw(torch, 8, SPACE_HW, seed)).cuda()
-    a = synth_masks(torch, 8, SPACE_HW[0], seed + 1, "cuda")[:, :, :SPACE_HW[1]]
-    b = synth_masks(torch, 8, SPACE_HW[0], seed + 2, "cuda")[:, :, :SPACE_HW[1]]
+def _ksdd_batch(torch, seed, hw=SPACE_HW):
+    """A KolektorSDD batch of 8 at ``hw``: seeded textures and 3-class label
+    maps."""
+    images = torch.from_numpy(synth_hw(torch, 8, hw, seed)).cuda()
+    a, b = (synth_masks(torch, 8, max(hw), seed + k, "cuda")[:, :hw[0], :hw[1]]
+            for k in (1, 2))
     return images, (a + 2 * b).clamp(max=2)[..., 0].to(torch.uint8).contiguous()
 
 
@@ -4197,15 +4251,15 @@ def _ksdd_step(torch, precision, opt, lr, mesh=None):
     return state, step
 
 
-def _ksdd_leg(torch, mesh=None):
-    """One f32 SGD step of the KolektorSDD step (the state before and
-    after, losses, matrix, halo bytes), then the bf16 Adam step's ms per
-    step and peak GB on this process's allocator."""
+def _ksdd_leg(torch, mesh=None, hw=SPACE_HW):
+    """One f32 SGD step of the KolektorSDD step at ``hw`` (the state before
+    and after, losses, matrix, the row exchanges and their bytes), then the
+    bf16 Adam step's ms per step and peak GB on this process's allocator."""
     from tpu_unet_torch.parallel import spatial
 
     from tpu_unet_torch.train import steps
 
-    images, labels = _ksdd_batch(torch, 160)
+    images, labels = _ksdd_batch(torch, 160, hw)
     state, step = _ksdd_step(torch, "f32", "sgd", 1e-2, mesh)
     before = _cpu_state_dict(state)
     draws = step.draws(state.model, len(images), torch.Generator(device="cuda").manual_seed(0))
@@ -4254,10 +4308,10 @@ def _int8_eval(torch, qparams, images, labels, mesh=None):
             "losses": {k: float(v) for k, v in losses.items()}}
 
 
-def _space_rank(qparams):
+def _space_rank(qparams, hw=SPACE_HW):
     """Phase 15.1-15.2 on one of two ranks sharing cuda:0 over gloo, a (1,
-    2, 1) mesh: the KolektorSDD leg and the int8 eval; rank 0's results,
-    with every rank's launches and peak."""
+    2, 1) mesh: the KolektorSDD leg and the int8 eval at ``hw``; rank 0's
+    results, with every rank's launches and peak."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -4267,8 +4321,8 @@ def _space_rank(qparams):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     mesh = make_mesh(1, n_space=2, device_type="cuda")
-    out = _ksdd_leg(torch, mesh)
-    out["int8"] = _int8_eval(torch, qparams, *_ksdd_batch(torch, 170), mesh)
+    out = _ksdd_leg(torch, mesh, hw)
+    out["int8"] = _int8_eval(torch, qparams, *_ksdd_batch(torch, 170, hw), mesh)
     parts = [None] * dist.get_world_size()
     dist.all_gather_object(parts, {"launches": out["int8"]["launches"], "logits": out["logits"],
                                    "peak_gb": out["peak_gb"], "bf16_ms": out["bf16_ms"]})
@@ -4332,6 +4386,101 @@ def _seg_test(torch, targs):
             "seconds": time.perf_counter() - t0}
 
 
+def _space_step_leg(torch, np, legs, qparams, hw, tag, label):
+    """Phase 15.1-15.2 at ``hw``: train_kolektorsdd's step on a (1, 2, 1)
+    mesh against world size 1 (the f32 SGD update, losses and logits; the
+    bf16 Adam ms and peak per rank), and the int8 seg eval bit for bit one
+    process's with K1 1x and K2 18x per rank. Returns the step's and the
+    int8 eval's records."""
+    from tpu_unet_torch.ops.quantize import tree_to
+    from tpu_unet_torch.parallel.mesh import launch
+    from tpu_unet_torch.parallel.spatial import row_plan
+
+    rows = "/".join(str(b - a) for a, b in row_plan(hw[0], 2).levels[-1])
+    size = f"{hw[0]} x {hw[1]}"
+    one = _ksdd_leg(torch, hw=hw)
+    one_int8 = _int8_eval(torch, qparams, *_ksdd_batch(torch, 170, hw))
+    legs[f"{tag}_int8_eval_one"] = one_int8["launches"]
+    check(one_int8["launches"] == {"normalize_u8": 1, "conv3x3_int8": 18},
+          f"one-process int8 eval at {size} launched {one_int8['launches']}")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    r0 = launch(_space_rank, (tree_to(qparams, "cpu"), hw), devices=["cuda:0"] * 2,
+                backend="gloo")
+    launch_s = time.perf_counter() - t0
+    e = (_update_err(r0["sd"], one["sd"], one["before"]),
+         _state_dict_errs(r0["sd"], one["sd"])[1])
+    check(e[0] <= DP_UPDATE_TOL and e[1] <= DP_STAT_TOL,
+          f"space f32 SGD step at {size} vs world size 1: the update {e[0]:.2e} (tol "
+          f"{DP_UPDATE_TOL}), BN statistics {e[1]:.2e} (tol {DP_STAT_TOL})")
+    for k, v in r0["losses"].items():
+        check(abs(v - one["losses"][k]) <= 1e-5 * abs(one["losses"][k]) + 1e-7,
+              f"space f32 loss {k} at {size} {v} vs world size 1 {one['losses'][k]}")
+    # The matrix counts each pixel's argmax: equal but for ties.
+    ties = _ties_only(np, one["logits"], r0["logits"], f"space f32 step at {size} vs world "
+                                                       f"size 1")
+    cm_moved = int(np.abs(r0["cm"] - one["cm"]).sum())
+    check(cm_moved <= 2 * ties["moved_pixels"],
+          f"space confusion matrix at {size} {r0['cm'].tolist()} vs {one['cm'].tolist()}")
+    halo_mb = r0["halo"]["bytes"] / 1e6
+    step = {"hw": list(hw), "update_err": e[0], "stat_err": e[1], "cm_moved": cm_moved,
+            **ties, "losses": r0["losses"], "halo_exchanges": r0["halo"]["exchanges"],
+            "halo_mb_per_rank_step": halo_mb, "launch_s": launch_s,
+            "bf16_ms": [p["bf16_ms"] for p in r0["per_rank"]],
+            "peak_gb": [p["peak_gb"] for p in r0["per_rank"]],
+            "one_bf16_ms": one["bf16_ms"], "one_peak_gb": one["peak_gb"]}
+    print(f"[space] train_kolektorsdd's step (SegmentationUNet base 64, {size}, b8, class "
+          f"weights 1/50/50, dropout dropped {r0['dropped']:.3f}; bottleneck rows per rank "
+          f"{rows}) on a (1, 2, 1) mesh of two gloo ranks sharing cuda:0, one f32 SGD step "
+          f"against world size 1 on the same batch and draws: the update {e[0]:.2e} (rel L2, "
+          f"tol {DP_UPDATE_TOL}), BN statistics {e[1]:.2e} (tol {DP_STAT_TOL}), losses within "
+          f"1e-5, {_tie_note(ties)} of {int(one['cm'].sum())} (confusion matrix "
+          f"{'equal' if cm_moved == 0 else 'moved by those pixels only'}); row exchanges "
+          f"(halos and moves, forward and backward) {r0['halo']['exchanges']}, {halo_mb:.2f} "
+          f"MB sent per rank per step (f32)", flush=True)
+    print(f"[space] {size} bf16 Adam, {SPACE_STEPS} steps: "
+          + ", ".join(f"rank {i} {p['bf16_ms']:.1f} ms per step, peak {p['peak_gb']:.2f} GB"
+                      for i, p in enumerate(r0["per_rank"]))
+          + f"; one process {one['bf16_ms']:.1f} ms, peak {one['peak_gb']:.2f} GB; {label}",
+          flush=True)
+    for i, p in enumerate(r0["per_rank"]):
+        legs[f"{tag}_int8_eval_rank{i}"] = p["launches"]
+        check(p["launches"] == {"normalize_u8": 1, "conv3x3_int8": 18},
+              f"space int8 eval at {size} on rank {i} launched {p['launches']}")
+    q = r0["int8"]
+    check(np.array_equal(q["preds"], one_int8["preds"]) and
+          np.array_equal(q["cm"], one_int8["cm"]),
+          f"space int8 eval at {size} differs from one process: "
+          f"{int((q['preds'] != one_int8['preds']).sum())} pixels")
+    int8 = {"hw": list(hw), "bit_for_bit": True,
+            "launches_per_rank": [p["launches"] for p in r0["per_rank"]]}
+    print(f"[space] int8 seg eval (SegmentationUNet base 64, {size}, b8) on (1, 2, 1): "
+          f"predictions and matrix bit for bit one process's; per rank K1 1x and K2 18x (on "
+          f"{hw[0] // 2 + 2}-row halo'd inputs at the top level); launch and run of the leg "
+          f"{launch_s:.1f} s", flush=True)
+    del one, r0
+    torch.cuda.empty_cache()
+    return step, int8
+
+
+def _space4_rank(qparams):
+    """Phase 15.6 on one of four ranks sharing cuda:0 over gloo, a (1, 4, 1)
+    mesh at SPACE4_HW: the attention UNet's and UNet++'s f32 SGD steps and
+    the int8 seg eval; rank 0's results, with every rank's launches."""
+    import torch
+    import torch.distributed as dist
+
+    from tpu_unet_torch.parallel.mesh import make_mesh
+
+    out = {name: _tp_seg(name, TP_SEG_BASE, 1, 4, SPACE4_HW, kw) for name, kw in SPACE4_MODELS}
+    mesh = make_mesh(1, n_space=4, device_type="cuda")
+    out["int8"] = _int8_eval(torch, qparams, *_ksdd_batch(torch, 174, SPACE4_HW), mesh)
+    parts = [None] * dist.get_world_size()
+    dist.all_gather_object(parts, out["int8"]["launches"])
+    out["launches_per_rank"] = parts
+    return out
+
+
 def _space_legs(torch, np, out, legs, tmp, label):
     """Phase 15's legs (module docstring, phase 15)."""
     from tpu_unet_torch.models import build_model
@@ -4344,69 +4493,15 @@ def _space_legs(torch, np, out, legs, tmp, label):
     res = {}
 
     # --- 15.1-15.2: the KolektorSDD step and the int8 eval on (1, 2, 1) --------
-    one = _ksdd_leg(torch)
     sd = warm_seg_state_dict(torch, "seg_unet", 3, SPACE_HW)
     calib = synth_hw(torch, 16, SPACE_HW, 171)
     qparams = quantize_from_train_state("seg_unet", sd, chunk_calibration(calib, 8),
                                         device="cuda")
-    one_int8 = _int8_eval(torch, qparams, *_ksdd_batch(torch, 170))
-    legs["space_int8_eval_one"] = one_int8["launches"]
-    check(one_int8["launches"] == {"normalize_u8": 1, "conv3x3_int8": 18},
-          f"one-process int8 eval launched {one_int8['launches']}")
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    r0 = launch(_space_rank, (tree_to(qparams, "cpu"),), devices=two, backend="gloo")
-    launch_s = time.perf_counter() - t0
-    e = (_update_err(r0["sd"], one["sd"], one["before"]),
-         _state_dict_errs(r0["sd"], one["sd"])[1])
-    check(e[0] <= DP_UPDATE_TOL and e[1] <= DP_STAT_TOL,
-          f"space f32 SGD step vs world size 1: the update {e[0]:.2e} (tol {DP_UPDATE_TOL}), "
-          f"BN statistics {e[1]:.2e} (tol {DP_STAT_TOL})")
-    for k, v in r0["losses"].items():
-        check(abs(v - one["losses"][k]) <= 1e-5 * abs(one["losses"][k]) + 1e-7,
-              f"space f32 loss {k} {v} vs world size 1 {one['losses'][k]}")
-    # The matrix counts each pixel's argmax: equal but for ties.
-    ties = _ties_only(np, one["logits"], r0["logits"], "space f32 step vs world size 1")
-    cm_moved = int(np.abs(r0["cm"] - one["cm"]).sum())
-    check(cm_moved <= 2 * ties["moved_pixels"],
-          f"space confusion matrix {r0['cm'].tolist()} vs {one['cm'].tolist()}")
-    halo_mb = r0["halo"]["bytes"] / 1e6
-    res["ksdd"] = {"update_err": e[0], "stat_err": e[1], "cm_moved": cm_moved, **ties,
-                   "losses": r0["losses"], "halo_exchanges": r0["halo"]["exchanges"],
-                   "halo_mb_per_rank_step": halo_mb, "launch_s": launch_s,
-                   "bf16_ms": [p["bf16_ms"] for p in r0["per_rank"]],
-                   "peak_gb": [p["peak_gb"] for p in r0["per_rank"]],
-                   "one_bf16_ms": one["bf16_ms"], "one_peak_gb": one["peak_gb"]}
-    print(f"[space] train_kolektorsdd's step (SegmentationUNet base 64, 1024 x 512, b8, class "
-          f"weights 1/50/50, dropout dropped {r0['dropped']:.3f}) on a (1, 2, 1) mesh of two "
-          f"gloo ranks sharing cuda:0, one f32 SGD step against world size 1 on the same batch "
-          f"and draws: the update {e[0]:.2e} (rel L2, tol {DP_UPDATE_TOL}), BN statistics "
-          f"{e[1]:.2e} (tol {DP_STAT_TOL}), losses within 1e-5, {_tie_note(ties)} of "
-          f"{int(one['cm'].sum())} (confusion matrix {'equal' if cm_moved == 0 else 'moved by '
-          'those pixels only'}); halo {r0['halo']['exchanges']} "
-          f"exchanges, {halo_mb:.2f} MB sent per rank per step (f32)", flush=True)
-    print(f"[space] bf16 Adam, {SPACE_STEPS} steps: "
-          + ", ".join(f"rank {i} {p['bf16_ms']:.1f} ms per step, peak {p['peak_gb']:.2f} GB"
-                      for i, p in enumerate(r0["per_rank"]))
-          + f"; one process {one['bf16_ms']:.1f} ms, peak {one['peak_gb']:.2f} GB; {label}",
-          flush=True)
-    for i, p in enumerate(r0["per_rank"]):
-        legs[f"space_int8_eval_rank{i}"] = p["launches"]
-        check(p["launches"] == {"normalize_u8": 1, "conv3x3_int8": 18},
-              f"space int8 eval on rank {i} launched {p['launches']}")
-    q = r0["int8"]
-    check(np.array_equal(q["preds"], one_int8["preds"]) and
-          np.array_equal(q["cm"], one_int8["cm"]),
-          f"space int8 eval differs from one process: "
-          f"{int((q['preds'] != one_int8['preds']).sum())} pixels")
-    res["int8"] = {"bit_for_bit": True, "launches_per_rank": [p["launches"]
-                                                             for p in r0["per_rank"]]}
-    print(f"[space] int8 seg eval (SegmentationUNet base 64, 1024 x 512, b8) on (1, 2, 1): "
-          f"predictions and matrix bit for bit one process's; per rank K1 1x and K2 18x (on "
-          f"514-row halo'd inputs at the top level); launch and run of 15.1-15.2 "
-          f"{launch_s:.1f} s", flush=True)
-    del one, r0
-    torch.cuda.empty_cache()
+    res["ksdd"], res["int8"] = _space_step_leg(torch, np, legs, qparams, SPACE_HW, "space",
+                                               label)
+    # --- 15.2b: the same at 1240 x 512, whose deeper levels split unevenly -------
+    res["ksdd_1240"], res["int8_1240"] = _space_step_leg(torch, np, legs, qparams,
+                                                         SPACE_UNEVEN_HW, "space1240", label)
 
     # --- 15.3: train_kolektorsdd --n_space 2, then its test -----------------------
     work = tempfile.mkdtemp(prefix="chip_smoke_space_", dir=tmp)
@@ -4449,52 +4544,64 @@ def _space_legs(torch, np, out, legs, tmp, label):
     torch.cuda.empty_cache()
 
     # --- 15.4: SegmentationPredictor with n_space=2 in one process ----------------
-    images = synth_hw(torch, 8, SPACE_HW, 172)
-    kw = dict(num_classes=3, image_size_hw=SPACE_HW, batch_size=8, base_features=64)
     pred = {}
-    for prec, extra, k2 in (("int8", {"quantize": "int8", "qparams": qparams}, 18),
-                            ("f32", {"precision": "f32"}, 0),
-                            ("bf16", {"precision": "bf16"}, 0)):
-        single = SegmentationPredictor.from_state_dict(sd, device="cuda", **kw, **extra)
-        rows = SegmentationPredictor.from_state_dict(sd, devices=two, n_space=2, **kw, **extra)
-        with _keeping_logits(serve, "sliced_pred_confidence") as logits:
-            m1, c1 = single.predict_array(images)
-            _zero_launches()
-            t0 = time.perf_counter()
-            m2, c2 = rows.predict_array(images)
-            p_s = time.perf_counter() - t0
-        legs[f"space_predictor_{prec}"] = _launches()
-        want = {"normalize_u8": 2, "conv3x3_int8": 2 * k2}
-        check(legs[f"space_predictor_{prec}"] == want,
-              f"{prec} predictor n_space=2 launched {legs[f'space_predictor_{prec}']} "
-              f"(want {want}: each of the two threads K1 1x, K2 {k2}x)")
-        share = float((m1 != m2).mean())
-        conf_err = float((np.abs(c2 - c1) / np.abs(c1)).max())
-        pred[prec] = {"disagree": share, "conf_rel_err": conf_err, "predict_s": p_s}
-        print(f"[space] predictor n_space=2 {prec}: {share:.2e} of pixels differ from one "
-              f"device, mean confidences {conf_err:.2e} apart (relative)", flush=True)
-        if prec == "int8":
-            check(np.array_equal(m1, m2) and np.array_equal(c1, c2),
-                  f"int8 predictor n_space=2 differs from one device: {share:.2e} of pixels")
-        elif prec == "f32":  # masks equal but for ties at f32 rounding
-            pred[prec].update(_ties_only(np, *logits, "f32 predictor n_space=2 vs one device"))
-            check(int((m1 != m2).sum()) == pred[prec]["moved_pixels"]
-                  and conf_err <= SPACE_CONF_RTOL,
-                  f"f32 predictor n_space=2 differs from one device: {share:.2e} of pixels, "
-                  f"confidences {conf_err:.2e} (rtol {SPACE_CONF_RTOL})")
-        else:
-            check(share <= SPACE_MAX_DISAGREE,
-                  f"bf16 predictor n_space=2: {share:.2e} of pixels differ from one device "
-                  f"(limit {SPACE_MAX_DISAGREE})")
-        del single, rows, logits
-        torch.cuda.empty_cache()
+    for hw, precs in ((SPACE_HW, ("int8", "f32", "bf16")), (SPACE_UNEVEN_HW, ("int8", "bf16"))):
+        tag = "" if hw == SPACE_HW else f"_{hw[0]}"
+        images = synth_hw(torch, 8, hw, 172)
+        kw = dict(num_classes=3, image_size_hw=hw, batch_size=8, base_features=64)
+        for prec in precs:
+            extra, k2 = {"int8": ({"quantize": "int8", "qparams": qparams}, 18),
+                         "f32": ({"precision": "f32"}, 0),
+                         "bf16": ({"precision": "bf16"}, 0)}[prec]
+            single = SegmentationPredictor.from_state_dict(sd, device="cuda", **kw, **extra)
+            rows = SegmentationPredictor.from_state_dict(sd, devices=two, n_space=2, **kw,
+                                                         **extra)
+            with _keeping_logits(serve, "sliced_pred_confidence") as logits:
+                m1, c1 = single.predict_array(images)
+                _zero_launches()
+                t0 = time.perf_counter()
+                m2, c2 = rows.predict_array(images)
+                p_s = time.perf_counter() - t0
+            key = f"{prec}{tag}"
+            legs[f"space_predictor_{key}"] = _launches()
+            want = {"normalize_u8": 2, "conv3x3_int8": 2 * k2}
+            check(legs[f"space_predictor_{key}"] == want,
+                  f"{prec} predictor n_space=2 at {hw} launched "
+                  f"{legs[f'space_predictor_{key}']} (want {want}: each of the two threads "
+                  f"K1 1x, K2 {k2}x)")
+            share = float((m1 != m2).mean())
+            conf_err = float((np.abs(c2 - c1) / np.abs(c1)).max())
+            pred[key] = {"hw": list(hw), "disagree": share, "conf_rel_err": conf_err,
+                         "predict_s": p_s}
+            print(f"[space] predictor n_space=2 {prec} at {hw[0]} x {hw[1]}: {share:.2e} of "
+                  f"pixels differ from one device, mean confidences {conf_err:.2e} apart "
+                  f"(relative)", flush=True)
+            if prec == "int8":
+                check(np.array_equal(m1, m2) and np.array_equal(c1, c2),
+                      f"int8 predictor n_space=2 at {hw} differs from one device: "
+                      f"{share:.2e} of pixels")
+            elif prec == "f32":  # masks equal but for ties at f32 rounding
+                pred[key].update(_ties_only(np, *logits,
+                                            "f32 predictor n_space=2 vs one device"))
+                check(int((m1 != m2).sum()) == pred[key]["moved_pixels"]
+                      and conf_err <= SPACE_CONF_RTOL,
+                      f"f32 predictor n_space=2 differs from one device: {share:.2e} of "
+                      f"pixels, confidences {conf_err:.2e} (rtol {SPACE_CONF_RTOL})")
+            else:
+                check(share <= SPACE_MAX_DISAGREE,
+                      f"bf16 predictor n_space=2 at {hw}: {share:.2e} of pixels differ from "
+                      f"one device (limit {SPACE_MAX_DISAGREE})")
+            del single, rows, logits
+            torch.cuda.empty_cache()
     res["predictor"] = pred
     print(f"[space] SegmentationPredictor(n_space=2, devices=[cuda:0, cuda:0]) at 1024 x 512 "
           f"b8, base 64, 3 classes: int8 masks and confidences bit for bit one device's (K1 1x "
           f"and K2 18x per thread); f32 (TF32 off): {_tie_note(pred['f32'])}, "
           f"confidences within {pred['f32']['conf_rel_err']:.2e} (rtol {SPACE_CONF_RTOL}); "
           f"bf16 masks differ on "
-          f"{pred['bf16']['disagree']:.2e} of pixels (limit {SPACE_MAX_DISAGREE})", flush=True)
+          f"{pred['bf16']['disagree']:.2e} of pixels (limit {SPACE_MAX_DISAGREE}). At 1240 x "
+          f"512: int8 bit for bit, bf16 masks differ on {pred['bf16_1240']['disagree']:.2e} "
+          f"of pixels", flush=True)
 
     # --- 15.5: the attention UNet on (1, 2, 1), SegmentationUNet on (1, 2, 2) -------
     comp = {}
@@ -4523,6 +4630,62 @@ def _space_legs(torch, np, out, legs, tmp, label):
               f"update {e[0]:.2e}, BN statistics {e[1]:.2e}, losses within 1e-5, "
               f"{_tie_note(ties)} (confusion matrix {'equal' if eq else 'moved by those only'});"
               f" launch and run {c_s:.1f} s", flush=True)
+
+    # --- 15.6: one-row and empty blocks on (1, 4, 1) ---------------------------------
+    sd4 = warm_seg_state_dict(torch, "seg_unet", 3, SPACE4_HW)
+    q4 = quantize_from_train_state("seg_unet", sd4,
+                                   chunk_calibration(synth_hw(torch, 16, SPACE4_HW, 175), 8),
+                                   device="cuda")
+    one_int8 = _int8_eval(torch, q4, *_ksdd_batch(torch, 174, SPACE4_HW))
+    refs = {name: _tp_seg(name, TP_SEG_BASE, 1, hw=SPACE4_HW, model_kw=kw)
+            for name, kw in SPACE4_MODELS}
+    t0 = time.perf_counter()
+    got = launch(_space4_rank, (tree_to(q4, "cpu"),), devices=four, backend="gloo")
+    c_s = time.perf_counter() - t0
+    from tpu_unet_torch.parallel.spatial import row_plan
+    blocks = [[b - a for a, b in lv] for lv in row_plan(SPACE4_HW[0], 4).levels]
+    for name, kw in SPACE4_MODELS:
+        ref, g = refs[name], got[name]
+        e = (_update_err(g["sd"], ref["sd"], ref["before"]),
+             _state_dict_errs(g["sd"], ref["sd"])[1])
+        check(e[0] <= DP_UPDATE_TOL and e[1] <= DP_STAT_TOL,
+              f"space {name} (1, 4, 1) at {SPACE4_HW} vs world size 1: the update "
+              f"{e[0]:.2e}, BN statistics {e[1]:.2e}")
+        for k, v in g["losses"].items():
+            check(abs(v - ref["losses"][k]) <= 1e-5 * abs(ref["losses"][k]) + 1e-7,
+                  f"space {name} (1, 4, 1) loss {k} {v} vs world size 1 {ref['losses'][k]}")
+        ties = _ties_only(np, ref["logits"], g["logits"], f"space {name} (1, 4, 1)")
+        eq = bool(np.array_equal(g["cm"], ref["cm"]))
+        check(np.abs(g["cm"] - ref["cm"]).sum() <= 2 * ties["moved_pixels"],
+              f"space {name} (1, 4, 1) confusion matrix {g['cm'].tolist()} vs "
+              f"{ref['cm'].tolist()}")
+        comp[f"{name}_1x4x1"] = {"update_err": e[0], "stat_err": e[1], "cm_equal": eq,
+                                 "hw": list(SPACE4_HW), **ties}
+        print(f"[space] {name}{' --deep_supervision' if kw else ''} base {TP_SEG_BASE}, "
+              f"{SPACE4_HW[0]} x {SPACE4_HW[1]} b8, one f32 SGD step on a (1, 4, 1) mesh (four "
+              f"gloo ranks on cuda:0; rows per rank by level {blocks}) against world size 1: "
+              f"the update {e[0]:.2e}, BN statistics {e[1]:.2e}, losses within 1e-5, "
+              f"{_tie_note(ties)} (confusion matrix {'equal' if eq else 'moved by those only'})",
+              flush=True)
+    q = got["int8"]
+    # K2 runs on each rank's halo'd rows; the bottleneck rank with no rows makes
+    # the exchanges and launches nothing for down4's two convs.
+    want = [{"normalize_u8": 1, "conv3x3_int8": 18 - 2 * (lv[-1] == 0)}
+            for lv in zip(*blocks)]
+    for i, p in enumerate(got["launches_per_rank"]):
+        legs[f"space4_int8_eval_rank{i}"] = p
+    check(got["launches_per_rank"] == want,
+          f"space int8 eval on (1, 4, 1) launched {got['launches_per_rank']} (want {want})")
+    check(np.array_equal(q["preds"], one_int8["preds"]) and
+          np.array_equal(q["cm"], one_int8["cm"]),
+          f"space int8 eval on (1, 4, 1) differs from one process: "
+          f"{int((q['preds'] != one_int8['preds']).sum())} pixels")
+    comp["int8_1x4x1"] = {"hw": list(SPACE4_HW), "bit_for_bit": True,
+                          "launches_per_rank": got["launches_per_rank"], "launch_s": c_s}
+    print(f"[space] int8 seg eval (SegmentationUNet base 64, {SPACE4_HW[0]} x {SPACE4_HW[1]}, "
+          f"b8) on (1, 4, 1): predictions and matrix bit for bit one process's; K2 launches "
+          f"per rank {[p['conv3x3_int8'] for p in got['launches_per_rank']]} (3-row halo'd "
+          f"inputs at the one-row blocks); launch and run of 15.6 {c_s:.1f} s", flush=True)
     res["compose"] = comp
     out["space"] = res
 

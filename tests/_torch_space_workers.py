@@ -67,7 +67,7 @@ def primitives(n_space):
     out = {"conv": spatial.gather_rows(yl.detach(), ex, dim=2),
            "dx": spatial.gather_rows(xl.grad, ex, dim=2),
            "dw": ex.all_reduce(wl.grad), "x": x, "w": w, "gy": gy}
-    with spatial.scope(ex):
+    with spatial.scope(ex, 8 * n):
         for dt in (torch.float32, torch.bfloat16):
             a = torch.randn(2, 4, 4 * n, 6, generator=gen).to(dt)
             g = torch.randn(2, 1, 4 * n, 3, generator=gen).to(dt)
@@ -82,8 +82,92 @@ def primitives(n_space):
     return out
 
 
-def _state(name, sd, model_kw, lr, wd, n_space, n_model, fsdp):
+def _whole_ops(plan, level):
+    """Per row operation at ``level`` (1..4): (name, the whole image's op,
+    the rank's op under the scope, the input's rows and the output's, as
+    functions of the rank's index). float64 throughout."""
+    from tpu_unet_torch.ops.resize import interp_axis
+
+    t0, t1 = plan.totals[level - 1], plan.totals[level]
+    dh = t0 - 2 * t1
+    pad = (0, 0, dh // 2, dh - dh // 2)
+    up, prev = plan.levels[level], plan.levels[level - 1]
+    return [
+        ("pool", t0, lambda x: F.max_pool2d(x, 2),
+         lambda x: spatial.empty_safe(lambda t: F.max_pool2d(t, 2),
+                                      spatial.pool_rows(x, level), 2), prev, up),
+        ("pad", 2 * t1, lambda x: F.pad(x, pad), lambda x: spatial.pad_rows(x, level - 1),
+         tuple((2 * a, 2 * b) for a, b in up), prev),
+        ("stride2", t0, lambda x: x[:, :, ::2],
+         lambda x: spatial.stride2_rows(x, level - 1)[:, :, ::2], prev,
+         tuple((-(-a // 2), -(-b // 2)) for a, b in prev)),
+        ("resize", t1, lambda x: interp_axis(x, t0, 2),
+         lambda x: spatial.resize_rows(x, level - 1, 2), up, prev),
+        ("upsample", t1, lambda x: F.pad(interp_axis(x, 2 * t1, 2), pad),
+         lambda x: spatial.upsample_rows(x, level - 1, 2), up, prev),
+    ]
+
+
+def moves(n_space, heights):
+    """On a (1, n_space) mesh, for each image height: every row operation
+    of every level (the max-pool, the transposed conv's pad, the gate's
+    stride 2, the gate's resize, the bilinear upsample and its pad, and a
+    3x3 conv through the halo) on the rank's rows of the scope's plan,
+    forward and input gradient, against the same op on the whole tensor
+    sliced to the rank's rows (the plan's blocks; the pool's and the
+    stride's output blocks are the plan's and the stride's ceil). Returns
+    rank 0's list of mismatches from all ranks and the count of checks."""
+    torch.set_num_threads(1)
+    ex = spatial.mesh_exchanger(make_mesh(1, n_space=n_space))
+    i = ex.index
+    failures, checked = [], 0
+
+    def compare(what, got, want, exact):
+        if got.shape != want.shape or not (
+                torch.equal(got, want) if exact else
+                torch.allclose(got, want, rtol=0, atol=1e-12)):
+            failures.append(f"{what} on rank {i}: {tuple(got.shape)} vs {tuple(want.shape)}")
+
+    for height in heights:
+        plan = spatial.row_plan(height, n_space)
+        gen = torch.Generator().manual_seed(height)
+        cases = []
+        for level in range(1, 5):
+            if plan.totals[level]:
+                cases += [(level, *op) for op in _whole_ops(plan, level)]
+        for level in range(5):
+            if plan.totals[level]:
+                w = torch.randn(4, 3, 3, 3, dtype=torch.float64, generator=gen)
+                blocks = plan.levels[level]
+                cases.append((level, "halo_conv", plan.totals[level],
+                              lambda x, w=w: F.conv2d(x, w, padding=1),
+                              lambda x, w=w, lv=level: spatial.empty_safe(
+                                  lambda t: F.conv2d(t, w, padding=(0, 1)),
+                                  spatial.halo(x, lv), 3), blocks, blocks))
+        for level, name, rows, whole, local, have, want in cases:
+            x = torch.randn(2, 3, rows, 5, dtype=torch.float64, generator=gen)
+            xw = x.clone().requires_grad_()
+            y = whole(xw)
+            gy = torch.randn(y.shape, dtype=torch.float64, generator=gen)
+            (y * gy).sum().backward()
+            (a, b), (c, d) = have[i], want[i]
+            xl = x[:, :, a:b].clone().requires_grad_()
+            with spatial.scope(ex, height):
+                yl = local(xl)
+            (yl * gy[:, :, c:d]).sum().backward()
+            exact = name in ("pool", "pad", "stride2")
+            what = f"H={height} level {level} {name}"
+            compare(what, yl.detach(), y.detach()[:, :, c:d], exact)
+            compare(what + " grad", xl.grad, xw.grad[:, :, a:b], exact)
+            checked += 1
+    parts = _gather_objects((failures, checked))
+    return {"failures": [f for p in parts for f in p[0]], "checked": parts[0][1]}
+
+
+def _state(name, sd, model_kw, lr, wd, n_space, n_model, fsdp, remat="none"):
     model = build_model(name, **model_kw)
+    if remat == "full_res":  # the blocks SegmentationUNet(remat_full_res=True) tags
+        model._tag_full_res([""])
     model.load_state_dict(sd)
     state = create_train_state(model, "sgd", lr, wd, device="cpu")
     mesh = make_mesh(world_size() // (n_space * n_model), n_space=n_space, n_model=n_model)
@@ -101,17 +185,21 @@ def _whole_state(state):
 
 def seg_cases(name, sd, model_kw, n_space, n_model, cases, images, labels, loss_cfg,
               aug_cfg, lr, wd):
-    """Per case ``(draws, keep, grad_accum, fsdp, eval)``: one seg SGD step
-    from ``sd`` on this data rank's images (split over 'space' by the step),
-    its losses, confusion matrix and whole state, whether every rank holds
-    the same state, and with ``eval`` (images, labels, valid) the eval
-    step's losses, gathered predictions and matrix on the updated state."""
+    """Per case ``(draws, keep, grad_accum, fsdp, eval[, remat])``: one seg
+    SGD step from ``sd`` on this data rank's images (split over 'space' by
+    the step), its losses, confusion matrix and whole state, whether every
+    rank holds the same state, and with ``eval`` (images, labels, valid) the
+    eval step's losses, gathered predictions and matrix on the updated
+    state. ``remat`` 'full_res' tags the SegmentationUNet's blocks."""
     torch.set_num_threads(1)
     out = []
-    for draws, keep, grad_accum, fsdp, ev in cases:
-        state, group, space = _state(name, sd, model_kw, lr, wd, n_space, n_model, fsdp)
+    for draws, keep, grad_accum, fsdp, ev, *remat in cases:
+        remat = remat[0] if remat else "none"
+        state, group, space = _state(name, sd, model_kw, lr, wd, n_space, n_model, fsdp,
+                                     remat)
         step = make_seg_train_step(model_kw["n_classes"], loss_cfg, aug_cfg,
-                                   grad_accum=grad_accum, group=group, space=space)
+                                   grad_accum=grad_accum, remat=remat, group=group,
+                                   space=space)
         img, lbl = shard_batch((images, labels), grad_accum)
         spatial.COUNTERS.update(exchanges=0, bytes=0)
         losses, cm = step.with_draws(state, img, lbl, draws, keep)

@@ -271,8 +271,9 @@ def test_unported_train_flags_raise(ksdd_root, tmp_path, variant_runs, flag):
     is written: ``--n_devices 2`` plans 2 ranks and refuses a global batch
     that does not split over them; ``--fsdp`` on one device warns and
     trains whole; ``--n_space 2`` plans 2 ranks (one data rank times two
-    space ranks) and refuses a height that does not split at every level
-    (tests/test_torch_parallel_spatial_cli.py trains with it); ``--n_model 2`` plans 2 ranks (one data rank times two model
+    space ranks) and refuses a height it does not divide, as the JAX
+    package's CLI does (tests/test_torch_parallel_spatial_cli.py trains
+    with it, at 64 rows and at 40, whose deeper levels split unevenly); ``--n_model 2`` plans 2 ranks (one data rank times two model
     ranks) and refuses a batch that does not split over the data ranks and
     ``--grad_accum`` (tests/test_torch_parallel_tensor_cli.py trains with
     it); a half-specified multi-host
@@ -300,8 +301,9 @@ def test_unported_train_flags_raise(ksdd_root, tmp_path, variant_runs, flag):
     elif flag[0] == "--n_space":
         args = train_kolektorsdd.parse_args(["--device", "cpu", *flag])
         assert args.n_space == 2 and seg.check_train_flags(args, 64) == 2
-        with pytest.raises(ValueError, match="multiple of n_space x 2\\^4 = 32"):
-            _train(ksdd_root, tmp_path, *flag, "--image_height", "48")
+        assert seg.check_train_flags(args, 40) == 2  # uneven deeper levels train
+        with pytest.raises(ValueError, match="--n_space 2 must divide the image height 45"):
+            _train(ksdd_root, tmp_path, *flag, "--image_height", "45")
     elif flag[0] == "--n_model":
         args = train_kolektorsdd.parse_args(["--device", "cpu", *flag])
         assert args.n_model == 2 and seg.check_train_flags(args) == 2

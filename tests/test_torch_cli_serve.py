@@ -130,7 +130,7 @@ def test_serve_seg_tiles_int8_qparams_and_artifact(seg_ckpt, tmp_path):
     (["--checkpoint", "CKPT", "--export_artifact", "X", "--artifact_platforms", "tpu,cpu"],
      SystemExit),
     (["--checkpoint", "CKPT", "--n_devices", "3"], ValueError),      # batch 4 over 3 replicas
-    (["--checkpoint", "CKPT", "--n_space", "4"], ValueError),        # 8-row blocks: 4 pools
+    (["--checkpoint", "CKPT", "--n_space", "3"], ValueError),        # 3 does not divide 32
     (["--checkpoint", "CKPT", "--n_space", "2", "--export_artifact", "X"], SystemExit),
     (["--checkpoint", "CKPT", "--bucket_sizes", "8"], SystemExit),  # above --batch_size 4
 ])
@@ -165,6 +165,24 @@ def test_serve_seg_with_n_space_writes_the_one_device_masks(seg_ckpt, tmp_path):
         g = rows["predictions"][rel]
         assert g["class_pixel_share"] == w["class_pixel_share"]
         assert g["mean_confidence"] == pytest.approx(w["mean_confidence"], rel=2e-5)
+
+
+def test_serve_seg_n_space_4_at_uneven_levels_writes_the_one_device_masks(seg_ckpt, tmp_path):
+    """``--n_space 4`` at 32 rows, once refused: 8-row blocks, then 4, 2, 1
+    and a bottleneck of 1/1/0/0 rows; int8, bit for bit one device's
+    masks and confidences."""
+    _, pth = seg_ckpt
+    root, calib = str(tmp_path / "in"), str(tmp_path / "calib")
+    _write_pngs(root, _images(4, n=3))
+    _write_pngs(calib, _images(5, n=4))
+    flags = ["--checkpoint", pth, "--input_dir", root, "--image_height", "32",
+             "--image_width", "32", "--quantize", "int8", "--calib_dir", calib] + BASE
+    rows = serve_seg.main(flags + ["--n_space", "4", "--output_dir", str(tmp_path / "rows")])
+    one = serve_seg.main(flags + ["--output_dir", str(tmp_path / "one")])
+    m_rows, m_one = _masks(tmp_path / "rows", rows), _masks(tmp_path / "one", one)
+    assert set(m_rows) == set(m_one) and all(np.array_equal(m_rows[k], m_one[k])
+                                             for k in m_one)
+    assert rows["predictions"] == one["predictions"]
 
 
 @pytest.fixture(scope="module")

@@ -7,6 +7,10 @@
   --n_devices 2 --n_space 2`` on it against the one-process evaluator:
   every metric within 1e-5 and the confusion matrix equal, in float and
   with ``--quantize int8`` (K2's plain version on halo'd rows).
+- ``train_kolektorsdd --n_space 2 --image_height 40`` (deeper levels of 5,
+  3/2 and 2/0 rows per rank) for one ``--debug`` epoch, then
+  ``test_kolektorsdd --n_space 2`` on its checkpoint against the
+  one-process evaluator (metrics within 1e-5, the matrix equal).
 - The JAX package's 3-D mesh CLI case at its own shape
   (``tests/test_tensor_parallel.py::TestCLIWiring``): ``train_gear
   --n_devices 2 --n_space 2 --n_model 2``, eight ranks.
@@ -29,6 +33,7 @@ KSDD = ["--image_height", "64", "--image_width", "32"]
 SMALL = ["--base_features", "4", "--batch_size", "4", "--num_workers", "2",
          "--precision", "f32", "--device", "cpu"]
 SPACE = ["--n_devices", "2", "--n_space", "2"]
+H = 40  # the uneven case's height
 
 
 @pytest.fixture(autouse=True)
@@ -102,3 +107,30 @@ def test_train_gear_on_a_2x2x2_mesh(tmp_path):
                       weights_only=True)
     build_model("seg_unet", n_classes=4, base_features=8).load_state_dict(
         blob["model_state_dict"], strict=True)
+
+
+def test_kolektorsdd_clis_at_uneven_levels(ksdd_root, tmp_path):
+    """40 rows on 2 space ranks: levels of 20/20, 10/10, 5/5, 3/2 and 2/0
+    rows, which the port once refused and the JAX package trains."""
+    root = ksdd_root
+    size = ["--image_height", str(H), "--image_width", "32"]
+    small = ["--base_features", "4", "--batch_size", "2", "--num_workers", "0",
+             "--precision", "f32", "--device", "cpu"]
+    space = ["--n_space", "2"]
+    exp = train_kolektorsdd.main(["--data_root", root, "--epochs", "1", "--debug",
+                                  "--val_freq", "1", "--save_freq", "1",
+                                  "--save_dir", str(tmp_path / "out"), *size, *small, *space])
+    with open(os.path.join(exp, "results", "training_results.json")) as f:
+        results = json.load(f)
+    assert results["args"]["n_space"] == 2 and results["args"]["image_height"] == H
+    assert all(np.isfinite(results["train_losses"] + results["val_losses"]))
+    common = ["--data_root", root, "--checkpoint",
+              os.path.join(exp, "checkpoints", "checkpoint_epoch_0.pth"), *size, *small]
+    rows = test_kolektorsdd.main(common + ["--output_dir", str(tmp_path / "rows"), *space])
+    one = test_kolektorsdd.main(common + ["--output_dir", str(tmp_path / "one")])
+    assert rows["evaluation_args"]["n_space"] == 2
+    np.testing.assert_array_equal(rows["confusion_matrix"], one["confusion_matrix"])
+    assert np.sum(one["confusion_matrix"]) % (H * 32) == 0
+    for k, v in one["overall_metrics"].items():
+        np.testing.assert_allclose(rows["overall_metrics"][k], v, rtol=1e-5, atol=1e-5,
+                                   err_msg=k)

@@ -56,7 +56,7 @@ def test_space_step_matches_jax(devices, name):
     port = launch(workers.seg_cases, (name, sd, model_kw, n_space, n_model,
                                       [(draws, keep, 1, False, None)], images, labels, LOSS,
                                       AUG, LR, WD),
-                  devices=["cpu"] * (n_data * n_space * n_model))[0]
+                  devices=["cpu"] * (n_data * n_space * n_model), timeout=120)[0]
     if keep is not None:
         assert not keep.all()  # the dropout drops channels
     assert_matches_jax(port, ref, name, spread)

@@ -58,18 +58,18 @@ def jax_case(name, sd, model_kw, mesh, images, labels, key, grad_accum=1, fsdp=F
              tp=False, eval_batch=None):
     """The JAX seg step (and optionally its eval step) on ``mesh`` with the
     batch sharded over 'data' and 'space', and the draws and keep masks
-    that it took from ``key``, for the port."""
+    that it took from ``key``, for the port (at the images' size)."""
     params, stats = jax_trees_from_state_dict(sd, model=name)
     apply_fn = jmodels.build_model(name, **model_kw).apply
     jstate = JaxTrainState.create(apply_fn=apply_fn, params=params, batch_stats=stats,
                                   tx=jax_optimizer("sgd", LR, WD))
     variables = {"params": params, "batch_stats": stats}
     draws, keeps = [], []
-    n = N // grad_accum
+    n, (h, w) = N // grad_accum, images.shape[1:3]
     for k in (jax.random.split(key, grad_accum) if grad_accum > 1 else [key]):
         k_aug, k_drop = jax.random.split(k)
         draws.append(jax_draws(k_aug, n, AUG))
-        keeps.append(jax_dropout_keep(apply_fn, variables, (n, H, W, 3), k_drop)
+        keeps.append(jax_dropout_keep(apply_fn, variables, (n, h, w, 3), k_drop)
                      if model_kw.get("dropout", 0.1) > 0 else None)
     rep = jax_shard_state(mesh, jstate, fsdp=fsdp, tp=tp)
     b = jax_shard_batch(mesh, {"image": images, "mask": labels}, spatial=True)
@@ -142,7 +142,7 @@ def runs(devices):
         cases.append((draws, keep, kw.get("grad_accum", 1), kw.get("fsdp", False),
                       ev if i == 0 else None))
     port = launch(workers.seg_cases, ("seg_unet", sd, model_kw, 2, 1, cases, images, labels,
-                                      LOSS, AUG, LR, WD), devices=["cpu"] * 4)
+                                      LOSS, AUG, LR, WD), devices=["cpu"] * 4, timeout=120)
     return {"jax": refs, "port": dict(zip(CASES, port)), "valid": valid,
             "eval_labels": ev_labels}
 
@@ -178,7 +178,7 @@ def test_int8_seg_eval_on_a_data_space_mesh_is_one_process_bit_for_bit():
     args = ("seg_unet", sd, model_kw)
     one = workers.int8_eval(*args, 1, calib, images, labels, valid, LOSS)
     mesh = launch(workers.int8_eval, (*args, 2, calib, images, labels, valid, LOSS),
-                  devices=["cpu"] * 4)
+                  devices=["cpu"] * 4, timeout=120)
     np.testing.assert_array_equal(mesh["preds"], one["preds"])
     np.testing.assert_array_equal(mesh["cm"], one["cm"])
     for k, v in one["losses"].items():

@@ -107,7 +107,7 @@ def cli_device(name: str) -> torch.device:
 def check_train_flags(args, height: Optional[int] = None) -> int:
     """The run's world size (joining a launched group: ``--n_devices``
     times ``--n_space`` times ``--n_model`` ranks); ValueError for an image
-    ``height`` that ``--n_space`` does not split at every level
+    ``height`` that ``--n_space`` does not divide, as the JAX package's
     (``parallel/spatial.py::check_rows``), SystemExit for a
     ``--batch_size`` that does not split over the data ranks and
     ``--grad_accum``."""

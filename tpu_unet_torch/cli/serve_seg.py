@@ -78,8 +78,8 @@ def parse_args(argv=None):
                         "(on the CPU all share it)")
     p.add_argument("--n_space", type=int, default=1,
                    help="Shard image height over this many devices per replica "
-                        "(one thread each; the height must be a multiple of "
-                        "16 x n_space; not with tiling or --export_artifact)")
+                        "(one thread each; n_space must divide the height; "
+                        "not with tiling or --export_artifact)")
     p.add_argument("--tile_height", type=int, default=None,
                    help="Serve NATIVE-resolution images by tiling: run the "
                         "model at tile_height x tile_width (its training "

@@ -33,6 +33,7 @@ from tpu_unet_torch.core.precision import DEFAULT_POLICY, Policy
 from tpu_unet_torch.models.blocks import BatchNorm2d, conv_bn
 from tpu_unet_torch.models.unet import SegmentationUNet
 from tpu_unet_torch.ops.resize import resize_bilinear_align_corners
+from tpu_unet_torch.parallel import spatial
 
 
 class _GateProj(nn.Module):
@@ -53,12 +54,13 @@ class _GateProj(nn.Module):
 class AttentionGate(nn.Module):
     """``x * resize(sigmoid(psi(relu(W_g g + W_x x))))`` in the compute dtype;
     ``g`` (``g_channels`` wide) is the coarse gating signal, ``x``
-    (``x_channels`` wide) the full-resolution skip."""
+    (``x_channels`` wide) the full-resolution skip at ``level`` (g one level
+    below)."""
 
     def __init__(self, g_channels: int, x_channels: int, f_int: int,
-                 policy: Policy = DEFAULT_POLICY):
+                 policy: Policy = DEFAULT_POLICY, level: int = 0):
         super().__init__()
-        self.policy = policy
+        self.policy, self.level = policy, level
         self.g = _GateProj(g_channels, f_int, policy=policy)
         self.x = _GateProj(x_channels, f_int, stride=2, policy=policy)
         self.conv2 = nn.Conv2d(f_int, 1, 1, bias=False)
@@ -67,11 +69,14 @@ class AttentionGate(nn.Module):
     def forward(self, g: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         gp = self.g(g)
         # Odd skip extents make the stride-2 projection one row or column
-        # larger than g (ceil against floor): crop.
-        xp = self.x(x)[:, :, :gp.shape[2], :gp.shape[3]]
+        # larger than g (ceil against floor): crop, after its BatchNorm as
+        # the JAX gate does. Under a 'space' scope the projection samples
+        # the image's even rows, and the crop drops the row past g's last.
+        xp = self.x(spatial.stride2_rows(x, self.level))[:, :, :gp.shape[2], :gp.shape[3]]
         a = F.relu(gp + xp).to(self.policy.compute_dtype)
         a = conv_bn(self.conv2, self.bn2, a, self.policy)
-        alpha = resize_bilinear_align_corners(torch.sigmoid(a), x.shape[2], x.shape[3])
+        alpha = resize_bilinear_align_corners(torch.sigmoid(a), x.shape[2], x.shape[3],
+                                              self.level)
         return (x.to(alpha.dtype) * alpha).to(self.policy.compute_dtype)
 
 

@@ -80,16 +80,17 @@ def checkpoint(fn, *args):
     """``fn(*args)``, keeping ``args`` and recomputing the rest in the
     backward (``torch.utils.checkpoint``, non-reentrant) in
     :func:`recomputing` mode, under the 'space' scope of the forward (the
-    backward may run in another thread)."""
-    ex = spatial.current()
+    backward may run in another thread), whose row exchanges it reruns in
+    the forward's order."""
+    ex, plan = spatial.current(), spatial.current_plan()
     return torch.utils.checkpoint.checkpoint(
         fn, *args, use_reentrant=False,
-        context_fn=lambda: (contextlib.nullcontext(), _recompute_scope(ex)))
+        context_fn=lambda: (contextlib.nullcontext(), _recompute_scope(ex, plan)))
 
 
 @contextlib.contextmanager
-def _recompute_scope(ex):
-    with _recompute_mode(), spatial.scope(ex):
+def _recompute_scope(ex, plan):
+    with _recompute_mode(), spatial.scope(ex, plan=plan):
         yield
 
 
@@ -202,7 +203,7 @@ def sync_batchnorm(model: nn.Module, group) -> nn.Module:
 
 
 def conv_bn(conv: nn.Conv2d, norm: nn.Module, x: torch.Tensor, policy: Policy,
-            padding: int = 0, stride: int = 1) -> torch.Tensor:
+            padding: int = 0, stride: int = 1, level: int = 0) -> torch.Tensor:
     """A bias-free conv in the compute dtype, then its BatchNorm in float32
     (after ``ops/fold_bn.py``, the conv's float32 bias and an identity).
     ``stride`` 2 (a 1x1 conv) samples the even rows and columns first: the
@@ -210,9 +211,13 @@ def conv_bn(conv: nn.Conv2d, norm: nn.Module, x: torch.Tensor, policy: Policy,
     tensor corrupts memory in PyTorch's CPU build. A tensor-parallel conv
     (module docstring) takes its collective: a row conv's all-reduce runs on
     the float32 output, before the bias. Under a 'space' scope
-    (``parallel/spatial.py``) a padded conv takes one halo row above and
-    below from the neighbouring ranks and pads the columns only, which gives
-    exactly the rank's rows of the whole image's conv."""
+    (``parallel/spatial.py``) ``x`` holds the rank's rows of ``level`` (a
+    stride-2 conv's: the rows ``spatial.stride2_rows`` gives); a padded conv
+    takes one halo row above and below from the ranks that hold them and
+    pads the columns only, which gives exactly the rank's rows of the whole
+    image's conv. A rank with no rows at the level runs the conv on zero
+    rows and keeps none of its output, so that its backward takes part in
+    the exchanges."""
     cd = policy.compute_dtype
     if stride > 1:
         x = x[:, :, ::stride, ::stride]
@@ -220,47 +225,59 @@ def conv_bn(conv: nn.Conv2d, norm: nn.Module, x: torch.Tensor, policy: Policy,
     x = x.to(cd)
     if tp == "column":
         x = copy_to_model(x, conv.tp_group)
-    ex = spatial.current()
-    if padding and ex is not None:
+    min_rows = 1
+    if padding and spatial.current() is not None:
         if padding != 1:
             raise ValueError(f"a 'space' halo is one row; got padding {padding}")
-        x, padding = spatial.halo_rows(x, ex), (0, 1)
-    y = F.conv2d(x, conv.weight.to(cd), padding=padding).to(policy.norm_dtype)
-    if tp == "row":
-        y = reduce_from_model(y, conv.tp_group)
+        x, padding, min_rows = spatial.halo(x, level), (0, 1), 3
+
+    def conv_rows(t):
+        y = F.conv2d(t, conv.weight.to(cd), padding=padding).to(policy.norm_dtype)
+        return reduce_from_model(y, conv.tp_group) if tp == "row" else y
+
+    y = spatial.empty_safe(conv_rows, x, min_rows)
     if conv.bias is not None:  # BN folded into the conv (ops/fold_bn.py)
         y = y + conv.bias.view(-1, 1, 1)
     return norm(y)
 
 
-def up_conv(up: nn.ConvTranspose2d, x: torch.Tensor, cd: torch.dtype) -> torch.Tensor:
+def up_conv(up: nn.ConvTranspose2d, x: torch.Tensor, cd: torch.dtype,
+            level: int = 0) -> torch.Tensor:
     """The k2s2 transposed conv in the compute dtype, bias added there; a
-    tensor-parallel one gathers its output channels from the 'model' ranks."""
+    tensor-parallel one gathers its output channels from the 'model' ranks.
+    Under a 'space' scope ``x`` holds the rank's rows of ``level + 1``, and
+    the output comes to its rows of ``level``, zero-padded to the level's
+    height as :class:`Up` pads the whole image (``spatial.pad_rows``)."""
     x = x.to(cd)
     tp = getattr(up, "tp", None) == "column"
     if tp:
         x = copy_to_model(x, up.tp_group)
-    y = F.conv_transpose2d(x, up.weight.to(cd), up.bias.to(cd), stride=2)
-    return gather_channels(y, up.tp_group) if tp else y
+    y = spatial.empty_safe(
+        lambda t: F.conv_transpose2d(t, up.weight.to(cd), up.bias.to(cd), stride=2), x, 1)
+    if tp:
+        y = gather_channels(y, up.tp_group)
+    return spatial.pad_rows(y, level)
 
 
-def check_even_pad(dh: int) -> None:
-    """Under a 'space' scope every level's rows split evenly
-    (``parallel/spatial.py::check_rows``), so no row pad may be needed."""
-    if dh and spatial.current() is not None:
-        raise ValueError(f"a {dh}-row pad to the skip under 'space' sharding; "
-                         f"{spatial.UNEVEN}")
+def max_pool(x: torch.Tensor, level: int) -> torch.Tensor:
+    """The 2x2 max-pool (stride 2) of ``x`` to ``level``; under a 'space'
+    scope ``x`` holds the rank's rows of ``level - 1``, which first become
+    the pairs of rows its rows of ``level`` pool (``spatial.pool_rows``)."""
+    return spatial.empty_safe(lambda t: F.max_pool2d(t, 2), spatial.pool_rows(x, level), 2)
 
 
 class DoubleConv(nn.Module):
-    """(Conv3x3 no-bias -> BN -> ReLU) twice, optionally with a narrower mid width."""
+    """(Conv3x3 no-bias -> BN -> ReLU) twice, optionally with a narrower mid
+    width. ``level`` is the number of max-pools above it (the rows it runs
+    on under a 'space' scope)."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  mid_channels: Optional[int] = None,
-                 policy: Policy = DEFAULT_POLICY, remat_tag: Optional[str] = None):
+                 policy: Policy = DEFAULT_POLICY, remat_tag: Optional[str] = None,
+                 level: int = 0):
         super().__init__()
         mid = mid_channels if mid_channels is not None else out_channels
-        self.policy = policy
+        self.policy, self.level = policy, level
         self.remat_tag = remat_tag
         self.double_conv = nn.Sequential(
             nn.Conv2d(in_channels, mid, 3, padding=1, bias=False),
@@ -278,24 +295,30 @@ class DoubleConv(nn.Module):
 
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in (0, 3):
-            y = conv_bn(self.double_conv[i], self.double_conv[i + 1], x, self.policy, padding=1)
+            y = conv_bn(self.double_conv[i], self.double_conv[i + 1], x, self.policy,
+                        padding=1, level=self.level)
             x = F.relu(y).to(self.policy.compute_dtype)
         return x
 
 
 class Down(nn.Module):
     """2x2 max-pool (stride 2) followed by DoubleConv (which takes the
-    ``remat_tag``: the pooled input is kept)."""
+    ``remat_tag``: the pooled input is kept) at ``level``, the pool's."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 policy: Policy = DEFAULT_POLICY, remat_tag: Optional[str] = None):
+                 policy: Policy = DEFAULT_POLICY, remat_tag: Optional[str] = None,
+                 level: int = 1):
         super().__init__()
+        self.level = level
         self.maxpool_conv = nn.Sequential(
             nn.MaxPool2d(2),
-            DoubleConv(in_channels, out_channels, policy=policy, remat_tag=remat_tag))
+            DoubleConv(in_channels, out_channels, policy=policy, remat_tag=remat_tag,
+                       level=level))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.maxpool_conv(x)
+        # maxpool_conv[0] keeps the reference's module names; the pool runs
+        # through max_pool, which moves the rows it needs under 'space'.
+        return self.maxpool_conv[1](max_pool(x, self.level))
 
 
 class Up(nn.Module):
@@ -309,25 +332,27 @@ class Up(nn.Module):
     :class:`~tpu_unet_torch.models.attention.AttentionGate` (``att``) before
     the upsample; the gating signal is the coarse x1. Under its
     ``remat_tag`` the whole block (upsample, pad, concat and DoubleConv) is
-    checkpointed; x1 and the skip are kept.
+    checkpointed; x1 and the skip are kept. ``level`` is the skip's (x1 is
+    one level below).
     """
 
     def __init__(self, in_channels: int, out_channels: int, bilinear: bool = False,
                  policy: Policy = DEFAULT_POLICY, attention: bool = False,
-                 remat_tag: Optional[str] = None):
+                 remat_tag: Optional[str] = None, level: int = 0):
         super().__init__()
-        self.policy = policy
+        self.policy, self.level = policy, level
         self.remat_tag = remat_tag
         skip = in_channels // 2
         if attention:
             from tpu_unet_torch.models.attention import AttentionGate
             self.att = AttentionGate(in_channels // 2 if bilinear else in_channels, skip,
-                                     f_int=max(1, skip // 2), policy=policy)
+                                     f_int=max(1, skip // 2), policy=policy, level=level)
         if bilinear:
-            self.conv = DoubleConv(in_channels, out_channels, in_channels // 2, policy=policy)
+            self.conv = DoubleConv(in_channels, out_channels, in_channels // 2, policy=policy,
+                                   level=level)
         else:
             self.up = nn.ConvTranspose2d(in_channels, in_channels // 2, 2, stride=2)
-            self.conv = DoubleConv(in_channels, out_channels, policy=policy)
+            self.conv = DoubleConv(in_channels, out_channels, policy=policy, level=level)
 
     def forward(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
         if _remat(self.remat_tag):
@@ -339,13 +364,13 @@ class Up(nn.Module):
         if hasattr(self, "att"):
             x2 = self.att(x1, x2)
         if hasattr(self, "up"):
-            x1 = up_conv(self.up, x1, cd)
+            x1 = up_conv(self.up, x1, cd, self.level)
         else:
-            x1 = upsample2x_bilinear_align_corners(x1.to(cd))
-        # Static pad to the skip's extent (zero for power-of-two sizes).
+            x1 = upsample2x_bilinear_align_corners(x1.to(cd), self.level)
+        # Static pad to the skip's extent (zero for power-of-two sizes);
+        # under a 'space' scope the level-up padded the rows already.
         dh = x2.shape[2] - x1.shape[2]
         dw = x2.shape[3] - x1.shape[3]
-        check_even_pad(dh)
         if dh or dw:
             x1 = F.pad(x1, (dw // 2, dw - dw // 2, dh // 2, dh - dh // 2))
         return self.conv(torch.cat([x2.to(x1.dtype), x1], dim=1))

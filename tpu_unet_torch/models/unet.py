@@ -47,17 +47,17 @@ class _Ladder(nn.Module):
         self.base_features = b = base_features
         factor = 2 if bilinear else 1
         self.inc = DoubleConv(n_channels, b, policy=policy)
-        self.down1 = Down(b, 2 * b, policy=policy)
-        self.down2 = Down(2 * b, 4 * b, policy=policy)
-        self.down3 = Down(4 * b, 8 * b, policy=policy)
-        self.down4 = Down(8 * b, 16 * b // factor, policy=policy)
+        self.down1 = Down(b, 2 * b, policy=policy, level=1)
+        self.down2 = Down(2 * b, 4 * b, policy=policy, level=2)
+        self.down3 = Down(4 * b, 8 * b, policy=policy, level=3)
+        self.down4 = Down(8 * b, 16 * b // factor, policy=policy, level=4)
 
     def _add_decoder(self, suffix: str) -> None:
         b, factor = self.base_features, 2 if self.bilinear else 1
         for i, (cin, cout) in enumerate(((16 * b, 8 * b // factor), (8 * b, 4 * b // factor),
                                          (4 * b, 2 * b // factor), (2 * b, b)), start=1):
             self.add_module(f"up{i}{suffix}", Up(cin, cout, self.bilinear, self.policy,
-                                                 attention=self.attention))
+                                                 attention=self.attention, level=4 - i))
 
     def _tag_full_res(self, suffixes) -> None:
         """Tag the full- and half-resolution rows 'full_res': ``inc``,

@@ -32,7 +32,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from tpu_unet_torch.core.precision import DEFAULT_POLICY, Policy
-from tpu_unet_torch.models.blocks import DoubleConv, OutConv, check_even_pad, up_conv
+from tpu_unet_torch.models.blocks import DoubleConv, OutConv, max_pool, up_conv
 from tpu_unet_torch.models.unet import BottleneckDropout
 from tpu_unet_torch.ops.resize import upsample2x_bilinear_align_corners
 
@@ -66,7 +66,7 @@ class UNetPlusPlus(BottleneckDropout, nn.Module):
                 if not bilinear:
                     self.add_module(f"up{i}_{j}", nn.ConvTranspose2d(
                         b * 2 ** (i + 1), b * 2 ** i, 2, stride=2))
-            self.add_module(f"x{i}_{j}", DoubleConv(cin, b * 2 ** i, policy=policy))
+            self.add_module(f"x{i}_{j}", DoubleConv(cin, b * 2 ** i, policy=policy, level=i))
         if deep_supervision:
             for j in range(1, 5):
                 self.add_module(f"outc_{j}", OutConv(b, n_classes, policy=policy))
@@ -74,10 +74,12 @@ class UNetPlusPlus(BottleneckDropout, nn.Module):
             self.outc = OutConv(b, n_classes, policy=policy)
 
     def _up(self, t: torch.Tensor, i: int, j: int) -> torch.Tensor:
+        """The level-up of X[i+1][j-1] to level i (under a 'space' scope,
+        padded to the level's rows already)."""
         cd = self.policy.compute_dtype
         if self.bilinear:
-            return upsample2x_bilinear_align_corners(t)
-        return up_conv(getattr(self, f"up{i}_{j}"), t, cd)
+            return upsample2x_bilinear_align_corners(t, i)
+        return up_conv(getattr(self, f"up{i}_{j}"), t, cd, i)
 
     def forward(self, x: torch.Tensor, keep: Optional[torch.Tensor] = None):
         ds = self.deep_supervision
@@ -87,14 +89,13 @@ class UNetPlusPlus(BottleneckDropout, nn.Module):
         for i, j in grid_nodes(max_j):
             node = getattr(self, f"x{i}_{j}")
             if j == 0:
-                t = node(t if i == 0 else F.max_pool2d(t, 2))
+                t = node(t if i == 0 else max_pool(t, i))
                 grid[i, 0] = self._drop(t, keep) if i == 4 else t
                 continue
             below = self._up(grid[i + 1, j - 1], i, j)
             row = [grid[i, k] for k in range(j)]
             dh = row[0].shape[2] - below.shape[2]
             dw = row[0].shape[3] - below.shape[3]
-            check_even_pad(dh)
             if dh or dw:
                 below = F.pad(below, (dw // 2, dw - dw // 2, dh // 2, dh - dh // 2))
             grid[i, j] = node(torch.cat([r.to(below.dtype) for r in row] + [below], dim=1))

@@ -63,7 +63,7 @@ import torch.nn.functional as F
 from tpu_unet_torch.core.device import resolve_device
 from tpu_unet_torch.ops.augment import eval_transform
 from tpu_unet_torch.ops.kernels.int8_conv import conv3x3_int8, pack_weights, pad_cout
-from tpu_unet_torch.ops.resize import interp_axis, interp_rows
+from tpu_unet_torch.ops.resize import interp_axis, interp_rows, upsample2x_rows
 from tpu_unet_torch.parallel import spatial
 from tpu_unet_torch.utils.weights import (CONV_BN, UP_LEAF, layout_of, qparams_from_numpy,
                                           qparams_to_numpy)
@@ -186,40 +186,43 @@ def _percentile(a: torch.Tensor, q: float) -> torch.Tensor:
 
 
 def _pad_to(x: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
-    """Static pad of NHWC x up to ref's spatial dims (models/blocks.py::Up)."""
-    from tpu_unet_torch.models.blocks import check_even_pad
-
+    """Static pad of NHWC x up to ref's spatial dims (models/blocks.py::Up;
+    under a 'space' scope the level-up padded the rows already)."""
     dh, dw = ref.shape[1] - x.shape[1], ref.shape[2] - x.shape[2]
-    check_even_pad(dh)
     if dh or dw:
         x = F.pad(x, (0, 0, dw // 2, dw - dw // 2, dh // 2, dh - dh // 2))
     return x
 
 
-def _upsample2x_nhwc(x: torch.Tensor) -> torch.Tensor:
-    """The align-corners 2x upsample of an NHWC tensor (H, then W)."""
-    return interp_axis(interp_rows(x, 2 * x.shape[1], 1), 2 * x.shape[2], 2)
+def _upsample2x_nhwc(x: torch.Tensor, level: int = 0) -> torch.Tensor:
+    """The align-corners 2x upsample of an NHWC tensor (H, then W; under a
+    'space' scope from the rank's rows of ``level + 1`` to its padded rows
+    of ``level``)."""
+    return interp_axis(upsample2x_rows(x, 1, level), 2 * x.shape[2], 2)
 
 
-def _gate_float(p, g, x, path):
+def _gate_float(p, g, x, path, level: int = 0):
     """``models/attention.py::AttentionGate`` in folded float32 form, NHWC:
     ``p`` holds the gate's folded ``{kernel, bias}`` leaves under ``path``,
-    ``g`` is the coarse gating signal and ``x`` the skip. Both executors run
-    it; the int8 one on dequantized operands."""
+    ``g`` is the coarse gating signal and ``x`` the skip (at ``level``).
+    Both executors run it; the int8 one on dequantized operands."""
     def conv(v, leaf):
-        return _nhwc(F.conv2d(_nchw(v), leaf["kernel"], leaf["bias"]))
+        return spatial.empty_safe(
+            lambda t: _nhwc(F.conv2d(_nchw(t), leaf["kernel"], leaf["bias"])), v, 1, dim=1)
 
     gp = conv(g, _get(p, f"{path}/g/conv1"))
     # W_x's stride 2 (a 1x1 kernel): the even rows and columns
-    xp = conv(x[:, ::2, ::2], _get(p, f"{path}/x/conv1"))[:, :gp.shape[1], :gp.shape[2]]
+    xs = spatial.stride2_rows(x, level, dim=1)[:, ::2, ::2]
+    xp = conv(xs, _get(p, f"{path}/x/conv1"))[:, :gp.shape[1], :gp.shape[2]]
     a = conv(torch.relu(gp + xp), _get(p, f"{path}/conv2"))
-    alpha = interp_axis(interp_rows(torch.sigmoid(a), x.shape[1], 1), x.shape[2], 2)
+    alpha = interp_axis(interp_rows(torch.sigmoid(a), x.shape[1], 1, level), x.shape[2], 2)
     return x * alpha
 
 
 class _CalibExec:
     """Float forward over the folded tree; records each tensor's range
-    (abs-max, or a percentile of |x|)."""
+    (abs-max, or a percentile of |x|). It runs on whole images: its ops
+    take the int8 executor's ``level`` arguments and need none."""
 
     def __init__(self, fparams, percentile: Optional[float] = None):
         self.p = fparams
@@ -235,7 +238,7 @@ class _CalibExec:
     def input(self, x):
         return self._tag("input", x)
 
-    def double_conv(self, x, path):
+    def double_conv(self, x, path, level: int = 0):
         for i in (1, 2):
             leaf = _get(self.p, f"{path}/conv{i}")
             x = torch.relu(_nhwc(F.conv2d(_nchw(x), leaf["kernel"], leaf["bias"],
@@ -243,7 +246,7 @@ class _CalibExec:
             x = self._tag(f"{path}/relu{i}", x)
         return x
 
-    def maxpool(self, x):
+    def maxpool(self, x, level: int = 1):
         return _nhwc(F.max_pool2d(_nchw(x), 2))
 
     def _level_up(self, x, up_path):
@@ -254,14 +257,14 @@ class _CalibExec:
         leaf = _get(self.p, up_path)
         return _nhwc(F.conv_transpose2d(_nchw(x), leaf["kernel"], leaf["bias"], stride=2))
 
-    def up_block(self, x, skip, path, gated: bool = False):
+    def up_block(self, x, skip, path, gated: bool = False, level: int = 0):
         if gated:  # the gating signal is the coarse (pre-upsample) x
             skip = self._tag(f"{path}/att/out", _gate_float(self.p, x, skip, f"{path}/att"))
         y = self._tag(f"{path}/up", self._level_up(x, f"{path}/up"))
         y = _pad_to(y, skip)
         return self.double_conv(torch.cat([skip, y], dim=-1), f"{path}/conv")
 
-    def fuse(self, below, row, path):
+    def fuse(self, below, row, path, level: int = 0):
         """UNet++ node X[i][j] (``path`` 'x{i}_{j}'): the level-up of
         ``below`` (``up{i}_{j}``), concat with the dense row, DoubleConv."""
         y = self._tag(f"{path}/up", self._level_up(below, "up" + path[1:]))
@@ -383,19 +386,24 @@ class _QuantExec:
         s = self.scales["input"]
         return self._requant(x, s), s
 
-    def double_conv(self, xs, path):
-        """Two K2 convs. Under a 'space' scope each takes its input with one
-        halo row above and below (a new contiguous tensor, as K2 needs)
-        and keeps output rows 1..h: K2's SAME padding touches only the two
-        rows that are cropped, so the rows are the whole image's."""
+    def double_conv(self, xs, path, level: int = 0):
+        """Two K2 convs. Under a 'space' scope each takes its input (the
+        rank's rows of ``level``) with one halo row above and below (a new
+        contiguous tensor, as K2 needs) and keeps output rows 1..h: K2's
+        SAME padding touches only the two rows that are cropped, so the
+        rows are the whole image's. A rank with no rows at the level makes
+        the halo exchange and launches nothing."""
         x, s_in = xs
         ex = spatial.current()
         for i in (1, 2):
             c = self._leaf(f"{path}/conv{i}", s_in, "conv")
             s_out = self.scales[f"{path}/relu{i}"]
             if ex is not None:
-                x = spatial.halo_rows(x, ex, dim=1)
-            x = self.conv3x3(x, c["kernel"], c["scale"], c["bias"], s_out, relu=True)
+                x = spatial.halo(x, level, dim=1)
+            if ex is not None and x.shape[1] == 2:
+                x = x.new_empty((x.shape[0], 0, x.shape[2], c["cout"]))
+            else:
+                x = self.conv3x3(x, c["kernel"], c["scale"], c["bias"], s_out, relu=True)
             if ex is not None:
                 x = x[:, 1:-1]
             if x.shape[3] != c["cout"]:  # K2's padded channels are zeros
@@ -403,21 +411,26 @@ class _QuantExec:
             s_in = s_out
         return x, s_in
 
-    def maxpool(self, xs):
+    def maxpool(self, xs, level: int = 1):
+        """The 2x2 max-pool to ``level`` (under a 'space' scope from the
+        pairs of rows ``spatial.pool_rows`` brings)."""
         x, s = xs
+        x = spatial.pool_rows(x, level, dim=1)
         n, h, w, c = x.shape
         x = x[:, :h // 2 * 2, :w // 2 * 2]
         # max commutes with the (monotone) quantization: scale unchanged
         return x.reshape(n, h // 2, 2, w // 2, 2, c).amax(dim=(2, 4)), s
 
-    def _level_up(self, xs, up_path, s_cat):
-        """The level-up of int8 ``xs``, requantized straight to ``s_cat``:
-        the transposed conv's epilogue (one int8 matmul, then a pixel
-        shuffle), or the bilinear upsample as a float island on the
-        dequantized tensor where the tree has no ``up_path``."""
+    def _level_up(self, xs, up_path, s_cat, level: int = 0):
+        """The level-up of int8 ``xs`` to ``level``, requantized straight to
+        ``s_cat``: the transposed conv's epilogue (one int8 matmul, then a
+        pixel shuffle), or the bilinear upsample as a float island on the
+        dequantized tensor where the tree has no ``up_path``. Under a
+        'space' scope the result is the rank's rows of ``level``, padded as
+        ``Up`` pads the image."""
         x, s_in = xs
         if not _has(self.layers, up_path):
-            return self._requant(_upsample2x_nhwc(x.to(torch.float32)) * s_in, s_cat)
+            return self._requant(_upsample2x_nhwc(x.to(torch.float32), level) * s_in, s_cat)
         c = self._leaf(up_path, s_in, "up")
         n, h, w, cin = x.shape
         cout = c["cout"]
@@ -425,9 +438,10 @@ class _QuantExec:
         y = acc.to(torch.float32) * c["scale"]
         y = y + c["bias"]
         q_up = self._requant(y, s_cat).view(n, h, w, 2, 2, cout)
-        return q_up.permute(0, 1, 3, 2, 4, 5).reshape(n, 2 * h, 2 * w, cout)
+        q_up = q_up.permute(0, 1, 3, 2, 4, 5).reshape(n, 2 * h, 2 * w, cout)
+        return spatial.pad_rows(q_up, level, dim=1)
 
-    def up_block(self, xs, skips, path, gated: bool = False):
+    def up_block(self, xs, skips, path, gated: bool = False, level: int = 0):
         x, s_in = xs
         skip, s_skip = skips
         # Shared concat scale: the level-up quantizes straight to it, the
@@ -435,21 +449,21 @@ class _QuantExec:
         s_cat = self.scales[f"{path}/cat"]
         if gated:  # the gate in float on dequantized operands
             y = _gate_float(self.layers, x.to(torch.float32) * s_in,
-                            skip.to(torch.float32) * s_skip, f"{path}/att")
+                            skip.to(torch.float32) * s_skip, f"{path}/att", level)
         else:
             y = skip.to(torch.float32) * s_skip
-        q_up = _pad_to(self._level_up(xs, f"{path}/up", s_cat), skip)
+        q_up = _pad_to(self._level_up(xs, f"{path}/up", s_cat, level), skip)
         cat = torch.cat([self._requant(y, s_cat), q_up], dim=-1)
-        return self.double_conv((cat, s_cat), f"{path}/conv")
+        return self.double_conv((cat, s_cat), f"{path}/conv", level)
 
-    def fuse(self, below_xs, row_xs, path):
-        """UNet++ node X[i][j] in int8: the level-up quantizes straight to
-        the node's concat scale, and each operand of the dense row requants
-        int8 -> int8 to it."""
+    def fuse(self, below_xs, row_xs, path, level: int = 0):
+        """UNet++ node X[i][j] (at ``level`` i) in int8: the level-up
+        quantizes straight to the node's concat scale, and each operand of
+        the dense row requants int8 -> int8 to it."""
         s_cat = self.scales[f"{path}/cat"]
-        q_up = _pad_to(self._level_up(below_xs, "up" + path[1:], s_cat), row_xs[0][0])
+        q_up = _pad_to(self._level_up(below_xs, "up" + path[1:], s_cat, level), row_xs[0][0])
         parts = [self._requant(r.to(torch.float32) * s_r, s_cat) for r, s_r in row_xs]
-        return self.double_conv((torch.cat(parts + [q_up], dim=-1), s_cat), path)
+        return self.double_conv((torch.cat(parts + [q_up], dim=-1), s_cat), path, level)
 
     def head(self, xs, path, activation):
         x, s_in = xs
@@ -532,22 +546,31 @@ def build_plan(arch: str, *, score_only: bool = False, deep_supervision: bool = 
 
 def _run(exc, x, plan):
     """Drive one executor (float calibration or int8) through a plan (an
-    architecture name or a prebuilt one from build_plan)."""
+    architecture name or a prebuilt one from build_plan). Each op is told
+    its level, the max-pools above it (the rows it runs on under a 'space'
+    scope)."""
     if isinstance(plan, str):
         plan = build_plan(plan)
     env: Dict[str, Any] = {}
+    level: Dict[str, int] = {}
     for op in plan:
         kind = op[0]
         if kind == "input":
-            env[op[1]] = exc.input(x)
+            env[op[1]], level[op[1]] = exc.input(x), 0
         elif kind == "double_conv":
-            env[op[1]] = exc.double_conv(env[op[2]], op[3])
+            level[op[1]] = level[op[2]]
+            env[op[1]] = exc.double_conv(env[op[2]], op[3], level=level[op[1]])
         elif kind == "maxpool":
-            env[op[1]] = exc.maxpool(env[op[2]])
+            level[op[1]] = level[op[2]] + 1
+            env[op[1]] = exc.maxpool(env[op[2]], level=level[op[1]])
         elif kind == "up_block":
-            env[op[1]] = exc.up_block(env[op[2]], env[op[3]], op[4], gated=op[5])
+            level[op[1]] = level[op[3]]
+            env[op[1]] = exc.up_block(env[op[2]], env[op[3]], op[4], gated=op[5],
+                                      level=level[op[1]])
         elif kind == "fuse":
-            env[op[1]] = exc.fuse(env[op[2]], [env[r] for r in op[3]], op[4])
+            level[op[1]] = level[op[3][0]]
+            env[op[1]] = exc.fuse(env[op[2]], [env[r] for r in op[3]], op[4],
+                                  level=level[op[1]])
         elif kind == "head":
             env[op[1]] = exc.head(env[op[2]], op[3], op[4])
         elif kind == "average":  # head outputs are float32 in both executors
@@ -797,7 +820,7 @@ def make_quantized_seg_eval_step(num_classes: int, loss_cfg=None, arch: str = "s
         device = _tree_device(qparams["layers"])
         img, lbl = space_rows(_as_tensor(images_u8, device), _as_tensor(labels, device),
                               space)
-        with spatial.scope(space):
+        with spatial.scope(space, images_u8.shape[1]):
             logits = _run(cache["exec"], eval_transform(img), plan)
             if valid is not None:
                 valid = _as_tensor(valid, device)

@@ -12,8 +12,9 @@ float32, which ``F.interpolate`` would not reproduce.
 Each matrix is built once per (in, out, dtype, device) and kept: a
 host-to-device copy per call would wait for the stream to drain.
 Tensors are NCHW; :func:`interp_axis` resizes any one axis,
-:func:`interp_rows` the rows, which under a 'space' scope are this rank's
-block of the image's (``parallel/spatial.py::resize_rows``).
+:func:`interp_rows` and :func:`upsample2x_rows` the rows, which under a
+'space' scope are this rank's block of a level's rows
+(``parallel/spatial.py::resize_rows``, ``upsample_rows``).
 """
 
 from __future__ import annotations
@@ -73,25 +74,44 @@ def interp_axis(x: torch.Tensor, out_size: int, dim: int) -> torch.Tensor:
     return torch.movedim(torch.movedim(x, dim, -1) @ m.t(), -1, dim)
 
 
-def interp_rows(x: torch.Tensor, out_size: int, dim: int) -> torch.Tensor:
-    """Resize the rows (axis ``dim``) of ``x`` to ``out_size``; under a
-    'space' scope ``x`` holds this rank's rows and ``out_size`` is its
-    share of the output's."""
+def interp_rows(x: torch.Tensor, out_size: int, dim: int, level: int = 0) -> torch.Tensor:
+    """Resize the rows (axis ``dim``) of ``x`` to ``out_size``. Under a
+    'space' scope ``x`` holds this rank's rows of ``level + 1``, the image's
+    rows resize to ``level``'s height and the result is the rank's rows of
+    ``level`` (``out_size`` of them)."""
     from tpu_unet_torch.parallel import spatial
 
-    ex = spatial.current()
-    if ex is None:
+    if spatial.current() is None:
         return interp_axis(x, out_size, dim)
-    return spatial.resize_rows(x, out_size, dim, ex)
+    y = spatial.resize_rows(x, level, dim)
+    if y.shape[dim] != out_size:
+        raise ValueError(f"a resize to {out_size} rows of which this rank holds "
+                         f"{y.shape[dim]} at level {level}")
+    return y
 
 
-def resize_bilinear_align_corners(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+def resize_bilinear_align_corners(x: torch.Tensor, out_h: int, out_w: int,
+                                  level: int = 0) -> torch.Tensor:
     """Resize an NCHW tensor to (out_h, out_w), align_corners=True bilinear
-    (under a 'space' scope, ``out_h`` is this rank's rows)."""
-    return interp_axis(interp_rows(x, out_h, 2), out_w, 3)
+    (under a 'space' scope, from the rank's rows of ``level + 1`` to its
+    ``out_h`` rows of ``level``)."""
+    return interp_axis(interp_rows(x, out_h, 2, level), out_w, 3)
 
 
-def upsample2x_bilinear_align_corners(x: torch.Tensor) -> torch.Tensor:
+def upsample2x_rows(x: torch.Tensor, dim: int, level: int = 0) -> torch.Tensor:
+    """The 2x upsample of the rows (axis ``dim``); under a 'space' scope
+    ``x`` holds this rank's rows of ``level + 1`` and the result is its rows
+    of ``level``, the upsampled image zero-padded to the level's height as
+    ``models/blocks.py::Up`` pads it (``parallel/spatial.py::upsample_rows``)."""
+    from tpu_unet_torch.parallel import spatial
+
+    if spatial.current() is None:
+        return interp_axis(x, 2 * x.shape[dim], dim)
+    return spatial.upsample_rows(x, level, dim)
+
+
+def upsample2x_bilinear_align_corners(x: torch.Tensor, level: int = 0) -> torch.Tensor:
     """2x upsampling of an NCHW tensor, torch's ``Upsample(scale_factor=2,
-    mode='bilinear', align_corners=True)``."""
-    return resize_bilinear_align_corners(x, 2 * x.shape[2], 2 * x.shape[3])
+    mode='bilinear', align_corners=True)`` (its rows as
+    :func:`upsample2x_rows` gives them)."""
+    return interp_axis(upsample2x_rows(x, 2, level), 2 * x.shape[3], 3)

@@ -330,13 +330,14 @@ def local_rank_devices(n_devices: Optional[int], device_type: str,
 
 
 def _rank_main(index: int, fn: Callable, args: tuple, devices: List[str], backend: str,
-               port: int, threads: int, result_path: str) -> None:
+               port: int, threads: int, result_path: str,
+               timeout: datetime.timedelta = _TIMEOUT) -> None:
     device = torch.device(devices[index])
     torch.set_num_threads(threads)
     if device.type == "cuda":
         torch.cuda.set_device(device)
     dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{port}",
-                            world_size=len(devices), rank=index, timeout=_TIMEOUT)
+                            world_size=len(devices), rank=index, timeout=timeout)
     try:
         result = fn(*args)
         if index == 0:
@@ -349,7 +350,8 @@ def _rank_main(index: int, fn: Callable, args: tuple, devices: List[str], backen
 
 def launch(fn: Callable, args: tuple = (), n_devices: Optional[int] = None,
            device_type: str = "cuda", devices: Optional[Sequence] = None,
-           backend: Optional[str] = None, n_model: int = 1, n_space: int = 1) -> Any:
+           backend: Optional[str] = None, n_model: int = 1, n_space: int = 1,
+           timeout: Optional[float] = None) -> Any:
     """``fn(*args)`` on every rank of a run over ``n_devices`` data ranks
     times ``n_space`` space ranks times ``n_model`` model ranks; returns
     this process's result (rank 0's, for a local launch).
@@ -365,7 +367,10 @@ def launch(fn: Callable, args: tuple = (), n_devices: Optional[int] = None,
     - Else calls ``fn`` here without a group.
 
     ``backend`` defaults to :func:`backend_for` the devices' type; ranks that
-    share one GPU need ``backend='gloo'`` (NCCL refuses them).
+    share one GPU need ``backend='gloo'`` (NCCL refuses them). ``timeout``
+    (seconds; 30 minutes by default) bounds each collective's wait in the
+    spawned ranks: a rank that makes one collective fewer than the others
+    then fails the launch instead of hanging it.
     """
     if dist.is_initialized():
         return fn(*args)
@@ -381,7 +386,9 @@ def launch(fn: Callable, args: tuple = (), n_devices: Optional[int] = None,
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "rank0.pkl")
         torch.multiprocessing.start_processes(
-            _rank_main, args=(fn, args, devices, backend, _free_port(), threads, path),
+            _rank_main, args=(fn, args, devices, backend, _free_port(), threads, path,
+                              _TIMEOUT if timeout is None
+                              else datetime.timedelta(seconds=timeout)),
             nprocs=len(devices), join=True, start_method="spawn")
         with open(path, "rb") as f:
             return pickle.load(f)  # written by rank 0 of this launch

@@ -1,30 +1,39 @@
 """The 'space' axis: activations sharded over the image's rows, with the
-halo exchanges a 3x3 conv and a row resize need (the port's counterpart of
+row exchanges that the models' operations need (the port's counterpart of
 what GSPMD inserts for the JAX package's ``P('data', 'space')`` batches).
 
-Each of the ``n`` ranks of a space group holds a block of ``h = H / n``
-consecutive rows of every activation. An :class:`Exchanger` moves rows
-between them:
+Each of the ``n`` ranks of a space group holds a block of consecutive rows
+of every activation. At the image's level the blocks are equal (``H / n``
+rows each, the JAX package's condition: ``n`` divides ``H``); each deeper
+level's blocks follow from the level above by the max-pool's floor
+(:class:`RowPlan`), so they may differ by a row, hold one row or none. An
+:class:`Exchanger` moves rows between the ranks:
 
 - :class:`GroupExchanger`: the space ranks of a ``torch.distributed``
   process group (training, the evaluators). Its exchange is one
-  ``all_gather`` of each rank's (first, last) rows over the group, which
-  gloo and NCCL both run on CUDA and CPU tensors alike;
+  ``all_gather`` of each rank's edge rows over the group, which gloo and
+  NCCL both run on CUDA and CPU tensors alike;
 - :class:`ThreadExchanger`: threads of one process (serving), one per space
   device, meeting at a barrier to read each other's rows. A CUDA producer
   records an event on its stream, and the reader's stream waits for it.
 
-Inside :func:`scope` of an exchanger the model's operations run on the
-rank's rows: ``models/blocks.py::conv_bn`` pads its 3x3 conv with
-:func:`halo_rows`, ``ops/resize.py`` resizes rows through
-:func:`resize_rows`, and the int8 executor (``ops/quantize.py``) halos K2's
-input. Everything else the models do (max-pool, the k2s2 transposed conv,
-1x1 convs, the gate's stride 2, dropout) needs no rows of a neighbour,
-provided every level's block of rows is even: :func:`check_rows` holds the
-image height to ``H % (n * 2**depth) == 0``.
+Every row exchange is :func:`move_rows`: each rank gives its block and
+takes a window of the level's global rows a few rows wider or narrower,
+zeros past the image. Inside :func:`scope` of an exchanger and the image
+height the models' operations run on the rank's rows and name the level
+they work at: ``models/blocks.py::conv_bn`` pads its 3x3 conv with
+:func:`halo` rows, the max-pool takes its pairs of rows through
+:func:`pool_rows`, a level-up comes to the skip's rows, padded as ``Up``
+pads the whole image, through :func:`pad_rows` (the transposed conv) or
+:func:`upsample_rows` (the bilinear upsample), the attention gate's stride
+2 takes the even rows through :func:`stride2_rows` and its resize runs
+through :func:`resize_rows`, and the int8 executor (``ops/quantize.py``)
+does the same on its NHWC tensors. A block with no rows still takes part
+in every exchange: the plan, not the data, says which rows are real, and
+every rank makes the same collectives in the same order.
 
 Gradients follow the convention of ``losses/reduction.py``: the mean of
-the ranks' gradients is the global gradient. A halo row's gradient goes
+the ranks' gradients is the global gradient. A moved row's gradient goes
 back to the rank the row came from; :func:`space_sum` (the Dice sums over
 an image's rows) all-reduces in both directions; :func:`split_rows` gives a
 replicated input's gradient the rank's rows only.
@@ -33,16 +42,17 @@ replicated input's gradient the rank's rows only.
 from __future__ import annotations
 
 import contextlib
+import functools
 import threading
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-DEPTH = 4  # the models' max-pool levels: the bottleneck is H / 16 rows
-UNEVEN = ("heights whose deeper levels do not split evenly over the 'space' ranks "
-          "are the last item of ROADMAP queue 1")
+DEPTH = 4  # the models' max-pool levels: the bottleneck is H // 16 rows
+
+Block = Tuple[int, int]  # [start, stop) of a level's global rows
 
 # Exchanges made and bytes this rank contributed to them, since the last reset.
 COUNTERS = {"exchanges": 0, "bytes": 0}
@@ -50,38 +60,68 @@ COUNTERS = {"exchanges": 0, "bytes": 0}
 _STATE = threading.local()
 
 
+class RowPlan:
+    """The global rows ``[start, stop)`` each of ``n`` space ranks holds at
+    each of ``depth + 1`` levels of an image of ``height`` rows: equal
+    blocks at level 0, and at each deeper level the pooled rows ``k`` whose
+    pair ``2k, 2k + 1`` starts in the rank's block one level up and lies
+    inside that level (the max-pool's floor drops an odd last row). E.g.
+    ``height`` 40 on 2 ranks: 20/20, 10/10, 5/5, 3/2, 2/0 rows."""
+
+    def __init__(self, height: int, n: int, depth: int = DEPTH):
+        h = height // n
+        level = tuple((r * h, (r + 1) * h) for r in range(n))
+        self.levels: List[Tuple[Block, ...]] = [level]
+        self.totals: List[int] = [height]
+        for _ in range(depth):
+            total = self.totals[-1] // 2
+            level = tuple((min(-(-a // 2), total), min(-(-b // 2), total)) for a, b in level)
+            self.levels.append(level)
+            self.totals.append(total)
+
+
+@functools.lru_cache(maxsize=None)
+def row_plan(height: int, n: int, depth: int = DEPTH) -> RowPlan:
+    """The kept :class:`RowPlan` of ``height`` rows over ``n`` ranks."""
+    return RowPlan(height, n, depth)
+
+
 def current() -> Optional["Exchanger"]:
     """The exchanger of this thread's :func:`scope` (None outside one)."""
     return getattr(_STATE, "exchanger", None)
 
 
+def current_plan() -> Optional[RowPlan]:
+    """The :class:`RowPlan` of this thread's :func:`scope` (None outside one)."""
+    return getattr(_STATE, "plan", None)
+
+
 @contextlib.contextmanager
-def scope(exchanger: Optional["Exchanger"]):
+def scope(exchanger: Optional["Exchanger"], height: Optional[int] = None, *,
+          plan: Optional[RowPlan] = None):
     """Run the models' row operations on this rank's rows through
     ``exchanger`` (None: whole images) inside the ``with`` block, in this
-    thread."""
-    before = current()
-    _STATE.exchanger = exchanger
+    thread. ``height`` is the whole image's row count at level 0 (or
+    ``plan`` the :class:`RowPlan` itself)."""
+    if exchanger is not None and plan is None:
+        if height is None:
+            raise ValueError("a 'space' scope needs the image height")
+        check_rows(height, exchanger.size)
+        plan = row_plan(height, exchanger.size)
+    before = current(), current_plan()
+    _STATE.exchanger, _STATE.plan = exchanger, (plan if exchanger is not None else None)
     try:
         yield exchanger
     finally:
-        _STATE.exchanger = before
+        _STATE.exchanger, _STATE.plan = before
 
 
-def check_rows(height: int, n_space: int, depth: int = DEPTH) -> None:
-    """ValueError unless ``height`` rows split over ``n_space`` ranks at
-    every one of the models' ``depth`` levels: the JAX package's condition
-    (``n_space`` divides the height), then the port's, ``height % (n_space
-    * 2**depth) == 0``."""
-    if n_space <= 1:
-        return
-    if height % n_space:
+def check_rows(height: int, n_space: int) -> None:
+    """ValueError unless ``n_space`` divides the image ``height``: the JAX
+    package's condition. Every deeper level splits as :class:`RowPlan`
+    says, however uneven."""
+    if n_space > 1 and height % n_space:
         raise ValueError(f"--n_space {n_space} must divide the image height {height}")
-    if height % (n_space * 2 ** depth):
-        raise ValueError(
-            f"--n_space {n_space}: the image height {height} must be a multiple of "
-            f"n_space x 2^{depth} = {n_space * 2 ** depth}, so that every level's rows "
-            f"split evenly over the ranks; {UNEVEN}")
 
 
 class Exchanger:
@@ -95,19 +135,6 @@ class Exchanger:
     def all_gather(self, t: torch.Tensor) -> List[torch.Tensor]:
         """Every rank's ``t`` (one shape on all), in rank order, on ``t``'s device."""
         raise NotImplementedError
-
-    def neighbours(self, top: torch.Tensor, bottom: torch.Tensor
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """``(above, below)``: the previous rank's ``bottom`` and the next
-        rank's ``top`` (zeros past the image's first and last rows)."""
-        edges = torch.stack([top, bottom]).contiguous()
-        COUNTERS["exchanges"] += 1
-        COUNTERS["bytes"] += edges.numel() * edges.element_size()
-        parts = self.all_gather(edges)
-        i = self.index
-        above = parts[i - 1][1] if i > 0 else torch.zeros_like(top)
-        below = parts[i + 1][0] if i + 1 < self.size else torch.zeros_like(bottom)
-        return above, below
 
 
 class GroupExchanger(Exchanger):
@@ -195,7 +222,7 @@ class ThreadExchanger(Exchanger):
 
 
 # ---------------------------------------------------------------------------
-# Rows: halos, blocks, sums
+# Moving rows between the ranks
 # ---------------------------------------------------------------------------
 
 def _format(x: torch.Tensor) -> torch.memory_format:
@@ -219,34 +246,206 @@ def _cat_rows(parts: List[torch.Tensor], dim: int, fmt) -> torch.Tensor:
     return out
 
 
-class _Halo(torch.autograd.Function):
+class _Route:
+    """The static routing of one :func:`move_rows` from every rank's block
+    ``have`` to every rank's window ``want``. ``depth`` is the most rows a
+    window reaches past its own block into another rank's (0: no exchange;
+    rows that no block holds are zeros).
+    Each rank sends its first and last ``depth`` rows (zeros where its
+    block is shorter); ``take[i]`` lists rank ``i``'s window as runs
+    ``(kind, j, at, rows)``: its own rows from ``at`` ('own'), a sender
+    ``j``'s first ('top') or last ('bottom') rows from ``at``, or ``rows``
+    zeros past the image ('zero'). ``give[i]`` lists, for the backward,
+    where the gradient of the rows of rank ``i``'s block that other
+    windows took comes from: ``(j, side, at, local_row)``, the row ``at``
+    of the part that rank ``j`` sends back above (side 0) or below (side 1)
+    its block."""
+
+    def __init__(self, have: Tuple[Block, ...], want: Tuple[Block, ...]):
+        if len(have) != len(want):
+            raise ValueError(f"{len(have)} blocks moved to {len(want)} windows")
+        for (a, b), (c, d) in zip(have, want):
+            if b < a or d < c:
+                raise ValueError(f"a block {(a, b)} or window {(c, d)} runs backwards")
+        depth = 0
+        for i, ((a, b), (c, d)) in enumerate(zip(have, want)):
+            for r in range(c, d):
+                j = _owner(have, r)
+                if j is not None and j != i:
+                    depth = max(depth, a - r if r < a else r - b + 1)
+        self.depth = depth
+        self.take = [self._take(i, have, want[i], depth) for i in range(len(have))]
+        self.give = [[] for _ in have]
+        for j, ((a, b), (c, d)) in enumerate(zip(have, want)):
+            for side, rows in ((0, range(c, min(a, d))), (1, range(max(b, c), d))):
+                for r in rows:
+                    owner = _owner(have, r)
+                    if owner is None or owner == j:
+                        continue
+                    at = r - (a - depth) if side == 0 else r - b
+                    self.give[owner].append((j, side, at, r - have[owner][0]))
+
     @staticmethod
-    def forward(ctx, x, ex, dim):
-        ctx.ex, ctx.dim = ex, dim
-        h = x.shape[dim]
-        above, below = ex.neighbours(x.narrow(dim, 0, 1), x.narrow(dim, h - 1, 1))
-        return _cat_rows([above, x, below], dim, _format(x))
+    def _take(i, have, window, depth):
+        c, d = window
+        runs: List[Tuple[str, int, int, int]] = []
+        for r in range(c, d):
+            j = _owner(have, r)
+            if j is None:
+                run = ("zero", -1, 0, 1)
+            elif j == i:
+                run = ("own", i, r - have[i][0], 1)
+            else:
+                a, b = have[j]
+                if r - a < depth:
+                    run = ("top", j, r - a, 1)
+                elif b - r <= depth:
+                    run = ("bottom", j, depth - (b - r), 1)
+                else:
+                    raise ValueError(f"row {r} of rank {j}'s block {(a, b)} lies more than "
+                                     f"{depth} rows from its edges")
+            last = runs[-1] if runs else None
+            if last and last[0] == run[0] and last[1] == run[1] and \
+                    (run[0] == "zero" or last[2] + last[3] == run[2]):
+                runs[-1] = (last[0], last[1], last[2], last[3] + 1)
+            else:
+                runs.append(run)
+        return runs
+
+
+def _owner(have: Tuple[Block, ...], r: int) -> Optional[int]:
+    for j, (a, b) in enumerate(have):
+        if a <= r < b:
+            return j
+    return None
+
+
+@functools.lru_cache(maxsize=None)
+def _route(have: Tuple[Block, ...], want: Tuple[Block, ...]) -> _Route:
+    return _Route(have, want)
+
+
+def _edge_rows(x: torch.Tensor, dim: int, depth: int) -> torch.Tensor:
+    """(2, ...): ``x``'s first ``depth`` rows on ``dim`` (zeros after a
+    short block's end) and its last ``depth`` (zeros before its start)."""
+    h = x.shape[dim]
+    shape = list(x.shape)
+    shape[dim] = depth
+    out = x.new_zeros((2, *shape))
+    k = min(h, depth)
+    if k:
+        out[0].narrow(dim, 0, k).copy_(x.narrow(dim, 0, k))
+        out[1].narrow(dim, depth - k, k).copy_(x.narrow(dim, h - k, k))
+    return out
+
+
+def _exchange(ex: Exchanger, edges: torch.Tensor) -> List[torch.Tensor]:
+    COUNTERS["exchanges"] += 1
+    COUNTERS["bytes"] += edges.numel() * edges.element_size()
+    return ex.all_gather(edges.contiguous())
+
+
+def _take_rows(x, ex, dim, route: _Route):
+    parts = _exchange(ex, _edge_rows(x, dim, route.depth)) if route.depth else None
+    pieces = []
+    for kind, j, at, rows in route.take[ex.index]:
+        if kind == "own":
+            pieces.append(x.narrow(dim, at, rows))
+        elif kind == "zero":
+            shape = list(x.shape)
+            shape[dim] = rows
+            pieces.append(x.new_zeros(shape))
+        else:
+            pieces.append(parts[j][0 if kind == "top" else 1].narrow(dim, at, rows))
+    if not pieces:
+        pieces = [x.narrow(dim, 0, 0)]
+    return _cat_rows(pieces, dim, _format(x))
+
+
+def _give_rows(g, ex, dim, route: _Route, have: Block, want: Block, fmt):
+    """The backward of :func:`_take_rows`: this rank's block's gradient, its
+    own rows' from ``g`` plus the gradients of the rows that the other
+    windows took (their senders place each at its distance from their
+    block: the rows above the block to end at its start, those below to
+    start at its end)."""
+    depth = route.depth
+    (a, b), (c, d) = have, want
+    shape = list(g.shape)
+    shape[dim] = b - a
+    dx = torch.zeros(shape, dtype=g.dtype, device=g.device).contiguous(memory_format=fmt)
+    lo, hi = max(a, c), min(b, d)
+    if hi > lo:
+        dx.narrow(dim, lo - a, hi - lo).add_(g.narrow(dim, lo - c, hi - lo))
+    if not depth:
+        return dx
+    shape[dim] = depth
+    back = g.new_zeros((2, *shape))
+    # (Rows further out are zeros past the image: their gradients go nowhere.)
+    lo, hi = max(c, a - depth), min(a, d)
+    if hi > lo:
+        back[0].narrow(dim, lo - (a - depth), hi - lo).copy_(g.narrow(dim, lo - c, hi - lo))
+    lo, hi = max(b, c), min(d, b + depth)
+    if hi > lo:
+        back[1].narrow(dim, lo - b, hi - lo).copy_(g.narrow(dim, lo - c, hi - lo))
+    parts = _exchange(ex, back)
+    for j, side, pos, row in route.give[ex.index]:
+        dx.narrow(dim, row, 1).add_(parts[j][side].narrow(dim, pos, 1))
+    return dx
+
+
+class _Move(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, ex, dim, have, want):
+        ctx.ex, ctx.dim, ctx.have, ctx.want = ex, dim, have, want
+        ctx.fmt = _format(x)
+        return _take_rows(x, ex, dim, _route(have, want))
 
     @staticmethod
     def backward(ctx, g):
-        dim, h = ctx.dim, g.shape[ctx.dim] - 2
-        # The halo rows' gradients go back to the ranks the rows came from:
-        # the previous rank's lower halo is this rank's first row, the next
-        # rank's upper halo its last.
-        from_prev, from_next = ctx.ex.neighbours(g.narrow(dim, 0, 1),
-                                                 g.narrow(dim, h + 1, 1))
-        dx = _cat_rows([g.narrow(dim, 1, h)], dim, _format(g))
-        dx.narrow(dim, 0, 1).add_(from_prev)
-        dx.narrow(dim, h - 1, 1).add_(from_next)
-        return dx, None, None
+        i = ctx.ex.index
+        return (_give_rows(g, ctx.ex, ctx.dim, _route(ctx.have, ctx.want), ctx.have[i],
+                           ctx.want[i], ctx.fmt), None, None, None, None)
 
 
-def halo_rows(x: torch.Tensor, ex: Exchanger, dim: int = 2) -> torch.Tensor:
+def move_rows(x: torch.Tensor, have: Sequence[Block], want: Sequence[Block], ex: Exchanger,
+              dim: int = 2) -> torch.Tensor:
+    """Turn this rank's rows ``have[ex.index]`` of a level's image (axis
+    ``dim`` of ``x``) into its window ``want[ex.index]`` of them: global
+    ``[start, stop)`` rows, every rank's given, so each rank knows where
+    each row lies. The blocks of ``have`` are the level's rows in rank
+    order; a window may reach a few rows past its block (the same number
+    on every rank is exchanged: one ``all_gather`` of each rank's first and
+    last rows, none when no window reaches past its block) and rows that no
+    block holds (past the image) are zeros. A new tensor in ``x``'s memory
+    format, or ``x`` itself when every window is its block. The backward
+    adds each row's gradients, from every window that took it, on the rank
+    that holds the row."""
+    have = tuple((int(a), int(b)) for a, b in have)
+    want = tuple((int(c), int(d)) for c, d in want)
+    a, b = have[ex.index]
+    if x.shape[dim] != b - a:
+        raise ValueError(f"rank {ex.index} holds {x.shape[dim]} rows, its block {(a, b)} "
+                         f"{b - a}")
+    if have == want:
+        return x
+    return _Move.apply(x, ex, dim, have, want)
+
+
+def _equal_blocks(rows: int, n: int) -> Tuple[Block, ...]:
+    return tuple((r * rows, (r + 1) * rows) for r in range(n))
+
+
+def halo_rows(x: torch.Tensor, ex: Exchanger, dim: int = 2,
+              blocks: Optional[Sequence[Block]] = None) -> torch.Tensor:
     """``x`` (this rank's rows on ``dim``) with one row above and one below
-    from the neighbouring ranks, zeros at the image's first and last rows:
-    what a 3x3 conv's padding needs. A new tensor in ``x``'s memory format.
-    The backward adds the halo rows' gradients to the neighbours' edge rows."""
-    return _Halo.apply(x, ex, dim)
+    from the ranks that hold them (``blocks``: every rank's rows, equal
+    blocks of ``x``'s size by default), zeros at the image's first and last
+    rows: what a 3x3 conv's padding needs. A new tensor in ``x``'s memory
+    format. The backward adds the halo rows' gradients to the rows they
+    came from."""
+    if blocks is None:
+        blocks = _equal_blocks(x.shape[dim], ex.size)
+    return move_rows(x, blocks, tuple((a - 1, b + 1) for a, b in blocks), ex, dim)
 
 
 class _Split(torch.autograd.Function):
@@ -265,10 +464,10 @@ class _Split(torch.autograd.Function):
 
 
 def split_rows(x: torch.Tensor, ex: Optional[Exchanger], dim: int = 1) -> torch.Tensor:
-    """This rank's block of ``x``'s rows on ``dim`` (a new tensor); ``x``
-    without an exchanger. The backward gives the replicated input the
-    gradient of the rank's rows only: the mean over the ranks is the whole
-    gradient."""
+    """This rank's block of ``x``'s rows on ``dim`` (a new tensor; level 0's
+    blocks are equal); ``x`` without an exchanger. The backward gives the
+    replicated input the gradient of the rank's rows only: the mean over
+    the ranks is the whole gradient."""
     if ex is None:
         return x
     if x.shape[dim] % ex.size:
@@ -290,8 +489,9 @@ class _Gather(torch.autograd.Function):
 
 
 def gather_rows(x: torch.Tensor, ex: Optional[Exchanger], dim: int = 1) -> torch.Tensor:
-    """The whole image's rows on ``dim`` from every rank's block, on every
-    rank (:func:`split_rows`' inverse); ``x`` without an exchanger."""
+    """The whole image's rows on ``dim`` from every rank's block of level
+    0, on every rank (:func:`split_rows`' inverse); ``x`` without an
+    exchanger."""
     if ex is None:
         return x
     return _Gather.apply(x, ex, dim)
@@ -319,49 +519,133 @@ def space_sum(x: torch.Tensor, ex: Optional[Exchanger]) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# The align-corners row resize on a rank's rows
+# The models' row operations at a level of the scope's plan
 # ---------------------------------------------------------------------------
+
+def _scoped(level: int) -> Optional[Tuple[Exchanger, RowPlan]]:
+    ex = current()
+    if ex is None:
+        return None
+    plan = current_plan()
+    if not 0 <= level < len(plan.levels):
+        raise ValueError(f"level {level} is not one of the plan's {len(plan.levels)}")
+    return ex, plan
+
+
+def empty_safe(fn: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor, min_rows: int,
+               dim: int = 2) -> torch.Tensor:
+    """``fn(x)`` where ``x`` may be too short for ``fn``: a block with no
+    rows (the halo'd two rows of one, for a 3x3 conv), which PyTorch's
+    convs and pools refuse and which gives no output rows. Such an ``x``
+    goes through ``fn`` with zero rows added up to ``min_rows`` and
+    ``fn``'s output is cut to none, so that the backward still runs through
+    ``fn`` and reaches the exchanges before it, as on the other ranks."""
+    if x.shape[dim] >= min_rows:
+        return fn(x)
+    shape = list(x.shape)
+    shape[dim] = min_rows - x.shape[dim]
+    return fn(torch.cat([x, x.new_zeros(shape)], dim)).narrow(dim, 0, 0)
+
+
+def halo(x: torch.Tensor, level: int, dim: int = 2) -> torch.Tensor:
+    """:func:`halo_rows` of this rank's rows of ``level`` under the scope."""
+    ex, plan = _scoped(level)
+    return halo_rows(x, ex, dim, plan.levels[level])
+
+
+def pool_rows(x: torch.Tensor, level: int, dim: int = 2) -> torch.Tensor:
+    """This rank's rows of ``level - 1`` turned into the pairs of rows that
+    a 2x2 max-pool turns into its rows of ``level``: global rows ``[2s,
+    2e)`` for its block ``[s, e)``. ``x`` itself outside a scope."""
+    scoped = _scoped(level)
+    if scoped is None:
+        return x
+    ex, plan = scoped
+    return move_rows(x, plan.levels[level - 1], tuple((2 * a, 2 * b) for a, b in
+                                                    plan.levels[level]), ex, dim)
+
+
+def stride2_rows(x: torch.Tensor, level: int, dim: int = 2) -> torch.Tensor:
+    """This rank's rows of ``level`` turned into the rows whose even ones a
+    stride-2 1x1 conv samples for the rank: global rows ``[2 ceil(s / 2), 2
+    ceil(e / 2))`` for its block ``[s, e)``. A zero row follows an odd
+    image's last row; the ``ceil(H / 2)`` outputs split as the stride's
+    sampling does, so their last one lies on the rank that holds the
+    image's last row. ``x`` itself outside a scope."""
+    scoped = _scoped(level)
+    if scoped is None:
+        return x
+    ex, plan = scoped
+    blocks = plan.levels[level]
+    return move_rows(x, blocks, tuple((2 * -(-a // 2), 2 * -(-b // 2)) for a, b in blocks),
+                     ex, dim)
+
+
+def pad_rows(x: torch.Tensor, level: int, dim: int = 2) -> torch.Tensor:
+    """This rank's rows of a level-up of ``level + 1`` (the transposed
+    conv's: global rows ``[2s, 2e)`` of ``2 H_{level+1}``) turned into its
+    rows of ``level``, the image zero-padded to ``level``'s height as
+    ``Up`` pads it: ``dh // 2`` rows above and the rest below (the row
+    lands on the rank that holds the level's last row). ``x`` itself
+    outside a scope."""
+    scoped = _scoped(level)
+    if scoped is None:
+        return x
+    ex, plan = scoped
+    top = (plan.totals[level] - 2 * plan.totals[level + 1]) // 2
+    return move_rows(x, tuple((2 * a, 2 * b) for a, b in plan.levels[level + 1]),
+                     tuple((a - top, b - top) for a, b in plan.levels[level]), ex, dim)
+
 
 _MATRICES: Dict[Tuple, torch.Tensor] = {}
 
 
-def _row_matrix(in_total: int, out_total: int, index: int, in_rows: int, out_rows: int,
-                dtype: torch.dtype, device: torch.device) -> torch.Tensor:
-    """Rows ``[index out_rows, (index + 1) out_rows)`` of the global
-    ``(out_total, in_total)`` align-corners matrix, restricted to the columns
-    of the rank's ``in_rows`` rows plus one halo row on each side (zero
-    columns past the image's edges): float64 -> float32 -> ``dtype``, as
-    ``ops/resize.py::interp_matrix``. Kept per (global in, global out, rank
-    rows, dtype, device)."""
-    key = (in_total, out_total, index * out_rows, out_rows, dtype, torch.device(device))
-    m = _MATRICES.get(key)
+def _resize_window(whole: np.ndarray, out: Block, start: int) -> Block:
+    """The input rows ``[lo, hi)`` that output rows ``out`` (of ``whole``,
+    rows past it are zeros) read; an empty window at ``start`` if none."""
+    rows = whole[max(out[0], 0):min(out[1], whole.shape[0])]
+    cols = np.flatnonzero(np.any(rows != 0, axis=0))
+    return (int(cols[0]), int(cols[-1]) + 1) if cols.size else (start, start)
+
+
+def _resize(x: torch.Tensor, level: int, out_total: int, dim: int) -> torch.Tensor:
+    """This rank's rows of ``level + 1`` resized (align corners) from the
+    image's ``H_{level+1}`` rows to ``out_total``, zero-padded to
+    ``level``'s height as :func:`pad_rows` pads: its rows of ``level``. One
+    :func:`move_rows` brings the input rows the rank's output rows read
+    (one or two past its block), then the rank's rows of the global matrix
+    multiply them: float64 -> float32 -> ``x.dtype``, as
+    ``ops/resize.py::interp_matrix``."""
+    from tpu_unet_torch.ops.resize import _interp_matrix, kept_constant
+
+    ex, plan = _scoped(level)
+    in_blocks, in_total = plan.levels[level + 1], plan.totals[level + 1]
+    top = (plan.totals[level] - out_total) // 2
+    outs = tuple((c - top, d - top) for c, d in plan.levels[level])
+    key = (in_total, out_total, plan.levels[level + 1], outs)
+    whole = _interp_matrix(in_total, out_total)
+    windows = tuple(_resize_window(whole, o, a) for o, (a, _) in zip(outs, in_blocks))
+    (lo, hi), (c, d) = windows[ex.index], outs[ex.index]
+    mkey = key + (ex.index, x.dtype, torch.device(x.device))
+    m = _MATRICES.get(mkey)
     if m is None:
-        from tpu_unet_torch.ops.resize import _interp_matrix, kept_constant
-
-        whole = _interp_matrix(in_total, out_total)[index * out_rows:(index + 1) * out_rows]
-        lo = index * in_rows - 1
-        window = np.zeros((out_rows, in_rows + 2), np.float64)
-        cols = np.arange(max(lo, 0), min(lo + in_rows + 2, in_total))
-        window[:, cols - lo] = whole[:, cols]
-        if np.count_nonzero(whole) != np.count_nonzero(window):
-            raise ValueError(f"a resize of {in_total} to {out_total} rows reaches past one "
-                             f"halo row of a rank's {in_rows}")
-        m = _MATRICES[key] = kept_constant(window, dtype, device)
-    return m
+        part = np.zeros((d - c, hi - lo), np.float64)
+        for o in range(max(c, 0), min(d, out_total)):
+            part[o - c] = whole[o, lo:hi]
+        m = _MATRICES[mkey] = kept_constant(part, x.dtype, x.device)
+    xw = move_rows(x, in_blocks, windows, ex, dim)
+    return torch.movedim(torch.movedim(xw, dim, -1) @ m.t(), -1, dim)
 
 
-def resize_rows(x: torch.Tensor, out_rows: int, dim: int, ex: Exchanger) -> torch.Tensor:
-    """Resize ``x``'s rows on ``dim`` (this rank's block of the image's
-    ``n * x.shape[dim]``) to this rank's ``out_rows`` of the image's ``n *
-    out_rows``, align-corners bilinear: the rank's rows of the global
-    matrix by the rank's rows with one halo row on each side. An output
-    row's source coordinate ``o (H_in - 1) / (H_out - 1)`` lies within half
-    a row of ``o H_in / H_out`` for the models' 2x resizes, so one halo row
-    is enough (checked when the matrix is built)."""
-    in_rows = x.shape[dim]
-    if in_rows == out_rows:
-        return x
-    m = _row_matrix(in_rows * ex.size, out_rows * ex.size, ex.index, in_rows, out_rows,
-                    x.dtype, x.device)
-    xh = halo_rows(x, ex, dim)
-    return torch.movedim(torch.movedim(xh, dim, -1) @ m.t(), -1, dim)
+def resize_rows(x: torch.Tensor, level: int, dim: int) -> torch.Tensor:
+    """This rank's rows of ``level + 1`` resized align-corners to its rows
+    of ``level`` (the whole image's ``H_{level+1}`` rows to ``H_level``:
+    the attention gate's resize of psi)."""
+    return _resize(x, level, current_plan().totals[level], dim)
+
+
+def upsample_rows(x: torch.Tensor, level: int, dim: int) -> torch.Tensor:
+    """This rank's rows of ``level + 1`` upsampled 2x (align corners) and
+    zero-padded to ``level``'s height (the bilinear ``Up``'s upsample and
+    pad): its rows of ``level``."""
+    return _resize(x, level, 2 * current_plan().totals[level + 1], dim)

@@ -261,7 +261,8 @@ def _row_sharded(fns: list, devices: list):
         def work(i):
             dev, stream = devices[i], streams[i]
             try:
-                with torch.inference_mode(), spatial.scope(ring.exchanger(i)), \
+                with torch.inference_mode(), \
+                        spatial.scope(ring.exchanger(i), images_u8.shape[1]), \
                         (torch.cuda.device(dev) if stream is not None
                          else contextlib.nullcontext()), \
                         (torch.cuda.stream(stream) if stream is not None
@@ -705,8 +706,8 @@ class SegmentationPredictor(_Engine):
         (or ``devices``) holds one replica per device and splits each batch
         over them, tiled or not (module docstring). ``n_space`` splits each
         replica's rows over that many devices (module docstring; the JAX
-        package's refusals: not with ``tile_hw``, and the height must split,
-        here at every level: ``parallel/spatial.py::check_rows``).
+        package's refusals: not with ``tile_hw``, and ``n_space`` must
+        divide the height: ``parallel/spatial.py::check_rows``).
         """
         if quantize not in (None, "none", "int8"):
             raise ValueError(f"unsupported quantize mode {quantize!r}")

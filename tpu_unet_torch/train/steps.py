@@ -49,8 +49,9 @@ takes the same images and draws, runs the augment on its block's whole
 images (rotation moves rows between ranks and the contrast jitter takes
 each image's mean), then keeps its block of the rows of the images and
 labels; under ``grad_accum`` the batch splits over N first, then over H.
-The model runs under ``spatial.scope(space)`` (halo rows for the 3x3 convs,
-the row resizes on global coordinates), Dice adds its sums over the space
+The model runs under ``spatial.scope(space, H)`` (halo rows for the 3x3
+convs and the row moves of the pools, level-ups and gates on every level's
+blocks of the image's rows, however uneven), Dice adds its sums over the space
 ranks, and the gradient mean, BatchNorm, the denominators and the confusion
 matrix reduce over the batch group. The eval steps take the data rank's
 whole images too, run K1 and the model on the rank's rows and return the
@@ -489,9 +490,8 @@ class SegTrainStep:
         images_u8, labels = _as_tensor(images_u8, device), _as_tensor(labels, device)
         g = self.grad_accum
         self._check_batch(len(images_u8))
-        space = self.space
-        if space is not None:
-            spatial.check_rows(images_u8.shape[1], space.size)
+        space, height = self.space, images_u8.shape[1]
+        spatial.check_rows(height, space.size if space is not None else 1)
         draws = [draws] if isinstance(draws, AugmentDraws) else list(draws)
         if dropout is None:
             dropout = [None] * g
@@ -517,7 +517,7 @@ class SegTrainStep:
             if keep is not None:
                 keep = keep.to(device)
                 keep = keep if self.group is None else _rows(keep, self.group, rows, space)
-            with spatial.scope(space):
+            with spatial.scope(space, height):
                 logits = _remat_call(self.remat,
                                      lambda x, k=keep: _seg_logits(model, x, k), img)
                 ld, logits = _seg_train_losses(logits, lbl, self.loss_cfg, self.group,
@@ -587,7 +587,8 @@ def make_seg_eval_step(num_classes: int, loss_cfg: SegLossConfig = SegLossConfig
         was_training = model.training
         model.eval()
         try:
-            with torch.no_grad(), spatial.scope(space):
+            height = images_u8.shape[1]
+            with torch.no_grad(), spatial.scope(space, height):
                 img, lbl = space_rows(_as_tensor(images_u8, device),
                                       _as_tensor(labels, device), space)
                 img = eval_transform(img)
