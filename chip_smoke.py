@@ -213,6 +213,16 @@
    halo_probe`` instead runs gloo's ``batch_isend_irecv`` and
    ``all_gather`` of edge rows on CUDA tensors, each dtype in a child
    process.
+16. The port's benchmark entry point ([bench] lines):
+   ``tpu_unet_torch.bench.main`` in-process at its full-width defaults
+   (the JAX bench.py's sizes and batches, every BASELINE config) with short
+   windows (BENCH_ARGS: 5 steps after 2 warm-up, one trial, a 128-image
+   e2e tree and its pack under TMPDIR). Its line is printed and checked:
+   the JAX line's keys plus ``device``, the six configs, finite positive
+   throughputs, mfu and hfu in (0, 1], K1 once per eval, serving batch and
+   calibration chunk and K2 18 times per int8 batch (the bench's per-leg
+   counts; none outside its legs), and its flagship img/s within
+   BENCH_VALUE_RTOL of phase 6's.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit
 (nvidia-smi), and as the last line ``{"ok": true, "device": {...}}``; the
@@ -232,6 +242,11 @@ import subprocess
 import sys
 import tempfile
 import time
+
+from tpu_unet_torch.utils.flops import (PEAK_F32_FLOPS, PEAK_FLOPS_BF16, PEAK_HBM_BPS,
+                                        PEAK_INT8_OPS, attn_forward_flops, forward_flops,
+                                        seg_forward_flops, unetpp_convs,
+                                        unetpp_forward_flops)
 
 # (H = W, Cin, Cout) of the 18 3x3 convs of the int8 score path (AnomalyUNet,
 # base 64, 256 x 256), in order: encoder inc, down1..down4, decoder up1..up4.
@@ -290,26 +305,8 @@ def space_convs(h, w, n_space, rank):
             for a, b in [plan.levels[lv][rank]] if b > a]
 
 
-def unetpp_convs(base, h, w, max_j=4):
-    """(H, W, Cin, Cout) of UNet++'s 3x3 convs (two per node X[i][j], in the
-    int8 plan's order: the encoder column, then column by column) for the
-    head X[0][max_j]: 30 at max_j 4, 6 at max_j 1."""
-    nodes = ([(i, 0) for i in range(max_j + 1)]
-             + [(i, j) for j in range(1, max_j + 1) for i in range(max_j - j + 1)])
-    convs = []
-    for i, j in nodes:
-        c = base * 2 ** i
-        cin = (3 if i == 0 else c // 2) if j == 0 else (j + 1) * c
-        convs += [(h >> i, w >> i, cin, c), (h >> i, w >> i, c, c)]
-    return convs
-
-
 # UNet++ base 64 on Gear (512 x 512) at the seg eval batch: the 30 convs.
 UNETPP_CONVS = unetpp_convs(64, 512, 512)
-PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3
-PEAK_INT8_OPS = 1979e12      # H100 SXM dense int8 tensor-core rate
-PEAK_F32_FLOPS = 67e12       # H100 SXM float32 outside the tensor cores
-PEAK_BF16_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core rate
 # The train step on the CPU against the card (f32, TF32 off): largest
 # |difference| over a leaf's largest |value|, parameters and BN statistics;
 # about 5x what an H100 run measured (7.8e-6 and 4.8e-7: cuDNN's backward
@@ -371,7 +368,7 @@ def kernel_records_ms(torch, calls, key, reps):
 
 
 def bound_ms(n_bytes, n_ops, peak_ops):
-    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, n_ops / peak_ops
+    t_bytes, t_ops = n_bytes / PEAK_HBM_BPS, n_ops / peak_ops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -889,33 +886,6 @@ def phase_main_path(torch, np, report):
     return launches
 
 
-def _unet_flops(base, h, w, n_channels, heads):
-    """Model FLOPs of one ladder-UNet forward on one h x w image (2 per
-    multiply-add) over its convolutions, transposed convolutions and heads:
-    the shared encoder, then one decoder per entry of ``heads`` (its head's
-    output channels)."""
-    def conv(cin, cout, hh, ww, k=3):
-        return 2 * cin * cout * k * k * hh * ww
-    chans = [base * 2 ** i for i in range(5)]
-    total = conv(n_channels, base, h, w) + conv(base, base, h, w)
-    for i in range(1, 5):
-        total += (conv(chans[i - 1], chans[i], h >> i, w >> i)
-                  + conv(chans[i], chans[i], h >> i, w >> i))
-    for head in heads:
-        for i in range(4):
-            cin, cout, hh, ww = chans[4 - i], chans[3 - i], h >> (3 - i), w >> (3 - i)
-            total += (2 * cin * (cin // 2) * hh * ww + conv(cin, cout, hh, ww)
-                      + conv(cout, cout, hh, ww))
-        total += 2 * base * head * h * w
-    return total
-
-
-def forward_flops(base, size, n_channels=3):
-    """Model FLOPs of one AnomalyUNet forward (the reconstruction and
-    segmentation decoders) on one size x size image."""
-    return _unet_flops(base, size, size, n_channels, (n_channels, 1))
-
-
 def synth_masks(torch, n, size, seed, device, blobs=3):
     """Seeded uint8 (n, size, size, 1) masks, each with a few round defects."""
     g = torch.Generator(device=device).manual_seed(seed)
@@ -994,7 +964,7 @@ def phase_train(torch, np, report):
           f"the loss on the fixed batch did not fall over 24 steps: {probe}")
     img_s = b * 1e3 / step_ms
     flops = 3 * forward_flops(base, size) * b
-    mfu = flops / (step_ms * 1e-3) / PEAK_BF16_FLOPS
+    mfu = flops / (step_ms * 1e-3) / PEAK_FLOPS_BF16
     print(f"[train] AnomalyUNet base {base}, bf16, {size}², b{b}, Adam, per_batch_shear: "
           f"{step_ms:.3f} ms per step (median step {median_ms:.3f} ms), {img_s:.1f} img/s "
           f"(20 steps after 3 warm-up); "
@@ -1612,11 +1582,6 @@ def write_gear(np, root):
     return _save_all(jobs)
 
 
-def seg_forward_flops(base, h, w, n_classes, n_channels=3):
-    """Model FLOPs of one SegmentationUNet forward on one h x w image."""
-    return _unet_flops(base, h, w, n_channels, (n_classes,))
-
-
 class _SegSpans(_Spans):
     """``train_seg``'s ``span`` hook: :class:`_Spans`, plus each train pass's
     peak memory and, for one epoch, a torch.profiler window (device busy
@@ -1745,7 +1710,7 @@ def _seg_dataset(torch, np, report_out, legs, name, train_mod, test_mod, data_ro
         rows.append({"epoch": e, "train_s": tr["seconds"], "ms_per_step": step_ms,
                      "train_img_per_s": n_steps * SEG_BATCH / tr["seconds"],
                      "peak_mem_gb": tr["peak_mem_gb"],
-                     "model_flop_share_bf16_peak": flops / (step_ms * 1e-3) / PEAK_BF16_FLOPS,
+                     "model_flop_share_bf16_peak": flops / (step_ms * 1e-3) / PEAK_FLOPS_BF16,
                      "decode": "cold" if e == 0 else "cached", "profiled": e == spans.profile_epoch,
                      "val_s": va["seconds"], "val_batches": n_val, **hrow})
         r = rows[-1]
@@ -2037,31 +2002,6 @@ def phase_seg(torch, np, report, tmp, keep=None):
 EXT_MAX_DISAGREE = {"gear_unetpp": {"bf16": 5e-5, "int8": 2.5e-4},
                     "gear_unetpp_heads1": {"bf16": 5e-3, "int8": 1e-2},
                     "kolektorsdd_attn": {"bf16": 2e-6, "int8": 2e-5}}
-
-
-def unetpp_forward_flops(base, h, w, n_classes, n_channels=3):
-    """Model FLOPs of one UNet++ forward with deep supervision (every node,
-    the four heads) on one h x w image: the 3x3 convs, the k2s2 level-ups
-    and the heads."""
-    convs = unetpp_convs(base, h, w)
-    total = sum(2 * 9 * hh * ww * cin * cout for hh, ww, cin, cout in convs)
-    total += 2 * 9 * h * w * (n_channels - 3) * base  # the first conv's other inputs
-    for j in range(1, 5):
-        for i in range(5 - j):
-            c = base * 2 ** i
-            total += 2 * (2 * c) * c * (h >> i) * (w >> i)
-    return total + 4 * 2 * base * n_classes * h * w
-
-
-def attn_forward_flops(base, h, w, n_classes, n_channels=3):
-    """Model FLOPs of one attention UNet forward: SegmentationUNet's and the
-    four gates' 1x1 projections at the coarse resolution."""
-    total = seg_forward_flops(base, h, w, n_classes, n_channels)
-    for level in range(1, 5):  # up4..up1 gate at levels 1..4 (coarse = level)
-        cg, cx = base * 2 ** level, base * 2 ** (level - 1)
-        f_int = max(1, cx // 2)
-        total += 2 * (cg + cx + 1) * f_int * (h >> level) * (w >> level)
-    return total
 
 
 def _ext_bilinear_serving(torch, np, out, legs):
@@ -4704,6 +4644,70 @@ def phase_space(torch, np, report, tmp):
     return legs
 
 
+# Phase 16: the port's benchmark (tpu_unet_torch/bench.py) at its full-width
+# defaults with short windows. Its line must carry ``bench.LINE_KEYS`` (the
+# JAX benchmark's keys and the card) and ``bench.BASELINE_CONFIGS``.
+BENCH_ARGS = ["--steps", "5", "--warmup", "2", "--trials", "1", "--e2e_images", "128"]
+# The bench's flagship img/s against phase 6's (CUDA events over 20 steps).
+BENCH_VALUE_RTOL = 0.2
+
+
+def phase_bench(torch, np, report, tmp):
+    """Phase 16: ``tpu_unet_torch.bench.main`` in-process (BENCH_ARGS; its
+    e2e tree and pack under ``tmp``), the counters zeroed just before and
+    read just after. Checks the line's keys and configs, finite positive
+    throughputs, every mfu and hfu in (0, 1], K1 once per eval and serving
+    batch (and calibration chunk) and K2 18 times per int8 batch by the
+    bench's per-leg counts, no launch outside its legs, and its flagship
+    within BENCH_VALUE_RTOL of phase 6's. Returns the launch counts."""
+    import io
+
+    from tpu_unet_torch import bench
+
+    stdout = io.StringIO()
+    _zero_launches()
+    with contextlib.redirect_stdout(stdout):
+        line, legs = bench.main(BENCH_ARGS + ["--cache_dir", os.path.join(tmp, "bench")])
+    launches = _launches()
+    print("[bench] " + json.dumps(line), flush=True)
+    print("[bench] kernel launches per leg: " + json.dumps(legs), flush=True)
+    check(stdout.getvalue() == json.dumps(line) + "\n",
+          f"the bench's stdout is not its one line: {stdout.getvalue()[:500]!r}")
+    check(sorted(line) == sorted(bench.LINE_KEYS),
+          f"the bench's keys {sorted(line)} (want {sorted(bench.LINE_KEYS)})")
+    check(line["device"]["name"] == torch.cuda.get_device_name(0), f"device {line['device']}")
+    configs = line["baseline_configs"]
+    check(sorted(configs) == sorted(bench.BASELINE_CONFIGS),
+          f"baseline_configs {sorted(configs)}")
+    timed = {n: c for n, c in configs.items() if isinstance(c, dict)}
+    rates = {k: v for k, v in line.items() if k.endswith("images_per_sec_per_chip")}
+    rates.update({f"baseline_configs.{n}": c["images_per_sec_per_chip"] for n, c in timed.items()})
+    for k, v in rates.items():
+        check(np.isfinite(v) and v > 0, f"bench {k} = {v}")
+    shares = {"mfu": line["mfu"], "hfu": line["hfu"]}
+    shares.update({f"{n}.{k}": c[k] for n, c in timed.items() for k in ("mfu", "hfu")})
+    for k, v in shares.items():
+        check(v is not None and 0 < v <= 1, f"bench {k} = {v} (want (0, 1])")
+    for leg, rec in legs.items():
+        batches = rec.get("batches", 0)
+        want = {"normalize_u8": batches,
+                "conv3x3_int8": len(SCORE_PATH_CONVS) * batches if leg == "serve_int8_b128" else 0}
+        check({k: rec[k] for k in want} == want, f"bench leg {leg} launched {rec} (want {want})")
+    total = {k: sum(r[k] for r in legs.values()) for k in ("normalize_u8", "conv3x3_int8")}
+    check(launches == total, f"the bench launched {launches}, its legs {total}")
+    ref = report["train"]["img_per_s"]
+    check(abs(line["value"] / ref - 1) <= BENCH_VALUE_RTOL,
+          f"the bench's flagship {line['value']} img/s against phase 6's {ref:.2f}")
+    print(f"[bench] flagship {line['value']} img/s (phase 6: {ref:.2f}), mfu {line['mfu']:.4f}, "
+          f"hfu {line['hfu']:.4f}; e2e {line['train_e2e_images_per_sec_per_chip']} img/s; "
+          f"serving bf16 {line['serve_score_only_b128_images_per_sec_per_chip']}, int8 "
+          f"{line['serve_int8_b128_images_per_sec_per_chip']} img/s; K1 {launches['normalize_u8']}x, "
+          f"K2 {launches['conv3x3_int8']}x", flush=True)
+    report["main_path"]["bench"] = {"args": BENCH_ARGS, "line": line, "kernel_launches": legs,
+                                    "phase6_img_per_s": ref}
+    return {"bench": launches}
+
+
 def _halo_probe_rank(op, dtype_name):
     """One exchange of edge rows (``op`` 'p2p': ``batch_isend_irecv``;
     'all_gather') between two gloo ranks sharing cuda:0 in ``dtype_name``:
@@ -4868,6 +4872,7 @@ def main():
         path_launches.update(timed("14 tp, artifacts", phase_tp, torch, np, report, tmp, keep,
                                    dp_ref))
         path_launches.update(timed("15 space", phase_space, torch, np, report, tmp))
+        path_launches.update(timed("16 bench", phase_bench, torch, np, report, tmp))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
