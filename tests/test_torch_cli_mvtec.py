@@ -33,6 +33,7 @@ from tpu_unet_torch.data.mvtec import MVTecDataset
 from tpu_unet_torch.models import build_model
 from tpu_unet_torch.train.state import create_train_state
 from tpu_unet_torch.train.steps import make_anomaly_eval_step
+from tpu_unet_torch.utils import spans
 from tpu_unet_torch.utils.weights import jax_trees_from_state_dict
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -351,8 +352,25 @@ def test_debug_subset_and_grad_accum(mvtec_root, tmp_path):
     assert len(subset) == 4 and len(set(subset.indices)) == 4
 
 
+def test_the_default_span_hook_records_each_epoch_pass(mvtec_root, tmp_path):
+    """Without a ``span`` hook, each epoch's passes are the recorder's
+    ``cli.train`` and ``cli.validate`` spans, the train steps inside."""
+    spans.clear()
+    try:
+        with spans.recording():
+            _train(mvtec_root, tmp_path, "--debug", "--debug_samples", "4", "--epochs", "1")
+        got = spans.recorded()
+    finally:
+        spans.clear()
+    roots = {s.name: s for s in got if s.parent is None}
+    assert set(roots) == {"cli.train", "cli.validate"}
+    steps = [s for s in got if s.name == "train.step"]
+    assert len(steps) == 1 and steps[0].parent == roots["cli.train"].id
+
+
 def test_profile_dir_and_debug_nans(mvtec_root, tmp_path):
-    """--profile_dir writes a torch.profiler trace of the only epoch;
+    """--profile_dir writes a torch.profiler trace of the only epoch and the
+    spans recorded under it (its train steps inside ``cli.train``);
     --debug_nans turns on autograd's anomaly mode."""
     try:
         _train(mvtec_root, tmp_path / "out", "--epochs", "1", "--profile_dir",
@@ -362,3 +380,9 @@ def test_profile_dir_and_debug_nans(mvtec_root, tmp_path):
         torch.autograd.set_detect_anomaly(False)
     with open(tmp_path / "prof" / "trace.json") as f:
         assert json.load(f)["traceEvents"]
+    with open(tmp_path / "prof" / "spans.json") as f:
+        got = json.load(f)["spans"]
+    epoch = [s for s in got if s["name"] == "cli.train"][-1]
+    steps = [s for s in got if s["name"] == "train.step" and s["parent"] == epoch["id"]]
+    assert steps and all(epoch["start_ns"] <= s["start_ns"] <= s["end_ns"] <= epoch["end_ns"]
+                         for s in steps)

@@ -32,7 +32,6 @@ rank (tensor parallelism); the trainers take it.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import json
 import logging
@@ -60,6 +59,7 @@ from tpu_unet_torch.train.loop import train_seg_epoch, validate_seg_epoch
 from tpu_unet_torch.train.state import create_train_state, num_params
 from tpu_unet_torch.train.steps import (AugmentConfig, SegLossConfig, make_seg_eval_step,
                                         make_seg_train_step)
+from tpu_unet_torch.utils import spans
 from tpu_unet_torch.utils.io import append_jsonl, create_output_dirs, save_json
 from tpu_unet_torch.utils.logging import setup_logging
 
@@ -198,14 +198,16 @@ def train_seg(args, workload: Workload, train_ds, val_ds, num_classes: int,
     ``results/training_results.json``, and returns that file's dict plus
     ``checkpoint_writes`` (each write's path, bytes and seconds).
     ``span(name, epoch)``, if given, returns a context manager entered
-    around each epoch's ``"train"`` and ``"validate"`` passes.
+    around each epoch's ``"train"`` and ``"validate"`` passes; by default
+    each pass is a ``cli.train`` or ``cli.validate`` span
+    (``utils/spans.py``).
 
     Under a process group every rank calls it with its device; the loaders
     give each data rank its rows, the state is placed on the mesh after any
     resume (``--n_model`` slices its channels, ``--fsdp`` shards it over the
     data ranks) and rank 0 logs and writes.
     """
-    span = span or (lambda name, epoch: contextlib.nullcontext())
+    span = span or (lambda name, epoch: spans.span(f"cli.{name}"))
     main_rank = is_main_process()
     output_dirs = create_output_dirs(experiment_dir)
     logger = _logger(output_dirs, experiment_dir)

@@ -33,7 +33,6 @@ from __future__ import annotations
 
 import argparse
 import builtins
-import contextlib
 import json
 import os
 import time
@@ -58,6 +57,7 @@ from tpu_unet_torch.train.optim import LRScheduler, set_learning_rate
 from tpu_unet_torch.train.state import create_train_state, num_params
 from tpu_unet_torch.train.steps import (AnomalyLossConfig, AugmentConfig,
                                         make_anomaly_eval_step, make_anomaly_train_step)
+from tpu_unet_torch.utils import spans
 from tpu_unet_torch.utils.io import append_jsonl, create_output_dirs, save_json
 from tpu_unet_torch.utils.meters import print_metrics
 from tpu_unet_torch.utils.viz import plot_training_curves
@@ -132,7 +132,8 @@ def parse_args(argv=None):
     parser.add_argument("--base_features", type=int, default=64,
                         help="Width of the first UNet stage (reference: 64)")
     parser.add_argument("--profile_dir", type=str, default=None,
-                        help="Write a torch.profiler trace of epoch 1 into this dir")
+                        help="Write a torch.profiler trace of epoch 1 (trace.json) and its "
+                             "spans (spans.json) into this dir")
     parser.add_argument("--debug_nans", action="store_true",
                         help="torch.autograd.set_detect_anomaly (fail fast on NaN)")
     parser.add_argument("--progress_every", type=int, default=10,
@@ -250,7 +251,8 @@ def train(args, train_ds, val_ds, device: torch.device, experiment_dir: str,
     returns that file's dict (with ``checkpoint_writes``: each write's path,
     bytes and seconds). ``span(name, epoch)``, if given, returns a context
     manager entered around each epoch's ``"train"`` and ``"validate"``
-    passes, e.g. to time them or to read counters.
+    passes, e.g. to time them or to read counters; by default each pass is
+    a ``cli.train`` or ``cli.validate`` span (``utils/spans.py``).
 
     Under a process group (``--n_devices``, ``--n_model``, torchrun) every
     rank calls it with its device: the loaders give each data rank its rows
@@ -259,7 +261,7 @@ def train(args, train_ds, val_ds, device: torch.device, experiment_dir: str,
     ranks) after any resume, and only rank 0 prints and writes; every rank
     returns the results.
     """
-    span = span or (lambda name, epoch: contextlib.nullcontext())
+    span = span or (lambda name, epoch: spans.span(f"cli.{name}"))
     main_rank = is_main_process()
     print = builtins.print if main_rank else (lambda *a, **k: None)  # noqa: A001
     output_dirs = create_output_dirs(experiment_dir)
@@ -436,6 +438,9 @@ def _stop_profiler(prof, profile_dir: str, device: torch.device) -> None:
     path = os.path.join(profile_dir, "trace.json")
     prof.export_chrome_trace(path)
     print(f"Profiler trace saved to {path}")
+    path = os.path.join(profile_dir, "spans.json")
+    spans.write(path)  # the epoch's spans, on the trace's clock (utils/spans.py)
+    print(f"Spans saved to {path}")
 
 
 if __name__ == "__main__":

@@ -34,7 +34,8 @@ i.e. for Cin >= 116). The wrapper :func:`conv3x3_int8` runs the plain version
 for CPU tensors and the kernel for CUDA tensors, through the operator
 ``torch.ops.tpu_unet_torch.conv3x3_int8`` (a ``torch.library`` custom op with a
 fake implementation, so ``torch.export`` records it in a program);
-``conv3x3_int8.launches`` counts kernel launches.
+``conv3x3_int8.launches`` counts kernel launches. Each call of the wrapper
+is one ``kernel.k2`` span (``utils/spans.py``), on either device.
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from tpu_unet_torch.ops.kernels import build
+from tpu_unet_torch.utils.spans import span
 
 _CIN_MULTIPLE = 32  # the kernel's k-step (one wgmma k32)
 _COUT_MULTIPLE = 16  # the kernel's output channels per store
@@ -220,8 +222,9 @@ def conv3x3_int8(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     their scale and bias, and the output sliced back (an extra copy); packed
     weights must come padded (:func:`pad_cout` before :func:`pack_weights`).
     """
-    _check(x, w, scale, bias, out_scale)
-    return _conv3x3_int8_op(x, w, scale, bias, out_scale, relu)
+    with span("kernel.k2"):
+        _check(x, w, scale, bias, out_scale)
+        return _conv3x3_int8_op(x, w, scale, bias, out_scale, relu)
 
 
 conv3x3_int8.launches = 0

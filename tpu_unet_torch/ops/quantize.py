@@ -65,6 +65,7 @@ from tpu_unet_torch.ops.augment import eval_transform
 from tpu_unet_torch.ops.kernels.int8_conv import conv3x3_int8, pack_weights, pad_cout
 from tpu_unet_torch.ops.resize import interp_axis, interp_rows, upsample2x_rows
 from tpu_unet_torch.parallel import spatial
+from tpu_unet_torch.utils.spans import span
 from tpu_unet_torch.utils.weights import (CONV_BN, UP_LEAF, layout_of, qparams_from_numpy,
                                           qparams_to_numpy)
 
@@ -544,43 +545,48 @@ def build_plan(arch: str, *, score_only: bool = False, deep_supervision: bool = 
     return _ladder_plan(arch, score_only)
 
 
+_OP_SPANS = {k: f"int8.{k}" for k in ("input", "double_conv", "maxpool", "up_block", "fuse",
+                                      "head", "average")}
+
+
 def _run(exc, x, plan):
     """Drive one executor (float calibration or int8) through a plan (an
     architecture name or a prebuilt one from build_plan). Each op is told
     its level, the max-pools above it (the rows it runs on under a 'space'
-    scope)."""
+    scope), and runs in an ``int8.<op>`` span (``utils/spans.py``)."""
     if isinstance(plan, str):
         plan = build_plan(plan)
     env: Dict[str, Any] = {}
     level: Dict[str, int] = {}
     for op in plan:
         kind = op[0]
-        if kind == "input":
-            env[op[1]], level[op[1]] = exc.input(x), 0
-        elif kind == "double_conv":
-            level[op[1]] = level[op[2]]
-            env[op[1]] = exc.double_conv(env[op[2]], op[3], level=level[op[1]])
-        elif kind == "maxpool":
-            level[op[1]] = level[op[2]] + 1
-            env[op[1]] = exc.maxpool(env[op[2]], level=level[op[1]])
-        elif kind == "up_block":
-            level[op[1]] = level[op[3]]
-            env[op[1]] = exc.up_block(env[op[2]], env[op[3]], op[4], gated=op[5],
-                                      level=level[op[1]])
-        elif kind == "fuse":
-            level[op[1]] = level[op[3][0]]
-            env[op[1]] = exc.fuse(env[op[2]], [env[r] for r in op[3]], op[4],
-                                  level=level[op[1]])
-        elif kind == "head":
-            env[op[1]] = exc.head(env[op[2]], op[3], op[4])
-        elif kind == "average":  # head outputs are float32 in both executors
-            outs = [env[r] for r in op[2]]
-            env[op[1]] = sum(outs) / len(outs)
-        elif kind == "output":
+        if kind == "output":
             outs = [env[r] for r in op[1]]
             return outs[0] if len(outs) == 1 else tuple(outs)
-        else:
+        if kind not in _OP_SPANS:
             raise ValueError(f"unknown plan op {kind!r}")
+        with span(_OP_SPANS[kind]):
+            if kind == "input":
+                env[op[1]], level[op[1]] = exc.input(x), 0
+            elif kind == "double_conv":
+                level[op[1]] = level[op[2]]
+                env[op[1]] = exc.double_conv(env[op[2]], op[3], level=level[op[1]])
+            elif kind == "maxpool":
+                level[op[1]] = level[op[2]] + 1
+                env[op[1]] = exc.maxpool(env[op[2]], level=level[op[1]])
+            elif kind == "up_block":
+                level[op[1]] = level[op[3]]
+                env[op[1]] = exc.up_block(env[op[2]], env[op[3]], op[4], gated=op[5],
+                                          level=level[op[1]])
+            elif kind == "fuse":
+                level[op[1]] = level[op[3][0]]
+                env[op[1]] = exc.fuse(env[op[2]], [env[r] for r in op[3]], op[4],
+                                      level=level[op[1]])
+            elif kind == "head":
+                env[op[1]] = exc.head(env[op[2]], op[3], op[4])
+            else:  # 'average': head outputs are float32 in both executors
+                outs = [env[r] for r in op[2]]
+                env[op[1]] = sum(outs) / len(outs)
     raise ValueError("plan has no ('output', ...) op")
 
 

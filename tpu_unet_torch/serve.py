@@ -21,6 +21,11 @@ and:
   optional ``bucket_sizes`` ladder;
 - enqueues batches back to back and fetches only the results.
 
+Each call of an ``*_array`` or ``*_paths`` method is one ``serve.request``
+span, over ``serve.put`` (each upload), ``serve.k1``, ``serve.forward``,
+``serve.head`` and ``serve.fetch`` (``utils/spans.py``; recorded only under
+a profiler or ``spans.recording()``).
+
 The anomaly score compares the sigmoid reconstruction with the float32
 normalized image, as the JAX package (and the reference it follows) does.
 An engine keeps the tensors its forward reads and a way to run it on
@@ -73,6 +78,7 @@ from tpu_unet_torch.ops.seg_head import sliced_pred_confidence
 from tpu_unet_torch.ops.tiling import make_tiled_logits_fn
 from tpu_unet_torch.parallel import spatial
 from tpu_unet_torch.parallel.mesh import local_rank_devices
+from tpu_unet_torch.utils.spans import span
 from tpu_unet_torch.utils.weights import load_reference_checkpoint
 
 
@@ -205,7 +211,8 @@ def _lagged_host_fetch(device_fn):
     host: list = []
 
     def _fetch_one():
-        host.append(tuple(x.cpu().numpy() for x in pending.pop()))
+        with span("serve.fetch"):
+            host.append(tuple(x.cpu().numpy() for x in pending.pop()))
 
     def run(imgs):
         out = device_fn(imgs)
@@ -365,7 +372,8 @@ class _Engine:
         self._export_state = export_state
 
     def _put(self, chunk: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(chunk)).to(self.device)
+        with span("serve.put"):
+            return torch.from_numpy(np.ascontiguousarray(chunk)).to(self.device)
 
     def _pad_target(self, n: int) -> int:
         """Smallest serving batch adequate for ``n`` images."""
@@ -511,7 +519,8 @@ class AnomalyScorer(_Engine):
                 export_state = (qexec.state, qexec.bound)
 
                 def forward(img, with_amap):
-                    return _run(qexec, img, plans[with_amap])
+                    with span("serve.forward"):
+                        return _run(qexec, img, plans[with_amap])
             else:
                 model = _float_model("anomaly_unet", state_dict, precision, True, dev,
                                      base_features=base_features, bilinear=bilinear)
@@ -519,18 +528,26 @@ class AnomalyScorer(_Engine):
 
                 def forward(img, with_amap):  # NHWC in and out; NCHW views inside
                     x = img.permute(0, 3, 1, 2)
-                    if not with_amap:
-                        return model.score_forward(x).permute(0, 2, 3, 1)
-                    return tuple(t.permute(0, 2, 3, 1) for t in model(x))
+                    with span("serve.forward"):
+                        if not with_amap:
+                            return model.score_forward(x).permute(0, 2, 3, 1)
+                        return tuple(t.permute(0, 2, 3, 1) for t in model(x))
+
+            def k1(images_u8):
+                with span("serve.k1"):
+                    return eval_transform(images_u8)
 
             def score_fn(images_u8):
-                img = eval_transform(images_u8)
-                return anomaly_score(forward(img, False), img)
+                img = k1(images_u8)
+                recon = forward(img, False)
+                with span("serve.head"):
+                    return anomaly_score(recon, img)
 
             def heatmap_fn(images_u8):
-                img = eval_transform(images_u8)
+                img = k1(images_u8)
                 recon, amap = forward(img, True)
-                return anomaly_score(recon, img), _amap_to_u8(amap)
+                with span("serve.head"):
+                    return anomaly_score(recon, img), _amap_to_u8(amap)
 
             return score_fn, heatmap_fn, export_state
 
@@ -557,8 +574,10 @@ class AnomalyScorer(_Engine):
         n = len(images_u8)
         if n == 0:
             return np.zeros((0,), np.float32)
-        pending = self._batches(images_u8, self._score_fn)
-        return torch.cat(pending).cpu().numpy()[:n]
+        with span("serve.request"):
+            pending = self._batches(images_u8, self._score_fn)
+            with span("serve.fetch"):
+                return torch.cat(pending).cpu().numpy()[:n]
 
     def score_paths(self, paths: Sequence[str], num_workers: int = 4,
                     on_decode_error: str = "raise", return_failed: bool = False):
@@ -569,12 +588,14 @@ class AnomalyScorer(_Engine):
         ``return_failed=True`` returns ``(scores, failed_indices)``.
         """
         hw = (self.image_size, self.image_size)
-        pending, failed = self._paths(paths, hw, num_workers, on_decode_error,
-                                      self._score_fn, lagged=False)
-        if not pending:
-            scores = np.zeros((0,), np.float32)
-            return (scores, []) if return_failed else scores
-        scores = torch.cat(pending).cpu().numpy()[:len(paths)]
+        with span("serve.request"):
+            pending, failed = self._paths(paths, hw, num_workers, on_decode_error,
+                                          self._score_fn, lagged=False)
+            if not pending:
+                scores = np.zeros((0,), np.float32)
+                return (scores, []) if return_failed else scores
+            with span("serve.fetch"):
+                scores = torch.cat(pending).cpu().numpy()[:len(paths)]
         if failed:
             scores = scores.copy()
             scores[np.asarray(failed)] = np.nan
@@ -598,9 +619,11 @@ class AnomalyScorer(_Engine):
         hw = self.image_size
         if n == 0:
             return np.zeros((0,), np.float32), np.zeros((0, hw, hw), np.uint8)
-        pending = self._batches(images_u8, self._heatmap_fn)
-        scores = torch.cat([s for s, _ in pending]).cpu().numpy()[:n]
-        maps = torch.cat([m for _, m in pending]).cpu().numpy()[:n]
+        with span("serve.request"):
+            pending = self._batches(images_u8, self._heatmap_fn)
+            with span("serve.fetch"):
+                scores = torch.cat([s for s, _ in pending]).cpu().numpy()[:n]
+                maps = torch.cat([m for _, m in pending]).cpu().numpy()[:n]
         return scores, maps
 
     def heatmap_paths(self, paths: Sequence[str], num_workers: int = 4,
@@ -610,8 +633,9 @@ class AnomalyScorer(_Engine):
         score NaN, heatmap zero). Outputs come to the host one batch behind."""
         self._require_heatmap()
         hw = self.image_size
-        pending, failed = self._paths(paths, (hw, hw), num_workers, on_decode_error,
-                                      self._heatmap_fn, lagged=True)
+        with span("serve.request"):
+            pending, failed = self._paths(paths, (hw, hw), num_workers, on_decode_error,
+                                          self._heatmap_fn, lagged=True)
         if not pending:
             out = (np.zeros((0,), np.float32), np.zeros((0, hw, hw), np.uint8))
             return out + ([],) if return_failed else out
@@ -755,7 +779,10 @@ class SegmentationPredictor(_Engine):
                 export_state = (qexec.state, qexec.bound)
 
                 def apply_logits(images_u8):
-                    return _run(qexec, eval_transform(images_u8), plan)
+                    with span("serve.k1"):
+                        img = eval_transform(images_u8)
+                    with span("serve.forward"):
+                        return _run(qexec, img, plan)
             else:
                 model = _float_model(model_name, state_dict, precision, fold_bn, dev,
                                      n_classes=num_classes, bilinear=bilinear,
@@ -764,8 +791,10 @@ class SegmentationPredictor(_Engine):
                 export_state = _module_state(model)
 
                 def apply_logits(images_u8):
-                    x = eval_transform(images_u8).permute(0, 3, 1, 2)
-                    return model(x).permute(0, 2, 3, 1)
+                    with span("serve.k1"):
+                        x = eval_transform(images_u8).permute(0, 3, 1, 2)
+                    with span("serve.forward"):
+                        return model(x).permute(0, 2, 3, 1)
 
             if tile_hw is not None:
                 return make_tiled_logits_fn(apply_logits, image_size_hw, tile_hw,
@@ -774,8 +803,10 @@ class SegmentationPredictor(_Engine):
 
         def predict(logits_fn):
             def predict_fn(images_u8):
-                preds, conf = sliced_pred_confidence(logits_fn(images_u8))
-                return preds, conf.mean(dim=(1, 2))
+                logits = logits_fn(images_u8)
+                with span("serve.head"):
+                    preds, conf = sliced_pred_confidence(logits)
+                    return preds, conf.mean(dim=(1, 2))
 
             return predict_fn
 
@@ -806,9 +837,11 @@ class SegmentationPredictor(_Engine):
         h, w = self.image_size_hw
         if n == 0:
             return np.zeros((0, h, w), np.uint8), np.zeros((0,), np.float32)
-        pending = self._batches(images_u8, self._predict_fn)
-        masks = torch.cat([p for p, _ in pending]).cpu().numpy()[:n]
-        confs = torch.cat([c for _, c in pending]).cpu().numpy()[:n]
+        with span("serve.request"):
+            pending = self._batches(images_u8, self._predict_fn)
+            with span("serve.fetch"):
+                masks = torch.cat([p for p, _ in pending]).cpu().numpy()[:n]
+                confs = torch.cat([c for _, c in pending]).cpu().numpy()[:n]
         return masks, confs
 
     def warmup(self) -> None:
@@ -840,8 +873,9 @@ class SegmentationPredictor(_Engine):
         ``on_decode_error='skip'`` it is logged, its mask zeroed and its
         confidence NaN. With ``return_failed=True`` returns ``(masks, confs,
         failed_indices)``."""
-        pending, failed = self._paths(paths, self.image_size_hw, num_workers,
-                                      on_decode_error, self._predict_fn, lagged=True)
+        with span("serve.request"):
+            pending, failed = self._paths(paths, self.image_size_hw, num_workers,
+                                          on_decode_error, self._predict_fn, lagged=True)
         if not pending:
             h, w = self.image_size_hw
             masks = np.zeros((0, h, w), np.uint8)

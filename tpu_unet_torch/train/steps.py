@@ -8,6 +8,13 @@ NHWC views of the outputs, the backward pass and one optimizer update. It
 updates the :class:`TrainState` in place and returns the loss scalars as
 device tensors, so the host waits for nothing inside a run of steps.
 
+Each train step's call is one ``train.step`` span, over ``train.augment``,
+``train.forward``, ``train.loss``, ``train.backward``, ``train.optimizer``
+and, in the seg step, ``train.confusion`` (``utils/spans.py``; recorded
+only under a profiler or ``spans.recording()``). The backward's kernels,
+which the autograd thread launches, fall in the calling thread's
+``train.backward``.
+
 The epoch drivers (``train/loop.py``) hand the steps the loader's batches,
 tensors already on the state's device, copied from pinned memory by the
 loader's ``data/loader.py::to_device`` transform.
@@ -76,6 +83,7 @@ from tpu_unet_torch.ops.augment import (AugmentDraws, eval_transform,
 from tpu_unet_torch.ops.seg_head import sliced_argmax
 from tpu_unet_torch.parallel import spatial
 from tpu_unet_torch.train.state import TrainState
+from tpu_unet_torch.utils.spans import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -277,37 +285,46 @@ class AnomalyTrainStep:
         """One optimizer update from the batch under the given draws (one
         :class:`AugmentDraws`, or a list of ``grad_accum`` of them, each for
         a microbatch of the global batch)."""
-        device = state.device
-        images_u8, masks = _as_tensor(images_u8, device), _as_tensor(masks, device)
-        draws = [draws] if isinstance(draws, AugmentDraws) else list(draws)
-        g = self.grad_accum
-        self._check_batch(len(images_u8))
-        if len(draws) != g:
-            raise ValueError(f"{len(draws)} draw sets for grad_accum={g}")
-        model = state.model.train()
-        state.optimizer.zero_grad(set_to_none=True)
-        losses: List[Dict[str, torch.Tensor]] = []
-        rows = len(images_u8) // g
-        # Microbatches in sequence; BN running statistics chain through them
-        # and the gradients add up in .grad.
-        for img_u8, msk, d in zip(images_u8.chunk(g), masks.chunk(g), draws):
-            img, m = train_transform(img_u8, msk,
-                                     _local_draws(d.to(device), self.group, rows),
-                                     **self.aug_cfg.transform_kwargs())
-            # Masks may ship as uint8; the geometric step is nearest on masks,
-            # so the cast after it is exact.
-            m = m.to(torch.float32)
-            recon, amap = _remat_call(
-                self.remat, lambda x: _forward_anomaly(model, x, self.dual_decoder), img)
-            ld = combined_anomaly_loss(recon, amap, img, m, group=self.group,
-                                       **self.loss_cfg.kwargs())
-            ld["total_loss"].backward()
-            losses.append({k: v.detach() for k, v in ld.items()})
-        _finish_gradients(model, g, self.group)
-        state.optimizer.step()
-        state.step += 1
-        return _group_mean({k: torch.stack([ld[k] for ld in losses]).mean()
-                            for k in losses[0]}, self.group)
+        with span("train.step"):
+            device = state.device
+            images_u8, masks = _as_tensor(images_u8, device), _as_tensor(masks, device)
+            draws = [draws] if isinstance(draws, AugmentDraws) else list(draws)
+            g = self.grad_accum
+            self._check_batch(len(images_u8))
+            if len(draws) != g:
+                raise ValueError(f"{len(draws)} draw sets for grad_accum={g}")
+            model = state.model.train()
+            with span("train.optimizer"):
+                state.optimizer.zero_grad(set_to_none=True)
+            losses: List[Dict[str, torch.Tensor]] = []
+            rows = len(images_u8) // g
+            # Microbatches in sequence; BN running statistics chain through them
+            # and the gradients add up in .grad.
+            for img_u8, msk, d in zip(images_u8.chunk(g), masks.chunk(g), draws):
+                with span("train.augment"):
+                    img, m = train_transform(img_u8, msk,
+                                             _local_draws(d.to(device), self.group, rows),
+                                             **self.aug_cfg.transform_kwargs())
+                    # Masks may ship as uint8; the geometric step is nearest on
+                    # masks, so the cast after it is exact.
+                    m = m.to(torch.float32)
+                with span("train.forward"):
+                    recon, amap = _remat_call(
+                        self.remat, lambda x: _forward_anomaly(model, x, self.dual_decoder),
+                        img)
+                with span("train.loss"):
+                    ld = combined_anomaly_loss(recon, amap, img, m, group=self.group,
+                                               **self.loss_cfg.kwargs())
+                with span("train.backward"):
+                    ld["total_loss"].backward()
+                losses.append({k: v.detach() for k, v in ld.items()})
+            with span("train.optimizer"):
+                _finish_gradients(model, g, self.group)
+                state.optimizer.step()
+            state.step += 1
+            with span("train.loss"):
+                return _group_mean({k: torch.stack([ld[k] for ld in losses]).mean()
+                                    for k in losses[0]}, self.group)
 
 
 def make_anomaly_train_step(loss_cfg: AnomalyLossConfig = AnomalyLossConfig(),
@@ -486,54 +503,68 @@ class SegTrainStep:
         loss scalars (the mean over microbatches) and
         the batch's (C, C) confusion matrix (None without ``with_confusion``),
         all on the device."""
-        device = state.device
-        images_u8, labels = _as_tensor(images_u8, device), _as_tensor(labels, device)
-        g = self.grad_accum
-        self._check_batch(len(images_u8))
-        space, height = self.space, images_u8.shape[1]
-        spatial.check_rows(height, space.size if space is not None else 1)
-        draws = [draws] if isinstance(draws, AugmentDraws) else list(draws)
-        if dropout is None:
-            dropout = [None] * g
-        elif isinstance(dropout, torch.Tensor):
-            dropout = [dropout]
-        if len(draws) != g or len(dropout) != g:
-            raise ValueError(f"{len(draws)} draw sets and {len(dropout)} dropout masks "
-                             f"for grad_accum={g}")
-        model = state.model.train()
-        state.optimizer.zero_grad(set_to_none=True)
-        losses: List[Dict[str, torch.Tensor]] = []
-        cm = None
-        rows = len(images_u8) // g
-        for img_u8, lbl, d, keep in zip(images_u8.chunk(g), labels.chunk(g), draws, dropout):
-            # Labels ship as uint8; the geometry is nearest on them, so the
-            # cast to int64 (which the gathers take) after it is exact.
-            # Whole images through the augment, then this space rank's rows.
-            img, lbl = train_transform(img_u8, lbl[..., None],
-                                       _local_draws(d.to(device), self.group, rows, space),
-                                       **self.aug_cfg.transform_kwargs())
-            img = spatial.split_rows(img, space)
-            lbl = spatial.split_rows(lbl[..., 0], space).to(torch.int64)
-            if keep is not None:
-                keep = keep.to(device)
-                keep = keep if self.group is None else _rows(keep, self.group, rows, space)
-            with spatial.scope(space, height):
-                logits = _remat_call(self.remat,
-                                     lambda x, k=keep: _seg_logits(model, x, k), img)
-                ld, logits = _seg_train_losses(logits, lbl, self.loss_cfg, self.group,
-                                               space)
-                ld["total_loss"].backward()
-            losses.append({k: v.detach() for k, v in ld.items()})
-            if self.with_confusion:
-                part = confusion_matrix_batch(sliced_argmax(logits.detach()), lbl,
-                                              self.num_classes, self.loss_cfg.ignore_index)
-                cm = part if cm is None else cm + part
-        _finish_gradients(model, g, self.group)
-        state.optimizer.step()
-        state.step += 1
-        return (_group_mean({k: torch.stack([ld[k] for ld in losses]).mean()
-                             for k in losses[0]}, self.group),
-                _group_sum(cm, self.group))
+        with span("train.step"):
+            device = state.device
+            images_u8, labels = _as_tensor(images_u8, device), _as_tensor(labels, device)
+            g = self.grad_accum
+            self._check_batch(len(images_u8))
+            space, height = self.space, images_u8.shape[1]
+            spatial.check_rows(height, space.size if space is not None else 1)
+            draws = [draws] if isinstance(draws, AugmentDraws) else list(draws)
+            if dropout is None:
+                dropout = [None] * g
+            elif isinstance(dropout, torch.Tensor):
+                dropout = [dropout]
+            if len(draws) != g or len(dropout) != g:
+                raise ValueError(f"{len(draws)} draw sets and {len(dropout)} dropout masks "
+                                 f"for grad_accum={g}")
+            model = state.model.train()
+            with span("train.optimizer"):
+                state.optimizer.zero_grad(set_to_none=True)
+            losses: List[Dict[str, torch.Tensor]] = []
+            cm = None
+            rows = len(images_u8) // g
+            for img_u8, lbl, d, keep in zip(images_u8.chunk(g), labels.chunk(g), draws,
+                                            dropout):
+                with span("train.augment"):
+                    # Labels ship as uint8; the geometry is nearest on them, so
+                    # the cast to int64 (which the gathers take) after it is
+                    # exact. Whole images through the augment, then this space
+                    # rank's rows.
+                    img, lbl = train_transform(img_u8, lbl[..., None],
+                                               _local_draws(d.to(device), self.group, rows,
+                                                            space),
+                                               **self.aug_cfg.transform_kwargs())
+                    img = spatial.split_rows(img, space)
+                    lbl = spatial.split_rows(lbl[..., 0], space).to(torch.int64)
+                    if keep is not None:
+                        keep = keep.to(device)
+                        keep = (keep if self.group is None
+                                else _rows(keep, self.group, rows, space))
+                with spatial.scope(space, height):
+                    with span("train.forward"):
+                        logits = _remat_call(self.remat,
+                                             lambda x, k=keep: _seg_logits(model, x, k), img)
+                    with span("train.loss"):
+                        ld, logits = _seg_train_losses(logits, lbl, self.loss_cfg,
+                                                       self.group, space)
+                    with span("train.backward"):
+                        ld["total_loss"].backward()
+                losses.append({k: v.detach() for k, v in ld.items()})
+                if self.with_confusion:
+                    with span("train.confusion"):
+                        part = confusion_matrix_batch(sliced_argmax(logits.detach()), lbl,
+                                                      self.num_classes,
+                                                      self.loss_cfg.ignore_index)
+                        cm = part if cm is None else cm + part
+            with span("train.optimizer"):
+                _finish_gradients(model, g, self.group)
+                state.optimizer.step()
+            state.step += 1
+            with span("train.loss"):
+                return (_group_mean({k: torch.stack([ld[k] for ld in losses]).mean()
+                                     for k in losses[0]}, self.group),
+                        _group_sum(cm, self.group))
 
 
 def make_seg_train_step(num_classes: int, loss_cfg: SegLossConfig = SegLossConfig(),
