@@ -26,13 +26,21 @@
    of two ranks' 18 at 1240 x 512 (622 rows at the top, 80/79 and 41/40 at
    the deepest levels) and a rank's of four at 48 x 512 (3-row inputs at
    its one-row blocks).
+   Then the int8 up block's concat (up_concat_int8) at the level-ups of the
+   score path at b128 and of SegmentationUNet at b8, 1024 x 512
+   (UP_CONCAT_SHAPES): kernel against its plain version on the card, bit
+   for bit, with accumulators that land on .5 ties and saturate; timed
+   alone (operator and kernel records) beside its byte bound and the plain
+   version (the composed PyTorch ops it replaces).
 4. The main path at full width: AnomalyUNet(base_features=64) at 256², weights
    from a seed and BN statistics warmed on synthetic images, served by
    AnomalyScorer in bf16 and int8 (calibrated on 2 batches of 16) at batch
    128. The launch counters are zeroed just before and read just after:
-   K1 must run once per batch on both legs, K2 18 times per batch on the
-   int8 leg. The first int8 batch's scores must equal, bit for bit, those of
-   the same forward with K1's and K2's plain versions on the card; int8 and
+   K1 must run once per batch on both legs, K2 18 times and the up concat 4
+   times per batch on the int8 leg (every up block fused,
+   ``ops/quantize.py::COUNTERS``). The first int8 batch's scores must equal,
+   bit for bit, those of the same forward with the kernels' plain versions
+   on the card; int8 and
    bf16 scores must track the f32 scorer's. Prints img/s for each leg and p50
    latency at batch 1, and profiles a window of back-to-back b128 score calls
    per leg: device time by kernel category and the device's idle share.
@@ -92,7 +100,7 @@
    K2 18 times per int8 batch, each confusion matrix counting every test
    pixel once, int8 and bf16 predictions against f32's; a 1-epoch --resume;
    base 8 at 64 x 32 on the CPU against the card (f32) and int8 against the
-   plain K1/K2 forward. Gear (4 classes, 64/16/16 JPEGs of 512² with
+   plain-kernel forward. Gear (4 classes, 64/16/16 JPEGs of 512² with
    overlapping polygons; sizes chosen): 1 epoch of train_gear's defaults,
    then test_gear in bf16 and int8. K1 and K2 are held bit for bit at the
    seg shapes in phases 2 and 3 (K1 at (8,1024,512,3) and (8,512,512,3), K2
@@ -107,7 +115,7 @@
    (SegmentationUNet base 64, 4 classes, 512², b16) in f32 --fold_bn, bf16
    and int8, and at KolektorSDD's 1024 x 512 b8 with 3 classes (img/s, batch-1
    p50/p95 latency, K1 once and K2 18 times per int8 batch, int8 masks and
-   confidences bit for bit those of the plain K1/K2 forward, bf16 and int8
+   confidences bit for bit those of the plain-kernel forward, bf16 and int8
    against f32); UNet++ at --heads 1 and the attention UNet in int8 (K2 6 and
    18 per batch, bit for bit); the 512² model over 1024² images in a 3 x 3
    tile grid (bf16 and int8, K1 once and K2 18 per tile batch; one tile the
@@ -268,6 +276,12 @@ ODD_CONVS = [(1, 10, 20, 32, 16), (2, 70, 70, 64, 64), (1, 5, 3, 3, 16),
 SEG_BATCH = 8
 SEG_K1_SHAPES = [(SEG_BATCH, 1024, 512, 3), (SEG_BATCH, 512, 512, 3),
                  (16, 512, 512, 3), (18, 512, 512, 3)]
+# (N, h, w, Cs, Cout) of the int8 up blocks' level-ups (h x w -> 2h x 2w): the
+# score path's at b128, 256², then SegmentationUNet's at b8, 1024 x 512.
+UP_CONCAT_SHAPES = [(128, 16, 16, 512, 512), (128, 32, 32, 256, 256),
+                    (128, 64, 64, 128, 128), (128, 128, 128, 64, 64),
+                    (SEG_BATCH, 64, 32, 512, 512), (SEG_BATCH, 128, 64, 256, 256),
+                    (SEG_BATCH, 256, 128, 128, 128), (SEG_BATCH, 512, 256, 64, 64)]
 # (H, W, Cin, Cout) of SegmentationUNet's 18 3x3 convs at base 64, in order:
 # encoder inc, down1..down4, then the one decoder up1..up4; at KolektorSDD's
 # 1024 x 512 and at Gear's 512 x 512.
@@ -396,6 +410,7 @@ def synth_images(torch, n, size, seed, device):
 
 def _category(kernel_name):
     for key, cat in (("conv3x3_int8", "K2 conv3x3_int8"), ("normalize_u8", "K1 normalize_u8"),
+                     ("up_concat_int8", "up concat up_concat_int8"),
                      ("fprop", "cuDNN conv"), ("dgrad", "cuDNN conv"),
                      ("gemm", "matmul (_int_mm)")):
         if key in kernel_name:
@@ -739,16 +754,84 @@ def _k2_seg(torch, name, convs):
     return {"rows": rows, **total, "bound_by": _dominant_bound(rows)}
 
 
-def plain_k2_exec(qparams):
-    """The int8 executor over ``qparams`` with K2's plain version in place of
-    the kernel (the reference the card's int8 forwards are held against)."""
+def _up_case(torch, n, h, w, cs, cout, seed, ties):
+    """(skip, s_skip, acc, scale, bias, s_cat) of one up block on the card.
+    ``ties``: power-of-two scales that put every odd value on a .5 tie and
+    saturate both ends; else a 1024-channel conv's accumulators spread over
+    [-127, 127] and past it. The accumulator is the ``[:m, :4 Cout]`` view of
+    a product 8 columns wider, as ``_int_matmul`` may give it."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    m, k = n * h * w, 4 * cout
+    skip = torch.randint(-127, 128, (n, 2 * h, 2 * w, cs), generator=g, device="cuda",
+                         dtype=torch.int8)
+    lim = 601 if ties else 2 ** 21
+    acc = torch.randint(-lim, lim, (m, k + 8), generator=g, device="cuda",
+                        dtype=torch.int32)[:, :k]
+    if ties:
+        scale = torch.full((k,), 0.125, device="cuda")
+        bias = torch.zeros(k, device="cuda")
+        s_skip, s_cat = torch.tensor(0.125, device="cuda"), torch.tensor(0.25, device="cuda")
+    else:
+        scale = ((0.5 + torch.rand(cout, generator=g, device="cuda")) * (8.0 / 2 ** 21)).repeat(4)
+        bias = (torch.randn(cout, generator=g, device="cuda") * 2.0).repeat(4)
+        s_skip = 0.02 + 0.08 * torch.rand((), generator=g, device="cuda")
+        s_cat = torch.tensor(0.05, device="cuda")
+    return skip, s_skip, acc, scale, bias, s_cat
+
+
+def phase_up_concat(torch, report):
+    """The up concat at UP_CONCAT_SHAPES: bit for bit its plain version (ties
+    and random), then timed: the operator (events around back-to-back calls),
+    its kernel records, the plain version, and the byte bound (the int32
+    accumulator read and int8 written on the level-up side, one byte read and
+    one written on the skip side)."""
+    from tpu_unet_torch.ops.kernels.up_concat import up_concat_int8, up_concat_int8_plain
+    rows = []
+    for i, (n, h, w, cs, cout) in enumerate(UP_CONCAT_SHAPES):
+        for ties in (True, False):
+            args = _up_case(torch, n, h, w, cs, cout, seed=500 + i, ties=ties)
+            got, want = up_concat_int8(*args), up_concat_int8_plain(*args)
+            check(torch.equal(got, want), f"up concat differs from its plain version at "
+                                          f"{(n, h, w, cs, cout)} ties={ties} "
+                                          f"({int((got != want).sum())} values)")
+            del got, want
+        k_ms, _ = cuda_ms(torch, lambda: up_concat_int8(*args), iters=20, warmup=3)
+        p_ms, _ = cuda_ms(torch, lambda: up_concat_int8_plain(*args), iters=2)
+        rec_ms, = kernel_records_ms(torch, [lambda: up_concat_int8(*args)], "up_concat",
+                                    reps=10)
+        elems = n * 4 * h * w
+        b_ms, b_by = bound_ms(elems * (cout * 5 + cs * 2) + 8 * 4 * cout + 8, 0, PEAK_INT8_OPS)
+        rows.append({"n": n, "h": h, "w": w, "cs": cs, "cout": cout, "kernel_ms": k_ms,
+                     "kernel_record_ms": rec_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "max_abs_err": 0})
+        print(f"[up] b{n} {h}x{w} -> {2 * h}x{2 * w}, Cs {cs} + Cout {cout}: operator "
+              f"{k_ms:.4f} ms, kernel record {rec_ms:.4f} ms, plain {p_ms:.3f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}), {100 * b_ms / rec_ms:.1f}% of bound (kernel record); "
+              f"bit-exact, ties and random", flush=True)
+        del args
+    path = [r for r in rows if r["n"] == 128]
+    total = {k: sum(r[k] for r in path) for k in ("kernel_ms", "kernel_record_ms", "plain_ms",
+                                                  "bound_ms")}
+    print(f"[up] b128, the 4 score-path up blocks: operator {total['kernel_ms']:.3f} ms, kernel "
+          f"records {total['kernel_record_ms']:.3f} ms, bound {total['bound_ms']:.3f} ms, "
+          f"{100 * total['bound_ms'] / total['kernel_record_ms']:.1f}% of bound; plain "
+          f"{total['plain_ms']:.2f} ms", flush=True)
+    report["up_concat"] = {"rows": rows, **total}
+
+
+def plain_exec(qparams):
+    """The int8 executor over ``qparams`` with K2's and the up concat's plain
+    versions in place of the kernels (the reference the card's int8 forwards
+    are held against)."""
     from tpu_unet_torch.ops import quantize as tq
     from tpu_unet_torch.ops.kernels.int8_conv import conv3x3_int8_plain
+    from tpu_unet_torch.ops.kernels.up_concat import up_concat_int8_plain
 
-    class PlainK2Exec(tq._QuantExec):
+    class PlainExec(tq._QuantExec):
         conv3x3 = staticmethod(conv3x3_int8_plain)
+        up_concat = staticmethod(up_concat_int8_plain)
 
-    return PlainK2Exec(qparams)
+    return PlainExec(qparams)
 
 
 def warm_anomaly_state_dict(torch, bilinear=False):
@@ -777,6 +860,7 @@ def phase_main_path(torch, np, report):
     from tpu_unet_torch.ops import quantize as tq
     from tpu_unet_torch.ops.kernels.int8_conv import conv3x3_int8
     from tpu_unet_torch.ops.kernels.preprocess import normalize_u8, normalize_u8_plain
+    from tpu_unet_torch.ops.kernels.up_concat import up_concat_int8
     from tpu_unet_torch.serve import AnomalyScorer
 
     t0 = time.perf_counter()
@@ -796,34 +880,42 @@ def phase_main_path(torch, np, report):
     setup_s = time.perf_counter() - t0
 
     # --- the main path: counters zeroed just before, read just after --------
-    normalize_u8.launches = conv3x3_int8.launches = 0
+    normalize_u8.launches = conv3x3_int8.launches = up_concat_int8.launches = 0
+    tq.COUNTERS.update(fused_up_blocks=0, composed_up_blocks=0)
     s_bf16 = bf16.score_array(images)
     k1_bf16, k2_bf16 = normalize_u8.launches, conv3x3_int8.launches
+    up_bf16 = up_concat_int8.launches
     s_int8 = int8.score_array(images)
     k1_total, k2_total = normalize_u8.launches, conv3x3_int8.launches
-    launches = {"normalize_u8": k1_total, "conv3x3_int8": k2_total}
-    check(k1_bf16 == 3 and k2_bf16 == 0,
-          f"bf16 leg launched K1 {k1_bf16}x, K2 {k2_bf16}x (want 3, 0)")
-    check(k1_total - k1_bf16 == 3 and k2_total - k2_bf16 == 54,
-          f"int8 leg launched K1 {k1_total - k1_bf16}x, K2 {k2_total - k2_bf16}x "
-          f"(want 3, 54)")
+    launches = {"normalize_u8": k1_total, "conv3x3_int8": k2_total,
+                "up_concat_int8": up_concat_int8.launches}
+    routes = dict(tq.COUNTERS)
+    check(k1_bf16 == 3 and k2_bf16 == 0 and up_bf16 == 0,
+          f"bf16 leg launched K1 {k1_bf16}x, K2 {k2_bf16}x, the up concat {up_bf16}x "
+          f"(want 3, 0, 0)")
+    check(k1_total - k1_bf16 == 3 and k2_total - k2_bf16 == 54
+          and launches["up_concat_int8"] == 12,
+          f"int8 leg launched K1 {k1_total - k1_bf16}x, K2 {k2_total - k2_bf16}x, the up "
+          f"concat {launches['up_concat_int8']}x (want 3, 54, 12)")
+    check(routes == {"fused_up_blocks": 12, "composed_up_blocks": 0},
+          f"int8 leg's up blocks took the routes {routes} (want 12 fused, 0 composed)")
     # -------------------------------------------------------------------------
 
-    # The first int8 batch again, through the same forward with K1's and K2's
+    # The first int8 batch again, through the same forward with the kernels'
     # plain versions on the card: the scores must be the same bits.
 
     batch = torch.from_numpy(images[:128]).cuda()
     with torch.inference_mode():
         img = normalize_u8_plain(batch)
-        recon = tq._run(plain_k2_exec(int8.qparams), img,
+        recon = tq._run(plain_exec(int8.qparams), img,
                         tq.build_plan("anomaly_unet", score_only=True))
         s_plain = anomaly_score(recon, img).cpu().numpy()
     del img, recon
     n_diff = int((s_plain != s_int8[:128]).sum())
-    print(f"[main] int8 b128 scores vs the same forward with plain K1/K2 on the card: "
+    print(f"[main] int8 b128 scores vs the same forward with plain kernels on the card: "
           f"{n_diff} of 128 differ, max |diff| "
           f"{float(np.abs(s_plain - s_int8[:128]).max()):.3g}", flush=True)
-    check(n_diff == 0, "int8 scores differ from the forward with plain K1/K2")
+    check(n_diff == 0, "int8 scores differ from the forward with plain kernels")
 
     s_f32 = f32.score_array(images)
     del f32
@@ -865,8 +957,9 @@ def phase_main_path(torch, np, report):
         for k, ms, n in b["top_kernels_ms"]:
             print(f"[profile]   {ms:9.3f} ms  x{n:<4d} {k}")
     report["main_path"] = {
-        "launches": launches, "corr_int8_f32": corr_int8, "median_rel_int8_f32": rel_int8,
-        "corr_bf16_f32": corr_bf16, "median_rel_bf16_f32": rel_bf16,
+        "launches": launches, "up_block_routes": routes, "corr_int8_f32": corr_int8,
+        "median_rel_int8_f32": rel_int8, "corr_bf16_f32": corr_bf16,
+        "median_rel_bf16_f32": rel_bf16,
         "throughput_img_per_s": tput, "latency_b1_ms": lat, "setup_s": setup_s,
         "device_breakdown_b128": breakdown,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
@@ -1928,7 +2021,7 @@ def _seg_cpu_vs_card(torch, np, data_root, tmp):
     check(n_diff or (cm_cpu == cm_card).all(), "CPU and card confusion matrices differ")
     check(loss_rel <= 1e-5, f"CPU and card test losses differ by {loss_rel:.3g} (rel)")
 
-    # int8 at base 8 on the card, against the plain K1/K2 forward on the card
+    # int8 at base 8 on the card, against the plain-kernel forward on the card
     _, step, p_int8, _, cm_int8 = test_path("cuda", ("--quantize", "int8"))
 
 
@@ -1936,12 +2029,12 @@ def _seg_cpu_vs_card(torch, np, data_root, tmp):
     with torch.no_grad():
         x = images.cuda()
         card = tq._run(tq._QuantExec(step.qparams), normalize_u8(x), plan)
-        plain = tq._run(plain_k2_exec(step.qparams), normalize_u8_plain(x), plan)
+        plain = tq._run(plain_exec(step.qparams), normalize_u8_plain(x), plan)
     same_logits = torch.equal(card.view(torch.int32), plain.view(torch.int32))
     same_preds = torch.equal(p_int8, sliced_argmax(plain).to(torch.uint8).cpu())
     print(f"[seg-cpu] base 8, 64x32, int8 (Cout 8 layers padded to 16 for K2): the test path's "
           f"predictions {'equal' if same_preds else 'DIFFER FROM'} those of the same forward "
-          f"with plain K1/K2 on the card; logits bit for bit "
+          f"with plain kernels on the card; logits bit for bit "
           f"{'equal' if same_logits else 'DIFFER'}", flush=True)
     check(same_logits and same_preds, "int8 base 8 on the card differs from the plain forward")
     return {"f32_pixels_differ": n_diff, "f32_max_tie_gap": max_gap,
@@ -2007,7 +2100,7 @@ EXT_MAX_DISAGREE = {"gear_unetpp": {"bf16": 5e-5, "int8": 2.5e-4},
 def _ext_bilinear_serving(torch, np, out, legs):
     """(c) AnomalyScorer(bilinear=True) at serving's default (base 64, 256²,
     b128) in bf16 and int8 against f32: K1 once and K2 18 times per int8
-    batch, the int8 scores bit for bit against the plain K1/K2 forward."""
+    batch, the int8 scores bit for bit against the plain-kernel forward."""
     from tpu_unet_torch.metrics.anomaly import anomaly_score
     from tpu_unet_torch.ops import quantize as tq
     from tpu_unet_torch.ops.kernels.int8_conv import conv3x3_int8
@@ -2045,12 +2138,12 @@ def _ext_bilinear_serving(torch, np, out, legs):
     batch = torch.from_numpy(images[:128]).cuda()
     with torch.inference_mode():
         img = normalize_u8_plain(batch)
-        recon = tq._run(plain_k2_exec(int8.qparams), img,
+        recon = tq._run(plain_exec(int8.qparams), img,
                         tq.build_plan("anomaly_unet", score_only=True))
         s_plain = anomaly_score(recon, img).cpu().numpy()
     del img, recon
     n_diff = int((s_plain != s_int8[:128]).sum())
-    check(n_diff == 0, f"bilinear int8 scores differ from the plain K1/K2 forward ({n_diff})")
+    check(n_diff == 0, f"bilinear int8 scores differ from the plain-kernel forward ({n_diff})")
     s_f32 = f32.score_array(images)
     del f32
     for name, sc in (("bf16", s_bf16), ("int8", s_int8), ("f32", s_f32)):
@@ -2065,7 +2158,7 @@ def _ext_bilinear_serving(torch, np, out, legs):
     print(f"[ext] bilinear AnomalyUNet 256² b128 serving: bf16 "
           f"{r['throughput_img_per_s']['bf16']:.1f} img/s, int8 "
           f"{r['throughput_img_per_s']['int8']:.1f} img/s; K1 3x and 3x, K2 0x and 54x for 3 "
-          f"batches; int8 scores bit for bit those of the plain K1/K2 forward; int8 vs f32 corr "
+          f"batches; int8 scores bit for bit those of the plain-kernel forward; int8 vs f32 corr "
           f"{r['corr_int8_f32']:.6f}, median rel diff {r['median_rel_int8_f32']:.2e}; bf16 vs "
           f"f32 corr {r['corr_bf16_f32']:.6f}, median rel diff {r['median_rel_bf16_f32']:.2e} "
           f"(set-up {setup_s:.1f} s)", flush=True)
@@ -2171,16 +2264,16 @@ def _ext_cpu_vs_card(torch, np):
         plan = tq.build_plan(arch, deep_supervision=ds, heads=heads)
         with torch.no_grad():
             card = tq._run(tq._QuantExec(qp), normalize_u8(x), plan)
-            plain = tq._run(plain_k2_exec(qp), normalize_u8_plain(x), plan)
+            plain = tq._run(plain_exec(qp), normalize_u8_plain(x), plan)
         card, plain = (card, plain) if isinstance(card, tuple) else ((card,), (plain,))
         same = all(torch.equal(a.view(torch.int32), p.view(torch.int32))
                    for a, p in zip(card, plain))
         tag = f"{arch}{' heads ' + str(heads) if arch == 'unetpp' else ''}"
         tag += " (bilinear)" if arch == "anomaly_unet" else ""
         print(f"[ext-cpu] int8 {tag} base {base}, {size}², b{b} on the card: outputs "
-              f"{'equal' if same else 'DIFFER FROM'} those of the plain K1/K2 forward, bit for "
+              f"{'equal' if same else 'DIFFER FROM'} those of the plain-kernel forward, bit for "
               f"bit", flush=True)
-        check(same, f"int8 {tag} on the card differs from the plain K1/K2 forward")
+        check(same, f"int8 {tag} on the card differs from the plain-kernel forward")
         res[f"int8_{arch}_heads{heads}_equal_plain"] = True
     return res
 
@@ -2238,7 +2331,7 @@ DAEMON_REQUESTS, DAEMON_CLIENTS = 64, 16
 # about 5x what an H100 run measured (bf16 9.2e-3 and 7.2e-3, int8 5.8e-2 and
 # 4.2e-2 at 512² and 1024 x 512). The weights are seeded, not trained, so the
 # class logits sit close together and a rounding flips many argmaxes; the int8
-# forwards are held bit for bit against the plain K1/K2 forward besides.
+# forwards are held bit for bit against the plain-kernel forward besides.
 SERVE_MAX_DISAGREE = {"seg_bf16": 0.05, "seg_int8": 0.3, "ksdd_bf16": 0.04,
                       "ksdd_int8": 0.2}
 
@@ -2305,7 +2398,7 @@ def _plain_predict(torch, qparams, plan, images_u8, tiling=None):
     from tpu_unet_torch.ops.seg_head import sliced_pred_confidence
     from tpu_unet_torch.ops.tiling import make_tiled_logits_fn
 
-    exc = plain_k2_exec(qparams)
+    exc = plain_exec(qparams)
 
     def apply(x):
         return tq._run(exc, normalize_u8_plain(x), plan)
@@ -2320,7 +2413,7 @@ def _check_plain(torch, np, name, engine, plan, images, got, tiling=None):
     masks, confs = _plain_predict(torch, engine.qparams, plan, images, tiling)
     n = len(images)
     check(np.array_equal(masks, got[0][:n]) and np.array_equal(confs, got[1][:n]),
-          f"{name}: masks or confidences differ from the plain K1/K2 forward")
+          f"{name}: masks or confidences differ from the plain-kernel forward")
 
 
 def _serve_models(torch, np, out, legs):
@@ -2364,7 +2457,7 @@ def _serve_models(torch, np, out, legs):
               + "; ".join(f"{m} {leg[m]['img_per_s']:.1f} img/s, b1 p50 "
                           f"{leg[m]['latency_b1_ms']['p50_ms']} ms p95 "
                           f"{leg[m]['latency_b1_ms']['p95_ms']} ms" for m in engines)
-              + f"; K1 2 and K2 0/0/36 for 2 batches; int8 bit for bit the plain K1/K2 "
+              + f"; K1 2 and K2 0/0/36 for 2 batches; int8 bit for bit the plain-kernel "
               f"forward; pixels differing from f32: bf16 {leg['disagree_bf16_f32']:.3g}, int8 "
               f"{leg['disagree_int8_f32']:.3g} (set-up {setup_s:.1f} s)", flush=True)
         for m in ("bf16", "int8"):
@@ -2395,7 +2488,7 @@ def _serve_models(torch, np, out, legs):
         _check_plain(torch, np, f"serve_{name}_int8", e, plan, images[:SERVE_BATCH], got)
         r[name] = {"int8_img_per_s": e.throughput(n_batches=10), "int8_equal_plain": True}
         print(f"[serve] {arch} {pred_kw} int8 512² b16: {r[name]['int8_img_per_s']:.1f} img/s; "
-              f"K1 2 and K2 {2 * k2} for 2 batches; bit for bit the plain K1/K2 forward",
+              f"K1 2 and K2 {2 * k2} for 2 batches; bit for bit the plain-kernel forward",
               flush=True)
         del e
     torch.cuda.empty_cache()
@@ -2427,7 +2520,7 @@ def _serve_models(torch, np, out, legs):
     print(f"[serve] tiled {TILED_HW[0]}² in 512² tiles, overlap {TILE_OVERLAP} (3x3 grid, "
           f"{9 * TILED_BATCH} tiles per batch of {TILED_BATCH}): bf16 "
           f"{r['tiled']['bf16_img_per_s']:.2f} img/s, int8 {r['tiled']['int8_img_per_s']:.2f} "
-          f"img/s; K1 1 and K2 18 per tile batch; int8 bit for bit the plain K1/K2 tiled "
+          f"img/s; K1 1 and K2 18 per tile batch; int8 bit for bit the plain-kernel tiled "
           f"forward; one 512² tile equals the untiled engine in bf16 and int8", flush=True)
     return keep
 
@@ -4848,6 +4941,7 @@ def main():
     timed("1 build", phase_build, report)
     timed("2 K1", phase_k1, torch, report)
     timed("3 K2", phase_k2, torch, report)
+    timed("3b up concat", phase_up_concat, torch, report)
     launches = timed("4-5 serving", phase_main_path, torch, np, report)
     path_launches = {"serve": launches, **timed("6 train", phase_train, torch, np, report)}
     timed("7 train cpu vs card", phase_train_cpu_vs_card, torch, np, report)
@@ -4917,6 +5011,16 @@ def main():
                       f"at b{SEG_BATCH}, {t['rows'][0]['h']}x{t['rows'][0]['w']}, summed"}
              for name, t in report["k2_seg"].items()}},
     ]
+    up = report["up_concat"]
+    kernels.append(
+        {"name": "up_concat_int8", "route": "cuda",
+         "source": "tpu_unet_torch/csrc/up_concat_int8.cu",
+         "replaces": None, "launches": launches["up_concat_int8"],
+         "launches_by_path": {"serve": launches["up_concat_int8"]}, "max_abs_err": 0,
+         "ms": up["kernel_ms"], "kernel_record_ms": up["kernel_record_ms"],
+         "plain_ms": up["plain_ms"], "bound_ms": up["bound_ms"], "bound_by": "bytes",
+         "library_ms": None, "shape": "the 4 score-path up blocks at batch 128, summed",
+         "seg": [r for r in up["rows"] if r["n"] == SEG_BATCH]})
     report["kernels"] = kernels
     smi = nvidia_smi_line()
     report["nvidia_smi"] = smi

@@ -44,6 +44,9 @@ KERNELS = {
         "tpu_unet_conv3x3_int8": [_P] * 6 + [_I] * 6 + [_P],
         "tpu_unet_conv3x3_int8_c3": [_P] * 6 + [_I] * 6 + [_P],
     }),
+    "up_concat_int8": ("up_concat_int8.cu", {
+        "tpu_unet_up_concat_int8": [_P, _P, _P, _LL] + [_P] * 4 + [_I] * 5 + [_P],
+    }),
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

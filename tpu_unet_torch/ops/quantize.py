@@ -15,7 +15,12 @@ The scheme is the JAX package's, value for value:
 - the k2s2 transposed conv: one int8 matmul (``torch._int_mm``) of the
   (N*H*W, Cin) input by the (Cin, 4*Cout) kernel, the epilogue requantizing
   straight to the skip concat's shared scale, then a pixel shuffle;
-- the skip concat: the skip requantizes int8 -> int8 to that shared scale;
+- the skip concat: the skip requantizes int8 -> int8 to that shared scale.
+  Where an up block's level-up meets its skip unpadded and ungated, outside
+  a 'space' scope, one operator (``ops/kernels/up_concat.py``) writes the
+  concat from the matmul's accumulator and the skip in one pass; elsewhere
+  the same arithmetic runs as separate PyTorch ops (``COUNTERS`` counts the
+  two routes);
 - heads (1x1 conv + sigmoid or logits): int8 matmul, float32 epilogue;
 - attention gates ('attn_unet'): in float32 on the dequantized operands,
   their folded layers kept float; the gated skip requantizes straight to
@@ -54,6 +59,7 @@ from __future__ import annotations
 import contextlib
 import os
 import re
+import threading
 from typing import Any, Dict, Iterable, Optional, Tuple
 
 import numpy as np
@@ -63,6 +69,7 @@ import torch.nn.functional as F
 from tpu_unet_torch.core.device import resolve_device
 from tpu_unet_torch.ops.augment import eval_transform
 from tpu_unet_torch.ops.kernels.int8_conv import conv3x3_int8, pack_weights, pad_cout
+from tpu_unet_torch.ops.kernels.up_concat import level_up_plain, requant, up_concat_int8
 from tpu_unet_torch.ops.resize import interp_axis, interp_rows, upsample2x_rows
 from tpu_unet_torch.parallel import spatial
 from tpu_unet_torch.utils.spans import span
@@ -89,6 +96,16 @@ _GRID_NODE = re.compile(r"^x(\d+)_(\d+)$")  # UNet++ node names
 # torch._int_mm needs more than 16 rows and both dims a multiple of 8).
 _MM_MULTIPLE = 8
 _MM_MIN_ROWS = 17
+
+# Up blocks run through the one-pass concat operator and through the
+# composed ops (_QuantExec.up_block), since the last reset.
+COUNTERS = {"fused_up_blocks": 0, "composed_up_blocks": 0}
+_COUNTERS_LOCK = threading.Lock()  # serving replicas run on threads of their own
+
+
+def _count(route: str) -> None:
+    with _COUNTERS_LOCK:
+        COUNTERS[route] += 1
 
 
 def _nchw(x: torch.Tensor) -> torch.Tensor:
@@ -322,7 +339,10 @@ class _QuantExec:
     """int8 forward over the quantized tree. Tensors flow as (q_int8, scale)
     with NHWC int8 data and 0-dim float32 scales on the same device."""
 
-    conv3x3 = staticmethod(conv3x3_int8)  # chip_smoke.py swaps in the plain version
+    # chip_smoke.py swaps in the plain versions
+    conv3x3 = staticmethod(conv3x3_int8)
+    up_concat = staticmethod(up_concat_int8)
+    _requant = staticmethod(requant)
 
     def __init__(self, qparams):
         self.layers = qparams["layers"]
@@ -379,10 +399,6 @@ class _QuantExec:
         finally:
             self.layers, self.scales, self._consts = saved
 
-    @staticmethod
-    def _requant(y_f32, scale, lo=-127):
-        return torch.round(y_f32 / scale).clamp_(lo, 127).to(torch.int8)
-
     def input(self, x):
         s = self.scales["input"]
         return self._requant(x, s), s
@@ -432,15 +448,16 @@ class _QuantExec:
         x, s_in = xs
         if not _has(self.layers, up_path):
             return self._requant(_upsample2x_nhwc(x.to(torch.float32), level) * s_in, s_cat)
-        c = self._leaf(up_path, s_in, "up")
-        n, h, w, cin = x.shape
-        cout = c["cout"]
-        acc = _int_matmul(x.reshape(-1, cin), c["kernel"], 4 * cout)
-        y = acc.to(torch.float32) * c["scale"]
-        y = y + c["bias"]
-        q_up = self._requant(y, s_cat).view(n, h, w, 2, 2, cout)
-        q_up = q_up.permute(0, 1, 3, 2, 4, 5).reshape(n, 2 * h, 2 * w, cout)
+        c, acc = self._up_acc(xs, up_path)
+        q_up = level_up_plain(acc, c["scale"], c["bias"], s_cat, *x.shape[:3])
         return spatial.pad_rows(q_up, level, dim=1)
+
+    def _up_acc(self, xs, up_path):
+        """The transposed conv's constants and its int32 accumulator
+        (N*h*w, 4*Cout): one int8 matmul of the NHWC input."""
+        x, s_in = xs
+        c = self._leaf(up_path, s_in, "up")
+        return c, _int_matmul(x.reshape(-1, x.shape[3]), c["kernel"], 4 * c["cout"])
 
     def up_block(self, xs, skips, path, gated: bool = False, level: int = 0):
         x, s_in = xs
@@ -448,12 +465,22 @@ class _QuantExec:
         # Shared concat scale: the level-up quantizes straight to it, the
         # skip requants int8 -> int8 (or, gated, from the float gate).
         s_cat = self.scales[f"{path}/cat"]
+        up_path = f"{path}/up"
+        if (not gated and _has(self.layers, up_path) and spatial.current() is None
+                and tuple(skip.shape[1:3]) == (2 * x.shape[1], 2 * x.shape[2])):
+            # No gate, float island, pad or rows of a 'space' rank: the
+            # concat in one pass from the accumulator and the skip.
+            _count("fused_up_blocks")
+            c, acc = self._up_acc(xs, up_path)
+            cat = self.up_concat(skip, s_skip, acc, c["scale"], c["bias"], s_cat)
+            return self.double_conv((cat, s_cat), f"{path}/conv", level)
+        _count("composed_up_blocks")
         if gated:  # the gate in float on dequantized operands
             y = _gate_float(self.layers, x.to(torch.float32) * s_in,
                             skip.to(torch.float32) * s_skip, f"{path}/att", level)
         else:
             y = skip.to(torch.float32) * s_skip
-        q_up = _pad_to(self._level_up(xs, f"{path}/up", s_cat, level), skip)
+        q_up = _pad_to(self._level_up(xs, up_path, s_cat, level), skip)
         cat = torch.cat([self._requant(y, s_cat), q_up], dim=-1)
         return self.double_conv((cat, s_cat), f"{path}/conv", level)
 

@@ -5,10 +5,12 @@ deployment without the model code or the checkpoint.
 ``torch.export`` programs, and :func:`load_artifact` turns the directory back
 into a working :class:`~tpu_unet_torch.serve.AnomalyScorer` or
 :class:`~tpu_unet_torch.serve.SegmentationPredictor` that imports no model
-code and reads no checkpoint. The kernels are the exception: K1 and K2 are
-the operators ``tpu_unet_torch::normalize_u8`` and
-``tpu_unet_torch::conv3x3_int8``, which this module's imports register, and
-a loaded program launches them (or, on the CPU, their plain versions).
+code and reads no checkpoint. The kernels are the exception: K1, K2 and the
+int8 up block's concat are the operators ``tpu_unet_torch::normalize_u8``,
+``tpu_unet_torch::conv3x3_int8`` and ``tpu_unet_torch::up_concat_int8``,
+which this module's imports register, and a loaded program launches them
+(or, on the CPU, their plain versions). An int8 program exported before the
+concat operator existed holds the composed ops instead and loads as it did.
 
 Layout:
 
@@ -36,7 +38,7 @@ platform, as the JAX package lowers one module per platform:
 program is traced; another platform's is the same graph moved by
 ``torch.export.passes.move_to_device_pass`` (which needs a GPU when it moves
 to ``cuda``). The weights are the engine's, the int8 constants those of its
-own calibration, and K1 and K2, operators that dispatch by device, run their
+own calibration, and the kernels, operators that dispatch by device, run their
 plain versions in a CPU program (they are exact: the CPU program of an int8
 engine gives the CUDA program's activations). ``load_artifact`` runs the
 programs of its device's type and raises, naming the artifact's platforms,
@@ -56,7 +58,7 @@ import torch
 from torch.export.passes import move_to_device_pass
 
 from tpu_unet_torch.core.device import resolve_device
-from tpu_unet_torch.ops.kernels import int8_conv, preprocess  # noqa: F401 — registers K1 and K2
+from tpu_unet_torch.ops.kernels import int8_conv, preprocess, up_concat  # noqa: F401 — ops
 from tpu_unet_torch.serve import AnomalyScorer, SegmentationPredictor
 
 _META_NAME = "meta.json"
