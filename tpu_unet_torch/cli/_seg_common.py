@@ -106,12 +106,15 @@ def cli_device(name: str) -> torch.device:
 
 def check_train_flags(args, height: Optional[int] = None) -> int:
     """The run's world size (joining a launched group: ``--n_devices``
-    times ``--n_space`` times ``--n_model`` ranks); ValueError for an image
+    times ``--n_space`` times ``--n_model`` ranks); ValueError for a
+    transunet with ``--n_space`` or ``--n_model`` above 1
+    (``models/unet.py::check_model_flags``) and for an image
     ``height`` that ``--n_space`` does not divide, as the JAX package's
     (``parallel/spatial.py::check_rows``), SystemExit for a
     ``--batch_size`` that does not split over the data ranks and
     ``--grad_accum``."""
-    check_model_flags(args.model, args.deep_supervision)
+    check_model_flags(args.model, args.deep_supervision, n_space=args.n_space,
+                      n_model=args.n_model)
     if height is not None:
         check_rows(height, args.n_space)
     world = cli_world(args, cli_device(args.device).type)
@@ -236,7 +239,8 @@ def train_seg(args, workload: Workload, train_ds, val_ds, num_classes: int,
     model = build_model(args.model, n_channels=3, n_classes=num_classes,
                         bilinear=args.bilinear, dropout=args.dropout,
                         policy=get_policy(args.precision), base_features=args.base_features,
-                        deep_supervision=args.deep_supervision)
+                        deep_supervision=args.deep_supervision,
+                        image_size_hw=workload.image_size_hw(args))
     state = create_train_state(model, args.optimizer, args.learning_rate,
                                args.weight_decay, device=device)
     total_params = num_params(state)

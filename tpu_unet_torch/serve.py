@@ -70,6 +70,7 @@ from tpu_unet_torch.core.precision import get_policy
 from tpu_unet_torch.data.transforms import load_image_rgb
 from tpu_unet_torch.metrics.anomaly import anomaly_score
 from tpu_unet_torch.models import build_model
+from tpu_unet_torch.models.unet import TRANSUNET_NAMES
 from tpu_unet_torch.ops.augment import eval_transform
 from tpu_unet_torch.ops.fold_bn import fold_batchnorm
 from tpu_unet_torch.ops.quantize import (_QuantExec, _run, build_plan, chunk_calibration,
@@ -733,6 +734,9 @@ class SegmentationPredictor(_Engine):
         package's refusals: not with ``tile_hw``, and ``n_space`` must
         divide the height: ``parallel/spatial.py::check_rows``).
         """
+        if model_name in TRANSUNET_NAMES:
+            raise ValueError("SegmentationPredictor does not serve TransUNet: it trains "
+                             "through the segmentation train step alone")
         if quantize not in (None, "none", "int8"):
             raise ValueError(f"unsupported quantize mode {quantize!r}")
         if quantize == "int8" and model_name not in ("seg_unet", "unetpp", "attn_unet"):

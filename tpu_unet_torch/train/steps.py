@@ -78,6 +78,7 @@ from tpu_unet_torch.losses.segmentation import combined_segmentation_loss
 from tpu_unet_torch.metrics.anomaly import anomaly_error_map, anomaly_score
 from tpu_unet_torch.metrics.confusion import confusion_matrix_batch
 from tpu_unet_torch.models.blocks import checkpoint, remat_scope
+from tpu_unet_torch.models.transunet import refuse
 from tpu_unet_torch.ops.augment import (AugmentDraws, eval_transform,
                                         sample_augment_draws, train_transform)
 from tpu_unet_torch.ops.seg_head import sliced_argmax
@@ -172,6 +173,17 @@ def _rows(x: torch.Tensor, group, m: int, space=None) -> torch.Tensor:
     """This data rank's ``m`` rows of a global microbatch's per-row draw."""
     d = _data_coords(group, space)[1]
     return x[d * m:(d + 1) * m]
+
+
+Keep = Union[None, torch.Tensor, Tuple[torch.Tensor, ...]]
+
+
+def _map_keep(fn, keep: Keep) -> Keep:
+    """``fn`` of each mask of a model's dropout draw: None, one keep mask
+    (SegmentationUNet's) or a tuple of them (TransUNet's)."""
+    if keep is None:
+        return None
+    return fn(keep) if isinstance(keep, torch.Tensor) else tuple(fn(k) for k in keep)
 
 
 def _local_draws(d: AugmentDraws, group, m: int, space=None) -> AugmentDraws:
@@ -476,10 +488,11 @@ class SegTrainStep:
                              f"by grad_accum={self.grad_accum}")
 
     def draws(self, model, n: int, generator: torch.Generator
-              ) -> Tuple[List[AugmentDraws], List[Optional[torch.Tensor]]]:
-        """The augment draws and dropout keep masks of each microbatch of
-        the global batch whose rows this rank's ``n`` are, drawn in that
-        order, microbatch by microbatch."""
+              ) -> Tuple[List[AugmentDraws], List[Keep]]:
+        """The augment draws and dropout draws (the model's
+        ``sample_dropout``: a keep mask or a tuple of them) of each
+        microbatch of the global batch whose rows this rank's ``n`` are,
+        drawn in that order, microbatch by microbatch."""
         self._check_batch(n)
         m = n * _data_coords(self.group, self.space)[0] // self.grad_accum
         sample_dropout = getattr(model, "sample_dropout", None)
@@ -495,9 +508,10 @@ class SegTrainStep:
 
     def with_draws(self, state: TrainState, images_u8, labels,
                    draws: Union[AugmentDraws, List[AugmentDraws]],
-                   dropout: Union[None, torch.Tensor, List[Optional[torch.Tensor]]] = None):
+                   dropout: Union[Keep, List[Keep]] = None):
         """One optimizer update from the batch under the given draws: one
-        :class:`AugmentDraws` and one (N, C5) dropout keep mask, or a list of
+        :class:`AugmentDraws` and one dropout draw (the model's: an (N, C5)
+        keep mask, or TransUNet's tuple of masks), or a list of
         ``grad_accum`` of each, for microbatches of the global batch.
         ``dropout=None`` is only for a model without dropout. Returns the
         loss scalars (the mean over microbatches) and
@@ -513,12 +527,14 @@ class SegTrainStep:
             draws = [draws] if isinstance(draws, AugmentDraws) else list(draws)
             if dropout is None:
                 dropout = [None] * g
-            elif isinstance(dropout, torch.Tensor):
+            elif not isinstance(dropout, list):
                 dropout = [dropout]
             if len(draws) != g or len(dropout) != g:
                 raise ValueError(f"{len(draws)} draw sets and {len(dropout)} dropout masks "
                                  f"for grad_accum={g}")
             model = state.model.train()
+            if space is not None:
+                refuse(model, "the 'space' axis")
             with span("train.optimizer"):
                 state.optimizer.zero_grad(set_to_none=True)
             losses: List[Dict[str, torch.Tensor]] = []
@@ -537,10 +553,9 @@ class SegTrainStep:
                                                **self.aug_cfg.transform_kwargs())
                     img = spatial.split_rows(img, space)
                     lbl = spatial.split_rows(lbl[..., 0], space).to(torch.int64)
-                    if keep is not None:
-                        keep = keep.to(device)
-                        keep = (keep if self.group is None
-                                else _rows(keep, self.group, rows, space))
+                    keep = _map_keep(lambda k: k.to(device), keep)
+                    if self.group is not None:
+                        keep = _map_keep(lambda k: _rows(k, self.group, rows, space), keep)
                 with spatial.scope(space, height):
                     with span("train.forward"):
                         logits = _remat_call(self.remat,
@@ -615,6 +630,8 @@ def make_seg_eval_step(num_classes: int, loss_cfg: SegLossConfig = SegLossConfig
     def step(state: TrainState, images_u8, labels, valid=None):
         device = state.device
         model = state.model
+        if space is not None:
+            refuse(model, "the 'space' axis")
         was_training = model.training
         model.eval()
         try:

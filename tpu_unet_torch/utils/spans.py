@@ -31,7 +31,9 @@ Names the port uses: ``serve.request`` (each engine call) over
 (``ops/quantize.py::_run``) and ``kernel.k2`` for each call of
 ``conv3x3_int8``; ``train.step`` over ``train.augment``,
 ``train.forward``, ``train.loss``, ``train.backward``,
-``train.optimizer`` and ``train.confusion`` (seg); ``cli.train`` and
+``train.optimizer`` and ``train.confusion`` (seg); ``transunet.hybrid``,
+``transunet.embed``, ``transunet.encoder`` (over ``transunet.attention``)
+and ``transunet.decoder`` in TransUNet's forward; ``cli.train`` and
 ``cli.validate`` for the trainers' epoch passes.
 """
 
