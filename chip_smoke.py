@@ -282,6 +282,13 @@ UP_CONCAT_SHAPES = [(128, 16, 16, 512, 512), (128, 32, 32, 256, 256),
                     (128, 64, 64, 128, 128), (128, 128, 128, 64, 64),
                     (SEG_BATCH, 64, 32, 512, 512), (SEG_BATCH, 128, 64, 256, 256),
                     (SEG_BATCH, 256, 128, 128, 128), (SEG_BATCH, 512, 256, 64, 64)]
+# The train cells' augments (port_bench/configs): (cell, (N, H, W), the
+# AugmentConfig keywords other than the defaults), each with a uint8 mask.
+AUGMENT_CASES = [("anomaly_train_bf16_b16", (16, 256, 256), {}),
+                 ("kolektorsdd_train_bf16_b8", (SEG_BATCH, 1024, 512), {"degrees": 5.0}),
+                 ("transunet_kolektorsdd_train_bf16_b16", (16, 1024, 512),
+                  {"degrees": 20.0, "brightness": 0.0, "contrast": 0.0, "saturation": 0.0,
+                   "hue": 0.0})]
 # (H, W, Cin, Cout) of SegmentationUNet's 18 3x3 convs at base 64, in order:
 # encoder inc, down1..down4, then the one decoder up1..up4; at KolektorSDD's
 # 1024 x 512 and at Gear's 512 x 512.
@@ -356,13 +363,14 @@ def cuda_ms(torch, fn, iters, warmup=1):
     return start.elapsed_time(end) / iters, out
 
 
-def kernel_records_ms(torch, calls, key, reps):
+def kernel_records_ms(torch, calls, key, reps, per_call=1):
     """The kernel's own device time in ms for each function of ``calls``,
     from the profiler's kernel records: each runs once to warm up, then
     ``reps`` times in turn in one profiled window, and the kernels whose
-    name holds ``key`` are read in launch order (one per call), averaged per
-    function. ``cuda_ms`` times the operator's host calls back to back, so
-    any host cost above the kernel's time counts there and not here."""
+    name holds ``key`` are read in launch order (``per_call`` per call),
+    averaged per function. ``cuda_ms`` times the operator's host calls back
+    to back, so any host cost above the kernel's time counts there and not
+    here."""
     from torch.profiler import ProfilerActivity, profile
     for fn in calls:
         fn()
@@ -375,9 +383,11 @@ def kernel_records_ms(torch, calls, key, reps):
     kernels = sorted((e for e in prof.events()
                       if e.device_type == torch.autograd.DeviceType.CUDA and key in e.name),
                      key=lambda e: e.time_range.start)
-    check(len(kernels) == len(calls) * reps,
-          f"{len(kernels)} {key} kernel records for {len(calls)} x {reps} calls")
-    return [sum(e.time_range.elapsed_us() for e in kernels[i * reps:(i + 1) * reps])
+    k = reps * per_call
+    check(len(kernels) == len(calls) * k,
+          f"{len(kernels)} {key} kernel records for {len(calls)} x {reps} calls "
+          f"({per_call} a call)")
+    return [sum(e.time_range.elapsed_us() for e in kernels[i * k:(i + 1) * k])
             / reps / 1e3 for i in range(len(calls))]
 
 
@@ -430,6 +440,7 @@ def _train_category(kernel_name):
                       (("adam", "sgd"), "optimizer"),
                       (("nccl",), "NCCL collectives"),
                       (("batch_norm", "batchnorm"), "BatchNorm"),
+                      (("augment_",), "the one-pass augment"),
                       (("elementwise", "reduce", "copy", "cat", "index", "where", "fill",
                         "max_pool", "pool", "sigmoid", "clamp"), "elementwise / policy glue")):
         if any(k in name for k in keys):
@@ -1014,6 +1025,8 @@ def phase_train(torch, np, report):
     train and eval paths."""
     from tpu_unet_torch.core.precision import get_policy
     from tpu_unet_torch.models import build_model
+    from tpu_unet_torch.ops import augment as ta
+    from tpu_unet_torch.ops.kernels.augment import augment_u8
     from tpu_unet_torch.ops.kernels.int8_conv import conv3x3_int8
     from tpu_unet_torch.ops.kernels.preprocess import normalize_u8
     from tpu_unet_torch.train.state import create_train_state, num_params
@@ -1038,15 +1051,20 @@ def phase_train(torch, np, report):
     probe_draws = step.draws(b, g)
 
     # --- the train path: counters zeroed just before, read just after --------
-    normalize_u8.launches = conv3x3_int8.launches = 0
+    # 25 steps (the probe twice, 3 warm-up, 20 timed), each augment one fused
+    # call: its geometry and jitter kernels.
+    normalize_u8.launches = conv3x3_int8.launches = augment_u8.launches = 0
+    ta.COUNTERS.update(fused=0, composed=0)
     first = step.with_draws(state, images, masks, probe_draws)
     step_ms, median_ms, losses = _timed_steps(torch, np, step, state, images, masks, g,
                                               warmup=3, steps=20)
     last = step.with_draws(state, images, masks, probe_draws)
     train_launches = {"normalize_u8": normalize_u8.launches,
-                      "conv3x3_int8": conv3x3_int8.launches}
-    check(train_launches == {"normalize_u8": 0, "conv3x3_int8": 0},
-          f"the train step launched {train_launches} (want no K1 and no K2)")
+                      "conv3x3_int8": conv3x3_int8.launches, "augment_u8": augment_u8.launches}
+    check(train_launches == {"normalize_u8": 0, "conv3x3_int8": 0, "augment_u8": 2 * 25}
+          and ta.COUNTERS == {"fused": 25, "composed": 0},
+          f"the train step launched {train_launches} and its augment took {ta.COUNTERS} "
+          f"(want no K1, no K2, 50 augment kernels and 25 fused calls of 25)")
     # -------------------------------------------------------------------------
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     for k, v in losses.items():
@@ -1082,18 +1100,31 @@ def phase_train(torch, np, report):
 
     # The augment layer alone (train_transform of the batch and its masks),
     # profiled: its device busy time, and its wall time, which the host's
-    # launches set when nothing else is queued.
-    from tpu_unet_torch.ops.augment import sample_augment_draws, train_transform
+    # launches set when nothing else is queued. Under the shear modes the
+    # one-pass kernel beside the composed ops it replaced (phase 6b times the
+    # kernel against its bound at the three train cells' shapes).
     augment = {}
-    for mode in ("per_batch_shear", "per_sample", "per_sample_shear"):
+    for mode in ("per_batch_shear", "per_sample_shear", "per_sample"):
         cfg = AugmentConfig(rotation_mode=mode)
-        draws = sample_augment_draws(b, cfg, g)
-        p = device_breakdown(torch, lambda: train_transform(
-            images, masks, draws, **cfg.transform_kwargs()), n_calls=10, top=3,
-            category=_train_category)
-        augment[mode] = {"device_busy_ms": p["device_busy_ms"], "wall_ms": p["wall_ms"],
-                         "top_kernels_ms": p["top_kernels_ms"]}
-    print("[train] augment alone (train_transform, b16 images and masks), per call: "
+        draws = ta.sample_augment_draws(b, cfg, g)
+        kw = cfg.transform_kwargs()
+        routes = {"composed": ta.train_transform_composed}
+        if mode != "per_sample":
+            routes["fused"] = ta.train_transform
+        for route, fn in routes.items():
+            ta.COUNTERS.update(fused=0, composed=0)
+            launches = augment_u8.launches
+            p = device_breakdown(torch, lambda: fn(images, masks, draws, **kw), n_calls=10,
+                                 top=3, category=_train_category)
+            if route == "fused":
+                check(ta.COUNTERS == {"fused": 11, "composed": 0}
+                      and augment_u8.launches == launches + 22,
+                      f"{mode}: train_transform took {ta.COUNTERS}, "
+                      f"{augment_u8.launches - launches} kernel launches (want 11 fused, 22)")
+            augment[f"{mode}.{route}"] = {
+                "device_busy_ms": p["device_busy_ms"], "wall_ms": p["wall_ms"],
+                "top_kernels_ms": p["top_kernels_ms"]}
+    print("[train] augment alone (b16 images and masks), per call: "
           + ", ".join(f"{m} device busy {a['device_busy_ms']:.3f} ms of {a['wall_ms']:.3f} "
                       f"ms wall" for m, a in augment.items()), flush=True)
 
@@ -1146,6 +1177,82 @@ def phase_train(torch, np, report):
     del state, outs
     torch.cuda.empty_cache()
     return {"train_step": train_launches, "eval_step": eval_launches}
+
+
+def phase_augment(torch, report):
+    """Phase 6b: the one-pass augment at AUGMENT_CASES under both shear
+    modes: the mask bit for bit and the image within 5e-6 of the composed
+    ops (2e-6 without jitter; tests/test_torch_augment_fused.py's readings),
+    bit for bit its plain version without contrast (with it the mean's
+    summation order is the kernel's own); then timed: the operator (events
+    around back-to-back calls), its kernel records (geometry, and jitter
+    with contrast), the composed ops it replaced, and two byte bounds. The
+    function's: the uint8 image read, the float32 image written, the mask
+    read and written. The design's, with contrast: 24 B a pixel more, the
+    float32 image the geometry kernel writes and the jitter kernel reads
+    and writes again."""
+    from tpu_unet_torch.ops import augment as ta
+    from tpu_unet_torch.ops.kernels.augment import ROTATION_MODES, augment_u8_plain
+    from tpu_unet_torch.train.steps import AugmentConfig
+
+    rows = []
+    for i, (cell, (n, h, w), over) in enumerate(AUGMENT_CASES):
+        g = torch.Generator(device="cuda").manual_seed(600 + i)
+        images = torch.randint(0, 256, (n, h, w, 3), generator=g, device="cuda",
+                               dtype=torch.uint8)
+        masks = torch.randint(0, 3, (n, h // 8, w // 8, 1), generator=g, device="cuda",
+                              dtype=torch.uint8).repeat_interleave(8, 1).repeat_interleave(8, 2)
+        for mode in ROTATION_MODES:
+            cfg = AugmentConfig(rotation_mode=mode, **over)
+            kw = cfg.transform_kwargs()
+            draws = ta.sample_augment_draws(n, cfg, g)
+            jitter = any(getattr(cfg, k) > 0 for k in ("brightness", "contrast", "saturation",
+                                                       "hue"))
+
+            def fused():
+                return ta.train_transform(images, masks, draws, **kw)
+
+            def composed():
+                return ta.train_transform_composed(images, masks, draws, **kw)
+
+            ta.COUNTERS.update(fused=0, composed=0)
+            (got, got_m), (want, want_m) = fused(), composed()
+            check(ta.COUNTERS["fused"] == 1, f"{cell} {mode}: train_transform took {ta.COUNTERS}")
+            err = float((got - want).abs().max())
+            check(torch.equal(got_m, want_m) and err <= (5e-6 if jitter else 2e-6),
+                  f"{cell} {mode}: the one-pass augment differs from the composed ops (image "
+                  f"by {err:.3g}, masks equal: {torch.equal(got_m, want_m)})")
+            if not cfg.contrast > 0:
+                plain, plain_m = augment_u8_plain(images, masks, draws, degrees=cfg.degrees,
+                                                  brightness=cfg.brightness, contrast=0.0,
+                                                  saturation=cfg.saturation, hue=cfg.hue,
+                                                  rotation_mode=mode)
+                check(torch.equal(got, plain) and torch.equal(got_m, plain_m),
+                      f"{cell} {mode}: the kernel differs from its plain version")
+                del plain, plain_m
+            del got, got_m, want, want_m
+            k_ms, _ = cuda_ms(torch, fused, iters=20, warmup=3)
+            c_ms, _ = cuda_ms(torch, composed, iters=3)
+            per_call = 1 + (cfg.contrast > 0)
+            rec_ms, = kernel_records_ms(torch, [fused], "augment_", reps=10, per_call=per_call)
+            px = n * h * w
+            need = px * (3 + 12 + 2 * masks.element_size() * masks.shape[-1])
+            b_ms, _ = bound_ms(need, 0, PEAK_F32_FLOPS)
+            d_ms, _ = bound_ms(need + 24 * px * (per_call - 1), 0, PEAK_F32_FLOPS)
+            rows.append({"cell": cell, "shape": [n, h, w], "rotation_mode": mode,
+                         "degrees": cfg.degrees, "contrast": cfg.contrast, "kernels": per_call,
+                         "kernel_ms": k_ms, "kernel_record_ms": rec_ms, "composed_ms": c_ms,
+                         "bytes": need, "bound_ms": b_ms, "pct_of_bound": 100 * b_ms / rec_ms,
+                         "bound_ms_design": d_ms,
+                         "pct_of_design_bound": 100 * d_ms / rec_ms, "max_abs_err": err})
+            print(f"[augment] {cell} ({n}, {h}, {w}) {mode}, {cfg.degrees:g} degrees, "
+                  f"{per_call} kernel(s): operator {k_ms:.4f} ms, kernel records {rec_ms:.4f} "
+                  f"ms, composed {c_ms:.2f} ms; bound {1e3 * b_ms:.1f} us ({need / 1e6:.1f} MB), "
+                  f"{100 * b_ms / rec_ms:.1f}% of it (the design's {1e3 * d_ms:.1f} us: "
+                  f"{100 * d_ms / rec_ms:.1f}%); masks bit for bit, image within {err:.3g}",
+                  flush=True)
+        del images, masks
+    report["augment"] = {"rows": rows}
 
 
 def _state_dict_errs(sd_cpu, sd_gpu):
@@ -1760,11 +1867,13 @@ def _seg_dataset(torch, np, report_out, legs, name, train_mod, test_mod, data_ro
     epoch's train loss must be below the first's. Returns the experiment
     directory, the flags common to training and testing, and the datasets."""
     from tpu_unet_torch.cli import _seg_common as seg
+    from tpu_unet_torch.ops import augment as ta
+    from tpu_unet_torch.ops.kernels.augment import augment_u8
     from tpu_unet_torch.ops.kernels.int8_conv import conv3x3_int8
     from tpu_unet_torch.ops.kernels.preprocess import normalize_u8
     from tpu_unet_torch.train.loop import validate_seg_epoch
 
-    kernels = (normalize_u8, conv3x3_int8)
+    kernels = (normalize_u8, conv3x3_int8, augment_u8)
     dev = torch.device("cuda")
     common = ["--data_root", data_root, "--batch_size", str(SEG_BATCH), "--num_workers", "4",
               "--device", "cuda", *model_flags]
@@ -1782,8 +1891,16 @@ def _seg_dataset(torch, np, report_out, legs, name, train_mod, test_mod, data_ro
     n_test = -(-len(test_ds) // SEG_BATCH)
 
     exp = os.path.join(tmp, "runs", name)
+    # Every train step's augment one fused call a microbatch: its geometry
+    # kernel, and its jitter kernel where contrast is on.
+    aug_calls = n_steps * args.grad_accum
+    aug_launches = aug_calls * (1 + (workload.augment.contrast > 0))
     spans = _SegSpans(torch, kernels, profile_epoch=profile_epoch)
+    ta.COUNTERS.update(fused=0, composed=0)
     results = seg.train_seg(args, workload, train_ds, val_ds, n_classes, dev, exp, span=spans)
+    check(ta.COUNTERS == {"fused": epochs * aug_calls, "composed": 0},
+          f"{name}: the train steps' augment took {ta.COUNTERS} (want {epochs * aug_calls} "
+          f"fused, 0 composed)")
     with open(os.path.join(exp, "results", "history.jsonl")) as f:
         hist = [json.loads(line) for line in f]
     check([h_["epoch"] for h_ in hist] == list(range(epochs)), f"{name} history {hist}")
@@ -1791,9 +1908,10 @@ def _seg_dataset(torch, np, report_out, legs, name, train_mod, test_mod, data_ro
     rows = []
     for e, hrow in enumerate(hist):
         tr, va = spans.rows["train", e], spans.rows["validate", e]
-        check(tr["normalize_u8"] == tr["conv3x3_int8"] == 0,
-              f"{name} epoch {e}'s train steps launched {tr} (want no kernel)")
-        check(va["normalize_u8"] == n_val and va["conv3x3_int8"] == 0,
+        check(tr["normalize_u8"] == tr["conv3x3_int8"] == 0 and tr["augment_u8"] == aug_launches,
+              f"{name} epoch {e}'s train steps launched {tr} (want no K1 or K2 and "
+              f"{aug_launches} augment kernels)")
+        check(va["normalize_u8"] == n_val and va["conv3x3_int8"] == va["augment_u8"] == 0,
               f"{name} validation launched {va} for {n_val} batches (want K1 once per batch)")
         for k in ("total_loss", "ce_loss", "dice_loss", "val_loss"):
             check(np.isfinite(hrow[k]), f"{name} epoch {e} {k} = {hrow[k]}")
@@ -4944,6 +5062,7 @@ def main():
     timed("3b up concat", phase_up_concat, torch, report)
     launches = timed("4-5 serving", phase_main_path, torch, np, report)
     path_launches = {"serve": launches, **timed("6 train", phase_train, torch, np, report)}
+    timed("6b augment", phase_augment, torch, report)
     timed("7 train cpu vs card", phase_train_cpu_vs_card, torch, np, report)
     # Phases 8-10 decode without a pack (their cold epochs measure decoding);
     # phase 12 sets its own pack directory under TMPDIR. Nothing is written
@@ -5021,6 +5140,22 @@ def main():
          "plain_ms": up["plain_ms"], "bound_ms": up["bound_ms"], "bound_by": "bytes",
          "library_ms": None, "shape": "the 4 score-path up blocks at batch 128, summed",
          "seg": [r for r in up["rows"] if r["n"] == SEG_BATCH]})
+    seg_aug = next(r for r in report["augment"]["rows"]
+                   if r["cell"] == "kolektorsdd_train_bf16_b8"
+                   and r["rotation_mode"] == "per_batch_shear")
+    kernels.append(
+        {"name": "augment_u8", "route": "cuda", "source": "tpu_unet_torch/csrc/augment_u8.cu",
+         "replaces": None, "launches": path_launches["train_step"]["augment_u8"],
+         "launches_by_path": {p: c["augment_u8"] for p, c in path_launches.items()
+                              if "augment_u8" in c},
+         "max_abs_err": max(r["max_abs_err"] for r in report["augment"]["rows"]),
+         "ms": seg_aug["kernel_ms"], "kernel_record_ms": seg_aug["kernel_record_ms"],
+         "plain_ms": seg_aug["composed_ms"], "bound_ms": seg_aug["bound_ms"],
+         "bound_by": "bytes", "bound_ms_design": seg_aug["bound_ms_design"],
+         "library_ms": None,
+         "shape": "(8,1024,512,3) u8 and a (8,1024,512,1) u8 mask -> f32, per_batch_shear; "
+                  "plain_ms is the composed ops it replaced",
+         "rows": report["augment"]["rows"]})
     report["kernels"] = kernels
     smi = nvidia_smi_line()
     report["nvidia_smi"] = smi

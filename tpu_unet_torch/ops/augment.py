@@ -7,8 +7,12 @@ does the rest.
   on CUDA tensors and its plain version on CPU tensors.
 - ``train_transform``: to-float, paired geometry (one flip decision and one
   rotation per image, bilinear on the image, nearest on the mask), colour
-  jitter, normalize; plain PyTorch ops, as the JAX package computes it in
-  plain XLA.
+  jitter, normalize. CUDA uint8 images under the shear rotation modes with
+  the fixed jitter order take one hand-written pass
+  (``ops/kernels/augment.py``, ``csrc/augment_u8.cu``); every other call
+  (CPU tensors, the 4-corner 'per_sample' rotation, random-order jitter)
+  takes :func:`train_transform_composed`, PyTorch ops in the order the JAX
+  package computes them in plain XLA. :data:`COUNTERS` counts the two routes.
 
 Randomness: the JAX package draws from keys inside its transforms. Here the
 draws are an argument, an :class:`AugmentDraws` that
@@ -30,6 +34,10 @@ from tpu_unet_torch.ops.rotate_shear import (rotate_batch_shear,
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
+
+# train_transform calls through the one-pass kernel and through the composed
+# ops, since the last reset.
+COUNTERS = {"fused": 0, "composed": 0}
 
 # The 24 orders of (brightness, contrast, saturation, hue), indexed as the
 # JAX package's lax.switch branches.
@@ -303,7 +311,28 @@ def train_transform(images_u8: torch.Tensor, masks: Optional[torch.Tensor],
                     saturation: float = 0.1, hue: float = 0.05,
                     rotation_mode: str = "per_sample",
                     color_jitter_random_order: bool = False):
-    """uint8 NHWC -> augmented, normalized float32 NHWC, and the paired mask."""
+    """uint8 NHWC -> augmented, normalized float32 NHWC, and the paired mask
+    in its own dtype: through the one-pass kernel where it takes the call,
+    else through :func:`train_transform_composed`."""
+    from tpu_unet_torch.ops.kernels import augment as fused
+    route = ("fused" if fused.takes(images_u8, masks, rotation_mode, color_jitter_random_order)
+             else "composed")
+    COUNTERS[route] += 1
+    kw = dict(degrees=degrees, brightness=brightness, contrast=contrast,
+              saturation=saturation, hue=hue, rotation_mode=rotation_mode)
+    if route == "fused":
+        return fused.augment_u8(images_u8, masks, draws, **kw)
+    return train_transform_composed(images_u8, masks, draws, **kw,
+                                    color_jitter_random_order=color_jitter_random_order)
+
+
+def train_transform_composed(images_u8: torch.Tensor, masks: Optional[torch.Tensor],
+                             draws: AugmentDraws, *, degrees: float = 10.0,
+                             brightness: float = 0.1, contrast: float = 0.1,
+                             saturation: float = 0.1, hue: float = 0.05,
+                             rotation_mode: str = "per_sample",
+                             color_jitter_random_order: bool = False):
+    """:func:`train_transform` as PyTorch ops, on any device and in every mode."""
     img = to_float(images_u8)
     img, masks = paired_geometric_augment(img, masks, draws, degrees=degrees,
                                           rotation_mode=rotation_mode)

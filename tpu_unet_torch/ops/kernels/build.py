@@ -47,6 +47,11 @@ KERNELS = {
     "up_concat_int8": ("up_concat_int8.cu", {
         "tpu_unet_up_concat_int8": [_P, _P, _P, _LL] + [_P] * 4 + [_I] * 5 + [_P],
     }),
+    "augment_u8": ("augment_u8.cu", {
+        "tpu_unet_augment_u8": ([_P] * 4 + [_I] + [_P] * 6 + [_I] * 2 + [_P] * 2 + [_I] * 8
+                                + [_F] * 6 + [_P]),
+        "tpu_unet_augment_u8_block_pixels": [],
+    }),
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
