@@ -99,8 +99,8 @@ def test_uint8_masks_keep_their_dtype(mode):
 @pytest.mark.parametrize("order", [0, 1])
 @pytest.mark.parametrize("shape", [(2, 24, 40, 3), (3, 70, 33, 1)])
 def test_rotations_match_jax(shape, order):
-    """The three rotations on their own, non-square shapes (several static tap
-    bands per pass in the per-sample shear), both interpolation orders."""
+    """The three rotations on their own, non-square shapes, both
+    interpolation orders."""
     rng = np.random.default_rng(order)
     x = rng.uniform(size=shape).astype(np.float32)
     if order == 0:
@@ -111,7 +111,7 @@ def test_rotations_match_jax(shape, order):
     pairs = [
         (trs.rotate_batch_shear(tx, ang[0], 10.0, order),
          jit(jrs.rotate_batch_shear, static_argnums=(2, 3))(x, angles[0], 10.0, order)),
-        (trs.rotate_batch_shear_per_sample(tx, ang, 10.0, order),
+        (trs.rotate_batch_shear_per_sample(tx, ang, order),
          jit(jrs.rotate_batch_shear_per_sample, static_argnums=(2, 3))(x, angles, 10.0, order)),
         (ta.rotate_batch(tx, ang, order),
          jit(ja.rotate_batch, static_argnums=(2,))(x, angles, order)),
@@ -123,16 +123,22 @@ def test_rotations_match_jax(shape, order):
             np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=0, atol=1e-5)
 
 
-def test_per_sample_shear_patch_cap(monkeypatch):
-    """A patch cap smaller than one tap's slab splits every band into chunks
-    of one tap; the result is the same."""
-    rng = np.random.default_rng(9)
-    x = torch.from_numpy(rng.uniform(size=(2, 32, 32, 3)).astype(np.float32))
-    ang = torch.tensor([7.5, -9.0])
-    whole = trs.rotate_batch_shear_per_sample(x, ang, 10.0)
-    monkeypatch.setattr(trs, "_PATCH_CHUNK_BYTES", 1)
-    chunked = trs.rotate_batch_shear_per_sample(x, ang, 10.0)
-    np.testing.assert_allclose(chunked.numpy(), whole.numpy(), rtol=0, atol=1e-6)
+@pytest.mark.parametrize("order", [0, 1])
+def test_one_rotation_takes_a_shared_or_per_image_angle(order):
+    """The gather rotation: an (N,) angle holding one value for every image
+    rotates as the 0-dim angle does, bit for bit, a float image and a uint8
+    mask alike."""
+    rng = np.random.default_rng(11 + order)
+    img = torch.from_numpy(rng.uniform(size=(3, 29, 41, 3)).astype(np.float32))
+    mask = torch.from_numpy((rng.uniform(size=(3, 29, 41, 1)) > 0.5).astype(np.uint8))
+    shared = torch.tensor(-7.3)
+    per_image = shared.expand(3).clone()
+    for x in (img, mask):
+        one = trs.rotate_batch_shear_per_sample(x, shared, order)
+        each = trs.rotate_batch_shear_per_sample(x, per_image, order)
+        assert torch.equal(one, each)
+    if order == 0:
+        assert trs.rotate_batch_shear_per_sample(mask, shared, order).dtype == torch.uint8
 
 
 @pytest.mark.parametrize("mode,angle_shape", [("per_batch_shear", ()),

@@ -9,10 +9,13 @@ a float32 and no mask, at odd sizes whose every stage crops; against the JAX
 package's ``train_transform`` under the same draws (each JAX case compiles
 its transform, 2-3 s); torch.library.opcheck and the fake shapes; the
 routes ``COUNTERS`` counts; the wrapper's refusals. Masks compare exactly.
-Images: a float32 rounding of the shear's two products or of the contrast
-mean differs by an ulp between the two paths; the geometry alone stays under
-1e-6, and the HSV round trip turns an ulp of its input into up to 3.4e-6 of
-normalized output (measured over these cases), so jitter-on cases hold 5e-6.
+Images: under 'per_sample_shear' both paths rotate by the gathers of
+``ops/rotate_shear.py`` and the geometry agrees bit for bit; under
+'per_batch_shear' the composed path's shear matmuls round the two products
+otherwise, and the geometry alone stays under 1e-6 (8.3e-7). The contrast
+mean's float32 rounding differs by an ulp between the two paths, and the HSV
+round trip turns an ulp of its input into up to 3.7e-6 of normalized output
+(measured over these cases), so jitter-on cases hold 5e-6.
 Against the JAX package the same two tolerances hold: over its cases the
 largest gaps read 9.5e-7 with jitter off and 3.7e-6 with it on (the
 composed path's gaps to JAX are the same).
@@ -273,8 +276,9 @@ def test_a_fused_route_runs_the_operator_and_counts_it(monkeypatch):
 
 # The train cells' shapes and augments: seg b8 1024x512 at 5 degrees, TransUNet
 # b16 1024x512 at 20 degrees without jitter, anomaly b16 256x256 at 10 degrees.
-# cuBLAS rounds the shear's two products otherwise than the CPU: the geometry
-# alone reads 1.19e-6 at TransUNet's shape.
+# Under 'per_batch_shear' the composed path's shear matmuls (cuBLAS) round the
+# two products otherwise: the geometry alone reads 1.19e-6 at TransUNet's
+# shape. Under 'per_sample_shear' it rotates by the gathers the kernel computes.
 CARD_ATOL = {"on": 5e-6, "off": 2e-6}
 CARD_CASES = [((8, 1024, 512), 5.0, "on", "u8"), ((16, 1024, 512), 20.0, "off", "u8"),
               ((16, 256, 256), 10.0, "on", "u8"), ((16, 256, 256), 10.0, "on", "f32"),

@@ -71,9 +71,9 @@ def add_common_args(parser):
                         help="torch.autograd.set_detect_anomaly (fail fast on NaN)")
     parser.add_argument("--rotation_mode", type=str, default="per_batch_shear",
                         choices=["per_sample", "per_sample_shear", "per_batch_shear"],
-                        help="Rotation augmentation: one angle per batch through "
-                             "shear matmuls (default, fast), per-sample banded "
-                             "shears, or per-sample gathers (reference numerics)")
+                        help="Rotation augmentation: three shears with one angle "
+                             "per batch (default, fast) or one per image, or "
+                             "per-sample 4-corner gathers (reference numerics)")
     parser.add_argument("--color_jitter_random_order", action="store_true",
                         help="Randomize the ColorJitter op order per step "
                              "(torchvision semantics)")

@@ -13,6 +13,10 @@ does the rest.
   (CPU tensors, the 4-corner 'per_sample' rotation, random-order jitter)
   takes :func:`train_transform_composed`, PyTorch ops in the order the JAX
   package computes them in plain XLA. :data:`COUNTERS` counts the two routes.
+  Under 'per_sample_shear' both routes rotate by ``ops/rotate_shear.py``'s
+  gathers (the composed route calls them, the kernel computes them); under
+  'per_batch_shear' the composed route multiplies by its dense shear
+  operators instead.
 
 Randomness: the JAX package draws from keys inside its transforms. Here the
 draws are an argument, an :class:`AugmentDraws` that
@@ -196,8 +200,8 @@ def paired_geometric_augment(images: torch.Tensor, masks: Optional[torch.Tensor]
 
     rotation_mode: 'per_sample' (one angle per image, the 4-corner gather:
     the reference's torchvision semantics), 'per_sample_shear' (one angle per
-    image, three K-tap banded shears) or 'per_batch_shear' (one angle for
-    the batch, three shear matmuls).
+    image, three cropped shears as gathers) or 'per_batch_shear' (one angle
+    for the batch, three shear matmuls).
     """
     flip = draws.flip[:, None, None, None]
     out_img = torch.where(flip, images.flip(2), images)
@@ -210,7 +214,7 @@ def paired_geometric_augment(images: torch.Tensor, masks: Optional[torch.Tensor]
         if rotation_mode == "per_batch_shear":
             rot = functools.partial(rotate_batch_shear, max_degrees=degrees)
         elif rotation_mode == "per_sample_shear":
-            rot = functools.partial(rotate_batch_shear_per_sample, max_degrees=degrees)
+            rot = rotate_batch_shear_per_sample
         elif rotation_mode == "per_sample":
             rot = rotate_batch
         else:

@@ -6,13 +6,13 @@ images under the shear rotation modes without random-order jitter (see
 normalized float32 NHWC batch, with the paired mask (uint8 or float32) moved
 by the same geometry, in one kernel, or two when contrast is on.
 
-The rotation is the composed path's three cropped shears
-(``ops/rotate_shear.py``) evaluated as a gather: an output pixel's value is
-8 taps a channel of the uint8 source through the three stages, a mask value
-one tap a stage at the shift rounded half to even. Contrast needs each
-image's mean gray value: the first kernel writes a partial sum per block of
-:data:`BLOCK_PIXELS` pixels, the second sums an image's partials in a fixed
-order and applies the rest of the jitter and normalize in place.
+The rotation is the three cropped shears of
+``ops/rotate_shear.py::rotate_batch_shear_per_sample``: an output pixel's
+value is 8 taps a channel of the uint8 source through the three stages, a
+mask value one tap a stage at the shift rounded half to even. Contrast needs
+each image's mean gray value: the first kernel writes a partial sum per
+block of :data:`BLOCK_PIXELS` pixels, the second sums an image's partials in
+a fixed order and applies the rest of the jitter and normalize in place.
 
 It replaces no TPU kernel: the JAX package computes this augment in plain
 XLA. :func:`augment_u8_plain` is the kernel's algorithm in plain PyTorch
@@ -32,6 +32,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from tpu_unet_torch.ops import rotate_shear
 from tpu_unet_torch.ops.augment import (IMAGENET_MEAN, IMAGENET_STD, AugmentDraws,
                                         _hsv_to_rgb, _rgb_to_gray, _rgb_to_hsv, normalize,
                                         to_float)
@@ -62,48 +63,9 @@ def takes(images_u8: torch.Tensor, masks: Optional[torch.Tensor], rotation_mode:
     return rotation_mode in ROTATION_MODES and not random_order
 
 
-def shear_coefficients(angle_deg: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The x- and y-shear coefficients ``-tan(theta / 2)`` and ``sin(theta)``
-    of an angle in degrees, with the composed path's ops."""
-    theta = torch.deg2rad(angle_deg.to(torch.float32))
-    return -torch.tan(theta / 2.0), torch.sin(theta)
-
-
 # ---------------------------------------------------------------------------
 # The plain version
 # ---------------------------------------------------------------------------
-
-def _shear_x(x: torch.Tensor, coef: torch.Tensor, nearest: bool) -> torch.Tensor:
-    """One cropped x-shear of (N, H, W, C): row y moves by s = coef * (y - (H
-    - 1) / 2), out[y, x] = (1 - f) in[y, x + l] + f in[y, x + l + 1] with l =
-    floor(s), f = s - l, zero where the column lies outside [0, W). Under
-    ``nearest`` the shift is rounded half to even and one tap is taken."""
-    n, h, w, c = x.shape
-    rows = torch.arange(h, dtype=torch.float32, device=x.device) - (h - 1) / 2.0
-    s = coef.reshape(-1, 1) * rows                          # (N or 1, H)
-    if nearest:
-        s = torch.round(s)
-    lo = torch.floor(s)
-    col = torch.arange(w, device=x.device) + lo.to(torch.int64)[..., None]  # (N or 1, H, W)
-
-    def take(idx):
-        inside = ((idx >= 0) & (idx < w)).expand(n, h, w)[..., None]
-        idx = idx.clamp(0, w - 1).expand(n, h, w)[..., None].expand(n, h, w, c)
-        return torch.where(inside, torch.gather(x, 2, idx),
-                           torch.zeros((), dtype=x.dtype, device=x.device))
-
-    if nearest:
-        return take(col)
-    f = (s - lo)[..., None, None]
-    return (1.0 - f) * take(col) + f * take(col + 1)
-
-
-def _rotate(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor, nearest: bool) -> torch.Tensor:
-    """The three cropped shears: x by ``a``, y by ``b``, x by ``a``."""
-    x = _shear_x(x, a, nearest)
-    x = _shear_x(x.transpose(1, 2), b, nearest).transpose(1, 2)
-    return _shear_x(x, a, nearest)
-
 
 def augment_u8_plain(images_u8: torch.Tensor, masks: Optional[torch.Tensor],
                      draws: AugmentDraws, *, degrees: float = 10.0,
@@ -119,10 +81,9 @@ def augment_u8_plain(images_u8: torch.Tensor, masks: Optional[torch.Tensor],
     x = torch.where(flip, x.flip(2), x)
     m = None if masks is None else torch.where(flip, masks.flip(2), masks)
     if degrees > 0:
-        a, b = shear_coefficients(draws.angle)
-        x = _rotate(x, a, b, nearest=False)
+        x = rotate_shear.rotate_batch_shear_per_sample(x, draws.angle, order=1)
         if m is not None:
-            m = _rotate(m, a, b, nearest=True)
+            m = rotate_shear.rotate_batch_shear_per_sample(m, draws.angle, order=0)
     if brightness > 0:
         x = torch.clamp(x * draws.fb, 0.0, 1.0)
     if contrast > 0:
@@ -191,7 +152,7 @@ def _launch(images_u8, masks, flip, angle, fb, fc, fs, fh, degrees, brightness, 
     out = torch.empty((n, h, w, 3), dtype=torch.float32, device=dev)
     rotate = degrees > 0
     if rotate:
-        a, b = (t.contiguous() for t in shear_coefficients(angle))
+        a, b = (t.contiguous() for t in rotate_shear.shear_coefficients(angle))
     else:
         a = b = out  # not read
     per = [t.reshape(n).contiguous() for t in (fb, fc, fs, fh)]

@@ -95,10 +95,10 @@ class AugmentConfig:
     contrast: float = 0.1
     saturation: float = 0.1
     hue: float = 0.05
-    # 'per_batch_shear' (default): one angle per batch, three shear matmuls;
-    # 'per_sample_shear': one angle per image, K-tap banded shears;
-    # 'per_sample': one angle per image, the 4-corner gather (reference
-    # semantics). See ops/rotate_shear.py.
+    # 'per_batch_shear' (default): one angle drawn per batch; 'per_sample_shear':
+    # one angle drawn per image; both rotate by three shears
+    # (ops/rotate_shear.py). 'per_sample': one angle drawn per image, rotated
+    # by the 4-corner gather (reference semantics).
     rotation_mode: str = "per_batch_shear"
     # torchvision draws the ColorJitter order per call; True does so per batch.
     color_jitter_random_order: bool = False
