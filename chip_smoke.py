@@ -32,11 +32,20 @@
    for bit, with accumulators that land on .5 ties and saturate; timed
    alone (operator and kernel records) beside its byte bound and the plain
    version (the composed PyTorch ops it replaces).
+   Then the BN-folded bf16 conv's epilogue (bias_relu_bf16) at every level
+   of the bf16 serving cells' forwards, AnomalyUNet's score path at b128,
+   256², and SegmentationUNet's at b1, 1024 x 512 (BIAS_RELU_SHAPES): kernel
+   against its plain version bit for bit (NaNs and signed zeros included),
+   timed beside its byte bound and the plain version (the composed chain it
+   replaces); the largest shape must reach 75% of its bound.
+   ``python3 chip_smoke.py bias_relu`` runs the build and this check alone.
 4. The main path at full width: AnomalyUNet(base_features=64) at 256², weights
    from a seed and BN statistics warmed on synthetic images, served by
    AnomalyScorer in bf16 and int8 (calibrated on 2 batches of 16) at batch
    128. The launch counters are zeroed just before and read just after:
-   K1 must run once per batch on both legs, K2 18 times and the up concat 4
+   K1 must run once per batch on both legs, the conv epilogue 18 times per
+   batch on the bf16 leg (every DoubleConv epilogue fused,
+   ``models/blocks.py::COUNTERS``), K2 18 times and the up concat 4
    times per batch on the int8 leg (every up block fused,
    ``ops/quantize.py::COUNTERS``). The first int8 batch's scores must equal,
    bit for bit, those of the same forward with the kernels' plain versions
@@ -282,6 +291,14 @@ UP_CONCAT_SHAPES = [(128, 16, 16, 512, 512), (128, 32, 32, 256, 256),
                     (128, 64, 64, 128, 128), (128, 128, 128, 64, 64),
                     (SEG_BATCH, 64, 32, 512, 512), (SEG_BATCH, 128, 64, 256, 256),
                     (SEG_BATCH, 256, 128, 128, 128), (SEG_BATCH, 512, 256, 64, 64)]
+# (N, C, H, W, convs) of the BN-folded bf16 conv epilogues of the bf16
+# serving cells, one row a level with the number of 3x3 convs there:
+# AnomalyUNet's score path at b128, 256², then SegmentationUNet's at b1,
+# 1024 x 512 (18 convs each).
+BIAS_RELU_SHAPES = [(128, 64, 256, 256, 4), (128, 128, 128, 128, 4), (128, 256, 64, 64, 4),
+                    (128, 512, 32, 32, 4), (128, 1024, 16, 16, 2),
+                    (1, 64, 1024, 512, 4), (1, 128, 512, 256, 4), (1, 256, 256, 128, 4),
+                    (1, 512, 128, 64, 4), (1, 1024, 64, 32, 2)]
 # The train cells' augments (port_bench/configs): (cell, (N, H, W), the
 # AugmentConfig keywords other than the defaults), each with a uint8 mask.
 AUGMENT_CASES = [("anomaly_train_bf16_b16", (16, 256, 256), {}),
@@ -421,6 +438,7 @@ def synth_images(torch, n, size, seed, device):
 def _category(kernel_name):
     for key, cat in (("conv3x3_int8", "K2 conv3x3_int8"), ("normalize_u8", "K1 normalize_u8"),
                      ("up_concat_int8", "up concat up_concat_int8"),
+                     ("bias_relu", "bias-ReLU epilogue bias_relu_bf16"),
                      ("fprop", "cuDNN conv"), ("dgrad", "cuDNN conv"),
                      ("gemm", "matmul (_int_mm)")):
         if key in kernel_name:
@@ -830,6 +848,67 @@ def phase_up_concat(torch, report):
     report["up_concat"] = {"rows": rows, **total}
 
 
+def _bias_relu_case(torch, n, c, h, w, seed):
+    """(y, bias) on the card: a bf16 conv output whose values spread over
+    both signs, with NaNs and signed zeros, and a float32 bias."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    y = torch.randn(n, c, h, w, generator=g, device="cuda")
+    pick = torch.rand(n, c, h, w, generator=g, device="cuda")
+    y[pick < 1e-3] = float("nan")
+    y[(pick >= 1e-3) & (pick < 0.01)] = -0.0
+    bias = torch.randn(c, generator=g, device="cuda") * 0.5
+    bias[::7] = -0.0
+    return y.to(torch.bfloat16).contiguous(memory_format=torch.channels_last), bias
+
+
+def phase_bias_relu(torch, report):
+    """The bf16 conv epilogue at BIAS_RELU_SHAPES in channels_last, as the
+    served models run it: bit for bit its plain version (NaNs and signed
+    zeros included), then timed: the operator (events around back-to-back
+    calls), its kernel records, the plain version (the composed chain it
+    replaces) and the byte bound (2 bytes read and 2 written per element,
+    plus the bias). Per cell, the sums over the 18 epilogues of a forward."""
+    from tpu_unet_torch.ops.kernels.bias_relu import bias_relu_bf16, bias_relu_bf16_plain
+    rows = []
+    for i, (n, c, h, w, convs) in enumerate(BIAS_RELU_SHAPES):
+        y, bias = _bias_relu_case(torch, n, c, h, w, seed=700 + i)
+        got, want = bias_relu_bf16(y, bias), bias_relu_bf16_plain(y, bias)
+        same = got.view(torch.int16) == want.view(torch.int16)
+        check(bool(same.all()) and got.stride() == want.stride(),
+              f"bias_relu_bf16 differs from its plain version at {(n, c, h, w)} "
+              f"({int((~same).sum())} values)")
+        del got, want, same
+        k_ms, _ = cuda_ms(torch, lambda: bias_relu_bf16(y, bias), iters=20, warmup=3)
+        p_ms, _ = cuda_ms(torch, lambda: bias_relu_bf16_plain(y, bias), iters=5)
+        rec_ms, = kernel_records_ms(torch, [lambda: bias_relu_bf16(y, bias)], "bias_relu",
+                                    reps=10)
+        b_ms, b_by = bound_ms(4 * y.numel() + 4 * c, 0, PEAK_INT8_OPS)
+        rows.append({"n": n, "c": c, "h": h, "w": w, "convs": convs, "kernel_ms": k_ms,
+                     "kernel_record_ms": rec_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "max_abs_err": 0})
+        print(f"[bias_relu] b{n} C {c} {h}x{w} ({4 * y.numel() / 1e9:.3f} GB): operator "
+              f"{k_ms:.4f} ms, kernel record {rec_ms:.4f} ms, plain {p_ms:.3f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by}), {100 * b_ms / rec_ms:.1f}% of bound (kernel record); "
+              f"bit-exact", flush=True)
+        del y, bias
+    totals = {}
+    for cell, batch in (("anomaly_serve_bf16_b128", 128), ("kolektorsdd_serve_bf16_b1", 1)):
+        path = [r for r in rows if r["n"] == batch]
+        totals[cell] = {k: sum(r[k] * r["convs"] for r in path)
+                        for k in ("kernel_ms", "kernel_record_ms", "plain_ms", "bound_ms")}
+        t = totals[cell]
+        print(f"[bias_relu] {cell}, the 18 epilogues of a forward: operator "
+              f"{t['kernel_ms']:.3f} ms, kernel records {t['kernel_record_ms']:.3f} ms, bound "
+              f"{t['bound_ms']:.3f} ms, {100 * t['bound_ms'] / t['kernel_record_ms']:.1f}% of "
+              f"bound; plain {t['plain_ms']:.2f} ms", flush=True)
+    largest = rows[0]
+    check(largest["bound_ms"] >= 0.75 * largest["kernel_record_ms"],
+          f"bias_relu_bf16 at b128 C 64 256² reaches "
+          f"{100 * largest['bound_ms'] / largest['kernel_record_ms']:.1f}% of its bound "
+          f"(want 75% or more)")
+    report["bias_relu"] = {"rows": rows, "per_cell": totals}
+
+
 def plain_exec(qparams):
     """The int8 executor over ``qparams`` with K2's and the up concat's plain
     versions in place of the kernels (the reference the card's int8 forwards
@@ -871,6 +950,8 @@ def phase_main_path(torch, np, report):
     from tpu_unet_torch.ops import quantize as tq
     from tpu_unet_torch.ops.kernels.int8_conv import conv3x3_int8
     from tpu_unet_torch.ops.kernels.preprocess import normalize_u8, normalize_u8_plain
+    from tpu_unet_torch.models import blocks
+    from tpu_unet_torch.ops.kernels.bias_relu import bias_relu_bf16
     from tpu_unet_torch.ops.kernels.up_concat import up_concat_int8
     from tpu_unet_torch.serve import AnomalyScorer
 
@@ -892,18 +973,26 @@ def phase_main_path(torch, np, report):
 
     # --- the main path: counters zeroed just before, read just after --------
     normalize_u8.launches = conv3x3_int8.launches = up_concat_int8.launches = 0
+    bias_relu_bf16.launches = 0
     tq.COUNTERS.update(fused_up_blocks=0, composed_up_blocks=0)
+    blocks.COUNTERS.update(fused_epilogues=0, composed_epilogues=0)
     s_bf16 = bf16.score_array(images)
     k1_bf16, k2_bf16 = normalize_u8.launches, conv3x3_int8.launches
     up_bf16 = up_concat_int8.launches
+    epilogues = dict(blocks.COUNTERS)
     s_int8 = int8.score_array(images)
     k1_total, k2_total = normalize_u8.launches, conv3x3_int8.launches
     launches = {"normalize_u8": k1_total, "conv3x3_int8": k2_total,
-                "up_concat_int8": up_concat_int8.launches}
+                "up_concat_int8": up_concat_int8.launches,
+                "bias_relu_bf16": bias_relu_bf16.launches}
     routes = dict(tq.COUNTERS)
     check(k1_bf16 == 3 and k2_bf16 == 0 and up_bf16 == 0,
           f"bf16 leg launched K1 {k1_bf16}x, K2 {k2_bf16}x, the up concat {up_bf16}x "
           f"(want 3, 0, 0)")
+    check(epilogues == {"fused_epilogues": 54, "composed_epilogues": 0}
+          and launches["bias_relu_bf16"] == 54,
+          f"bf16 leg's conv epilogues took the routes {epilogues} with "
+          f"{launches['bias_relu_bf16']} bias_relu_bf16 launches (want 54 fused, 54)")
     check(k1_total - k1_bf16 == 3 and k2_total - k2_bf16 == 54
           and launches["up_concat_int8"] == 12,
           f"int8 leg launched K1 {k1_total - k1_bf16}x, K2 {k2_total - k2_bf16}x, the up "
@@ -968,7 +1057,8 @@ def phase_main_path(torch, np, report):
         for k, ms, n in b["top_kernels_ms"]:
             print(f"[profile]   {ms:9.3f} ms  x{n:<4d} {k}")
     report["main_path"] = {
-        "launches": launches, "up_block_routes": routes, "corr_int8_f32": corr_int8,
+        "launches": launches, "up_block_routes": routes, "bf16_epilogue_routes": epilogues,
+        "corr_int8_f32": corr_int8,
         "median_rel_int8_f32": rel_int8, "corr_bf16_f32": corr_bf16,
         "median_rel_bf16_f32": rel_bf16,
         "throughput_img_per_s": tput, "latency_b1_ms": lat, "setup_s": setup_s,
@@ -5060,6 +5150,7 @@ def main():
     timed("2 K1", phase_k1, torch, report)
     timed("3 K2", phase_k2, torch, report)
     timed("3b up concat", phase_up_concat, torch, report)
+    timed("3c bias relu", phase_bias_relu, torch, report)
     launches = timed("4-5 serving", phase_main_path, torch, np, report)
     path_launches = {"serve": launches, **timed("6 train", phase_train, torch, np, report)}
     timed("6b augment", phase_augment, torch, report)
@@ -5140,6 +5231,16 @@ def main():
          "plain_ms": up["plain_ms"], "bound_ms": up["bound_ms"], "bound_by": "bytes",
          "library_ms": None, "shape": "the 4 score-path up blocks at batch 128, summed",
          "seg": [r for r in up["rows"] if r["n"] == SEG_BATCH]})
+    br = report["bias_relu"]
+    kernels.append(
+        {"name": "bias_relu_bf16", "route": "cuda",
+         "source": "tpu_unet_torch/csrc/bias_relu_bf16.cu",
+         "replaces": None, "launches": launches["bias_relu_bf16"],
+         "launches_by_path": {"serve": launches["bias_relu_bf16"]}, "max_abs_err": 0,
+         **br["per_cell"]["anomaly_serve_bf16_b128"], "bound_by": "bytes", "library_ms": None,
+         "shape": "the 18 score-path epilogues at batch 128, 256², channels_last, summed; "
+                  "plain_ms is the composed chain it replaced",
+         "latency_b1": br["per_cell"]["kolektorsdd_serve_bf16_b1"], "rows": br["rows"]})
     seg_aug = next(r for r in report["augment"]["rows"]
                    if r["cell"] == "kolektorsdd_train_bf16_b8"
                    and r["rotation_mode"] == "per_batch_shear")
@@ -5171,7 +5272,27 @@ def main():
     return 0
 
 
+def bias_relu_only():
+    """Phase 1's build and phase 3c alone (``python3 chip_smoke.py bias_relu``)."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: this phase needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    report = {"device": torch.cuda.get_device_name(0), "torch": torch.__version__}
+    phase_build(report)
+    warm_clocks(torch)
+    phase_bias_relu(torch, report)
+    report["nvidia_smi"] = nvidia_smi_line()
+    print(report["nvidia_smi"])
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke_bias_relu.json"), "w") as f:
+        json.dump(report, f, indent=1)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["bias_relu"]:
+        sys.exit(bias_relu_only())
     if sys.argv[1:2] == ["fsdp_widths"]:
         sys.exit(fsdp_widths())
     if sys.argv[1:2] == ["fsdp_width"]:

@@ -14,7 +14,10 @@ compute dtype with float32 parameters cast at use; the BN affine (or, once
 the result is cast back to the compute dtype. The transposed conv and the
 1x1 head add their bias in the compute dtype; heads return float32. The
 bilinear upsample runs in the compute dtype, as matmuls
-(``ops/resize.py``).
+(``ops/resize.py``). A BN-folded DoubleConv served in bf16 on the card runs
+that bias, ReLU and cast as one pass over the bf16 conv output
+(:func:`fuses_epilogue`, ``ops/kernels/bias_relu.py``), with the same
+arithmetic; ``COUNTERS`` counts the epilogues of the two routes.
 
 BatchNorm follows flax's, as the JAX blocks configure it: eps 1e-5; in train
 mode it normalizes by the batch's biased variance and moves the running
@@ -53,12 +56,22 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from tpu_unet_torch.core.precision import DEFAULT_POLICY, Policy
+from tpu_unet_torch.ops.kernels.bias_relu import bias_relu_bf16
 from tpu_unet_torch.ops.resize import upsample2x_bilinear_align_corners
 from tpu_unet_torch.parallel import spatial
 from tpu_unet_torch.parallel.tensor import copy_to_model, gather_channels, reduce_from_model
 
 
 _STATE = threading.local()  # per thread: the remat scope's tag, recomputing
+
+# DoubleConv epilogues by route (:func:`fuses_epilogue`).
+COUNTERS = {"fused_epilogues": 0, "composed_epilogues": 0}
+_COUNTERS_LOCK = threading.Lock()  # serving replicas run on threads of their own
+
+
+def _count(route: str) -> None:
+    with _COUNTERS_LOCK:
+        COUNTERS[route] += 1
 
 
 def recomputing() -> bool:
@@ -218,6 +231,16 @@ def conv_bn(conv: nn.Conv2d, norm: nn.Module, x: torch.Tensor, policy: Policy,
     image's conv. A rank with no rows at the level runs the conv on zero
     rows and keeps none of its output, so that its backward takes part in
     the exchanges."""
+    y = _conv(conv, x, policy, policy.norm_dtype, padding, stride, level)
+    if conv.bias is not None:  # BN folded into the conv (ops/fold_bn.py)
+        y = y + conv.bias.view(-1, 1, 1)
+    return norm(y)
+
+
+def _conv(conv: nn.Conv2d, x: torch.Tensor, policy: Policy, out_dtype: torch.dtype,
+          padding: int = 0, stride: int = 1, level: int = 0) -> torch.Tensor:
+    """:func:`conv_bn`'s conv without the bias: its output cast to
+    ``out_dtype``, with the tensor-parallel and 'space' handling."""
     cd = policy.compute_dtype
     if stride > 1:
         x = x[:, :, ::stride, ::stride]
@@ -232,13 +255,33 @@ def conv_bn(conv: nn.Conv2d, norm: nn.Module, x: torch.Tensor, policy: Policy,
         x, padding, min_rows = spatial.halo(x, level), (0, 1), 3
 
     def conv_rows(t):
-        y = F.conv2d(t, conv.weight.to(cd), padding=padding).to(policy.norm_dtype)
+        y = F.conv2d(t, conv.weight.to(cd), padding=padding).to(out_dtype)
         return reduce_from_model(y, conv.tp_group) if tp == "row" else y
 
-    y = spatial.empty_safe(conv_rows, x, min_rows)
-    if conv.bias is not None:  # BN folded into the conv (ops/fold_bn.py)
-        y = y + conv.bias.view(-1, 1, 1)
-    return norm(y)
+    return spatial.empty_safe(conv_rows, x, min_rows)
+
+
+def _on_card(x: torch.Tensor) -> bool:
+    """:func:`fuses_epilogue`'s device test (the CPU tests patch it to
+    force the fused route onto the operator's plain version)."""
+    return x.is_cuda
+
+
+def fuses_epilogue(conv: nn.Conv2d, norm: nn.Module, x: torch.Tensor, policy: Policy) -> bool:
+    """Whether a DoubleConv's conv -> norm -> ReLU -> cast on ``x`` runs as
+    one bias-ReLU-cast pass over the bf16 conv output
+    (``ops/kernels/bias_relu.py``): only a BN-folded conv (a bias, the norm
+    an identity) that is not tensor-parallel (a row conv all-reduces its
+    partial sums in float32 before the bias), under a bf16 policy, on a
+    CUDA tensor, where autograd records nothing (grad mode off, or no input
+    or parameter that requires grad: the op has no backward). The
+    arithmetic is the composed route's, bit for bit."""
+    return (conv.bias is not None and isinstance(norm, nn.Identity)
+            and getattr(conv, "tp", None) is None
+            and policy.compute_dtype == torch.bfloat16 and _on_card(x)
+            and not (torch.is_grad_enabled()
+                     and (x.requires_grad or conv.weight.requires_grad
+                          or conv.bias.requires_grad)))
 
 
 def up_conv(up: nn.ConvTranspose2d, x: torch.Tensor, cd: torch.dtype,
@@ -294,10 +337,17 @@ class DoubleConv(nn.Module):
         return self._forward(x)
 
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
+        cd = self.policy.compute_dtype
         for i in (0, 3):
-            y = conv_bn(self.double_conv[i], self.double_conv[i + 1], x, self.policy,
-                        padding=1, level=self.level)
-            x = F.relu(y).to(self.policy.compute_dtype)
+            conv, norm = self.double_conv[i], self.double_conv[i + 1]
+            if fuses_epilogue(conv, norm, x, self.policy):
+                _count("fused_epilogues")
+                y = _conv(conv, x, self.policy, cd, padding=1, level=self.level)
+                x = bias_relu_bf16(y, conv.bias)
+            else:
+                _count("composed_epilogues")
+                y = conv_bn(conv, norm, x, self.policy, padding=1, level=self.level)
+                x = F.relu(y).to(cd)
         return x
 
 

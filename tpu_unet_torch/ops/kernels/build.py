@@ -47,6 +47,9 @@ KERNELS = {
     "up_concat_int8": ("up_concat_int8.cu", {
         "tpu_unet_up_concat_int8": [_P, _P, _P, _LL] + [_P] * 4 + [_I] * 5 + [_P],
     }),
+    "bias_relu_bf16": ("bias_relu_bf16.cu", {
+        "tpu_unet_bias_relu_bf16": [_P, _P, _P, _LL, _LL, _LL, _I, _I, _P],
+    }),
     "augment_u8": ("augment_u8.cu", {
         "tpu_unet_augment_u8": ([_P] * 4 + [_I] + [_P] * 6 + [_I] * 2 + [_P] * 2 + [_I] * 8
                                 + [_F] * 6 + [_P]),
@@ -146,6 +149,9 @@ def check(lib: ctypes.CDLL, name: str, code: int) -> None:
 
 def current_stream(device) -> int:
     """PyTorch's current CUDA stream on ``device``, as the integer handle
-    the C entry points take."""
+    the C entry points take. Read as the raw handle: building a
+    ``torch.cuda.Stream`` object costs some 7 us of host a call on the
+    card's host, against 0.2."""
     import torch
-    return torch.cuda.current_stream(device).cuda_stream
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)

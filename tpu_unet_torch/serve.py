@@ -73,6 +73,7 @@ from tpu_unet_torch.models import build_model
 from tpu_unet_torch.models.unet import TRANSUNET_NAMES
 from tpu_unet_torch.ops.augment import eval_transform
 from tpu_unet_torch.ops.fold_bn import fold_batchnorm
+from tpu_unet_torch.ops.kernels import build
 from tpu_unet_torch.ops.quantize import (_QuantExec, _run, build_plan, chunk_calibration,
                                          quantize_from_train_state, tree_to)
 from tpu_unet_torch.ops.seg_head import sliced_pred_confidence
@@ -346,8 +347,14 @@ def _module_state(model: torch.nn.Module):
 def _float_model(name: str, state_dict, policy_name: str, fold_bn: bool, device, **kw):
     """``name`` built under the ``policy_name`` precision policy with
     ``state_dict`` loaded, in eval mode, BN folded when ``fold_bn``, on
-    ``device`` in channels_last."""
-    model = build_model(name, policy=get_policy(policy_name), **kw)
+    ``device`` in channels_last. On a CUDA device the kernels its forward
+    launches are built first, one nvcc each, started together: K1 and, for
+    a folded bf16 model, the blocks' epilogue."""
+    policy = get_policy(policy_name)
+    if torch.device(device).type == "cuda":
+        fused = fold_bn and policy.compute_dtype == torch.bfloat16
+        build.build(["normalize_u8"] + (["bias_relu_bf16"] if fused else []))
+    model = build_model(name, policy=policy, **kw)
     model.load_state_dict(state_dict)
     model.eval()
     if fold_bn:

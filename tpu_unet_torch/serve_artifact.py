@@ -5,11 +5,14 @@ deployment without the model code or the checkpoint.
 ``torch.export`` programs, and :func:`load_artifact` turns the directory back
 into a working :class:`~tpu_unet_torch.serve.AnomalyScorer` or
 :class:`~tpu_unet_torch.serve.SegmentationPredictor` that imports no model
-code and reads no checkpoint. The kernels are the exception: K1, K2 and the
-int8 up block's concat are the operators ``tpu_unet_torch::normalize_u8``,
-``tpu_unet_torch::conv3x3_int8`` and ``tpu_unet_torch::up_concat_int8``,
+code and reads no checkpoint. The kernels are the exception: K1, K2, the
+int8 up block's concat and the BN-folded bf16 conv's epilogue are the
+operators ``tpu_unet_torch::normalize_u8``, ``tpu_unet_torch::conv3x3_int8``,
+``tpu_unet_torch::up_concat_int8`` and ``tpu_unet_torch::bias_relu_bf16``,
 which this module's imports register, and a loaded program launches them
-(or, on the CPU, their plain versions). An int8 program exported before the
+(or, on the CPU, their plain versions). A bf16 program exported on the
+card records the epilogue operator; one exported on the CPU, or before the
+operator existed, holds the composed ops. An int8 program exported before the
 concat operator existed holds the composed ops instead and loads as it did.
 
 Layout:
