@@ -107,7 +107,7 @@ def cli_device(name: str) -> torch.device:
 def check_train_flags(args, height: Optional[int] = None) -> int:
     """The run's world size (joining a launched group: ``--n_devices``
     times ``--n_space`` times ``--n_model`` ranks); ValueError for a
-    transunet with ``--n_space`` or ``--n_model`` above 1
+    transunet or segformer with ``--n_space`` or ``--n_model`` above 1
     (``models/unet.py::check_model_flags``) and for an image
     ``height`` that ``--n_space`` does not divide, as the JAX package's
     (``parallel/spatial.py::check_rows``), SystemExit for a

@@ -26,9 +26,12 @@ from tpu_unet_torch.train.steps import AugmentConfig
 def add_common_args(parser):
     """The flags both seg trainers share."""
     parser.add_argument("--model", type=str, default="seg_unet",
-                        choices=["unet", "seg_unet", "unetpp", "attn_unet", "transunet"],
+                        choices=["unet", "seg_unet", "unetpp", "attn_unet", "transunet",
+                                 "segformer"],
                         help="Model architecture (transunet: R50-ViT-B/16, --base_features "
-                             "its ResNet width, one device)")
+                             "its ResNet width, one device; segformer: MiT-B5 and the "
+                             "all-MLP head, --dropout its head's, one device, sides "
+                             "multiples of 32)")
     parser.add_argument("--bilinear", action="store_true",
                         help="Bilinear upsampling instead of transposed convolution")
     parser.add_argument("--deep_supervision", action="store_true",

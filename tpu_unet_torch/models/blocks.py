@@ -69,6 +69,16 @@ COUNTERS = {"fused_epilogues": 0, "composed_epilogues": 0}
 _COUNTERS_LOCK = threading.Lock()  # serving replicas run on threads of their own
 
 
+def refuse_train_only(model: nn.Module, what: str) -> None:
+    """ValueError when ``model`` trains through the seg step alone (its class
+    sets ``train_only``: TransUNet, SegFormer), which ``what`` does not
+    support."""
+    if getattr(model, "train_only", False):
+        raise ValueError(f"{what} does not support {type(model).__name__}: it trains "
+                         "through the segmentation train step on one device, and is "
+                         "served by none of the port's engines")
+
+
 def _count(route: str) -> None:
     with _COUNTERS_LOCK:
         COUNTERS[route] += 1
@@ -77,6 +87,29 @@ def _count(route: str) -> None:
 def recomputing() -> bool:
     """Whether this thread is recomputing a checkpointed forward."""
     return getattr(_STATE, "recomputing", False)
+
+
+def replaying_graphs() -> bool:
+    """Whether this thread's forward is inside :func:`graph_replay`."""
+    return getattr(_STATE, "graphs", False)
+
+
+@contextlib.contextmanager
+def graph_replay():
+    """Lets a model replay CUDA graphs in the training forward this thread
+    runs inside (``models/segformer.py``). A graph's backward hands out its
+    own gradient buffers as the parameters' ``.grad``, which its next replay
+    overwrites; so the train step opens this only around a forward whose one
+    backward writes gradients that ``zero_grad(set_to_none=True)`` has just
+    cleared and that the optimizer reads before the next replay: the step's
+    first microbatch, on parameters of its own (no data group), with
+    nothing recomputed."""
+    before = replaying_graphs()
+    _STATE.graphs = True
+    try:
+        yield
+    finally:
+        _STATE.graphs = before
 
 
 @contextlib.contextmanager

@@ -38,9 +38,9 @@ standardised weights too), which CUDA's GroupNorm takes without a copy.
 BatchNorm is ``models/blocks.py``'s, through
 :func:`~tpu_unet_torch.models.blocks.conv_bn`, as in the ladders.
 
-The attention core is ``F.scaled_dot_product_attention``; on CUDA it may
-take only the fused backends (flash, cuDNN, memory-efficient) and raises
-where none applies, instead of holding every head's scores.
+The attention core is ``ops/attention.py::attention_core``, which SegFormer
+shares: ``F.scaled_dot_product_attention`` on the fused backends alone on
+CUDA.
 
 Dropout is a draw: in train mode ``forward(x, keep)`` takes the tuple of
 boolean keep masks that :meth:`TransUNet.sample_dropout` draws, the
@@ -56,7 +56,7 @@ core's calls and the query tokens they attended.
 
 Training is the model's only path: BN folding, int8, the seg serving
 engine, the 'space' axis and tensor parallelism refuse a TransUNet
-(:func:`refuse`).
+(``train_only``, read by ``models/blocks.py::refuse_train_only``).
 """
 
 from __future__ import annotations
@@ -70,6 +70,7 @@ import torch.nn.functional as F
 
 from tpu_unet_torch.core.precision import DEFAULT_POLICY, Policy
 from tpu_unet_torch.models.blocks import BatchNorm2d, conv_bn
+from tpu_unet_torch.ops.attention import attention_core
 from tpu_unet_torch.ops.resize import upsample2x_bilinear_align_corners
 from tpu_unet_torch.utils.spans import span
 
@@ -80,15 +81,6 @@ GN_GROUPS = 32
 GN_EPS = 1e-6
 LN_EPS = 1e-6
 CONV_MORE = 512  # the decoder's first width, the public code's head_channels
-
-
-def refuse(model: nn.Module, what: str) -> None:
-    """ValueError when ``model`` is a :class:`TransUNet`, which ``what``
-    does not support (the model trains through the seg step alone)."""
-    if isinstance(model, TransUNet):
-        raise ValueError(f"{what} does not support TransUNet: it trains through the "
-                         "segmentation train step on one device, and is served by none "
-                         "of the port's engines")
 
 
 class StdConv2d(nn.Conv2d):
@@ -264,19 +256,6 @@ class DecoderCup(nn.Module):
                                     for i, o, s in zip(ins, channels, skips))
 
 
-def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """``softmax(q k^T / sqrt(d)) v`` over (N, heads, T, d) tensors. On CUDA
-    only the fused backends may run it (flash first); none applying raises."""
-    if not q.is_cuda:
-        return F.scaled_dot_product_attention(q, k, v)
-    from torch.nn.attention import SDPBackend, sdpa_kernel
-
-    fused = [SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
-             SDPBackend.EFFICIENT_ATTENTION]
-    with sdpa_kernel(fused, set_priority=True):
-        return F.scaled_dot_product_attention(q, k, v)
-
-
 class TransUNet(nn.Module):
     """TransUNet at the published R50-ViT-B/16 widths by default (module
     docstring). ``image_size_hw`` sets the position table's length, one
@@ -287,6 +266,8 @@ class TransUNet(nn.Module):
     blocks' widths. The first three blocks take the skips, stage 2's (8 w),
     stage 1's (4 w) and the root's (w), as the public config's three skips
     do."""
+
+    train_only = True
 
     def __init__(self, image_size_hw: Tuple[int, int], n_channels: int = 3,
                  n_classes: int = 9, dropout: float = 0.1, policy: Policy = DEFAULT_POLICY,

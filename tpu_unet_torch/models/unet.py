@@ -21,8 +21,8 @@ Inputs and outputs are NCHW. Attribute names are the reference state_dict's
 ``outc`` or ``outc_recon``/``outc_seg``). A bilinear decoder's Up blocks have
 no ``up`` child (``upK.conv.double_conv.*`` only), so a reference bilinear
 ``.pth`` loads with ``strict=True``. ``build_model`` also builds the attention
-UNet (``models/attention.py``), UNet++ (``models/unetpp.py``) and TransUNet
-(``models/transunet.py``).
+UNet (``models/attention.py``), UNet++ (``models/unetpp.py``), TransUNet
+(``models/transunet.py``) and SegFormer (``models/segformer.py``).
 """
 
 from __future__ import annotations
@@ -186,14 +186,31 @@ class AnomalyUNet(_Ladder):
 UNETPP_NAMES = ("unetpp", "unet++", "nested_unet")
 ATTN_NAMES = ("attn_unet", "attention_unet", "attunet")
 TRANSUNET_NAMES = ("transunet",)
+SEGFORMER_NAMES = ("segformer",)
+
+
+def trains_only(name: str) -> bool:
+    """Whether the model that :func:`build_model` builds by ``name`` trains
+    through the seg step alone, on whole images and whole channels: its
+    class sets ``train_only`` (TransUNet, SegFormer), which
+    ``models/blocks.py::refuse_train_only`` reads on a built model."""
+    name = name.lower()
+    if name in TRANSUNET_NAMES:
+        from tpu_unet_torch.models.transunet import TransUNet as cls
+    elif name in SEGFORMER_NAMES:
+        from tpu_unet_torch.models.segformer import SegFormer as cls
+    else:
+        return False
+    return cls.train_only
 
 
 def check_model_flags(name: str, deep_supervision: bool = False, heads: int = 4, *,
                       n_space: int = 1, n_model: int = 1) -> None:
     """The JAX package's ValueErrors for ``deep_supervision`` or ``heads``
-    outside UNet++ with deep supervision, and TransUNet's for a 'space' or
-    'model' axis wider than 1 (raised by :func:`build_model`; the CLIs call
-    it before they write anything)."""
+    outside UNet++ with deep supervision, and a train-only transformer's
+    (TransUNet's, SegFormer's) for a 'space' or 'model' axis wider than 1
+    (raised by :func:`build_model`; the CLIs call it before they write
+    anything)."""
     is_unetpp = name.lower() in UNETPP_NAMES
     if deep_supervision and not is_unetpp:
         raise ValueError(
@@ -203,8 +220,8 @@ def check_model_flags(name: str, deep_supervision: bool = False, heads: int = 4,
             "heads selects a UNet++ deep-supervision inference head; it "
             f"requires --model unetpp with deep_supervision (got model={name!r}, "
             f"deep_supervision={deep_supervision})")
-    if name.lower() in TRANSUNET_NAMES and (n_space > 1 or n_model > 1):
-        raise ValueError(f"transunet trains on whole images and whole channels: "
+    if trains_only(name) and (n_space > 1 or n_model > 1):
+        raise ValueError(f"{name.lower()} trains on whole images and whole channels: "
                          f"--n_space {n_space} and --n_model {n_model} must be 1")
 
 
@@ -212,15 +229,18 @@ def build_model(name: str, *, n_channels: int = 3, n_classes: int = 1,
                 bilinear: bool = False, dropout: float = 0.1,
                 policy: Policy = DEFAULT_POLICY, base_features: int = 64,
                 deep_supervision: bool = False, heads: int = 4,
-                image_size_hw: Optional[Tuple[int, int]] = None, **transunet):
+                image_size_hw: Optional[Tuple[int, int]] = None, **widths):
     """Build a model by CLI name ('unet' | 'anomaly_unet' | 'seg_unet' |
-    'unetpp' | 'attn_unet' | 'transunet'). ``deep_supervision`` and
-    ``heads`` (the UNet++ inference head: 4 averages the head logits, k < 4
-    is head X[0][k] alone) are UNet++'s and raise the JAX package's
+    'unetpp' | 'attn_unet' | 'transunet' | 'segformer'). ``deep_supervision``
+    and ``heads`` (the UNet++ inference head: 4 averages the head logits,
+    k < 4 is head X[0][k] alone) are UNet++'s and raise the JAX package's
     ValueError elsewhere. TransUNet takes ``image_size_hw`` (its position
     table has a row per 16x16 pixels), ``base_features`` as its hybrid
-    ResNet's width and its other widths as keywords (``models/transunet.py``);
-    the other models ignore ``image_size_hw``."""
+    ResNet's width and its other widths as keywords (``models/transunet.py``).
+    SegFormer takes its widths as keywords (``models/segformer.py``; MiT-B5
+    and a 768 head by default), ``dropout`` as its head's Dropout2d rate,
+    and ignores ``base_features`` and ``image_size_hw``, as the ladders
+    ignore ``image_size_hw``."""
     check_model_flags(name, deep_supervision, heads)
     name = name.lower()
     if name in TRANSUNET_NAMES:
@@ -229,9 +249,13 @@ def build_model(name: str, *, n_channels: int = 3, n_classes: int = 1,
             raise ValueError("transunet needs image_size_hw: its position table has one "
                              "row per 16x16 pixels of the image")
         return TransUNet(image_size_hw, n_channels=n_channels, n_classes=n_classes,
-                         dropout=dropout, policy=policy, width=base_features, **transunet)
-    if transunet:
-        raise TypeError(f"build_model({name!r}) got TransUNet's keywords {sorted(transunet)}")
+                         dropout=dropout, policy=policy, width=base_features, **widths)
+    if name in SEGFORMER_NAMES:
+        from tpu_unet_torch.models.segformer import SegFormer
+        return SegFormer(n_channels=n_channels, n_classes=n_classes, dropout=dropout,
+                         policy=policy, **widths)
+    if widths:
+        raise TypeError(f"build_model({name!r}) got a transformer's keywords {sorted(widths)}")
     if name in UNETPP_NAMES:
         from tpu_unet_torch.models.unetpp import UNetPlusPlus
         return UNetPlusPlus(n_channels=n_channels, n_classes=n_classes, bilinear=bilinear,

@@ -19,8 +19,7 @@ import torch
 import torch.nn as nn
 
 from tpu_unet_torch.models.attention import AttentionGate, _GateProj
-from tpu_unet_torch.models.blocks import DoubleConv
-from tpu_unet_torch.models.transunet import refuse
+from tpu_unet_torch.models.blocks import DoubleConv, refuse_train_only
 
 
 def _conv_bn_pairs(module: nn.Module):
@@ -38,9 +37,9 @@ def _conv_bn_pairs(module: nn.Module):
 def fold_batchnorm(model: nn.Module) -> nn.Module:
     """Fold every DoubleConv's and attention gate's BNs into their convs, in
     place; returns ``model``. A tensor-parallel model (channel slices) is
-    refused: fold the whole weights of its checkpoint; so is a TransUNet,
-    which only trains."""
-    refuse(model, "fold_batchnorm")
+    refused: fold the whole weights of its checkpoint; so is a model that
+    only trains (TransUNet, SegFormer)."""
+    refuse_train_only(model, "fold_batchnorm")
     if getattr(model, "tp_dims", None):
         raise ValueError("fold_batchnorm: a tensor-parallel model holds channel slices; "
                          "fold the whole model its .pth holds (train/checkpoint.py "

@@ -1,5 +1,6 @@
 """Bilinear resize with align_corners=True, as matmuls (counterpart of
-``tpu_unet/ops/resize.py``).
+``tpu_unet/ops/resize.py``), and the half-pixel upsample by an integer
+factor that SegFormer's head takes (:func:`upsample_bilinear_half_pixel`).
 
 The reference's bilinear decoder upsamples with ``nn.Upsample(scale_factor=2,
 mode='bilinear', align_corners=True)``. The JAX package computes each 1-D
@@ -24,7 +25,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-_MATRICES: Dict[Tuple[int, int, torch.dtype, torch.device], torch.Tensor] = {}
+_MATRICES: Dict[Tuple, torch.Tensor] = {}
 
 
 def _interp_matrix(in_size: int, out_size: int) -> np.ndarray:
@@ -115,3 +116,56 @@ def upsample2x_bilinear_align_corners(x: torch.Tensor, level: int = 0) -> torch.
     mode='bilinear', align_corners=True)`` (its rows as
     :func:`upsample2x_rows` gives them)."""
     return interp_axis(upsample2x_rows(x, 2, level), 2 * x.shape[3], 3)
+
+
+def _half_pixel_matrix(in_size: int, factor: int) -> np.ndarray:
+    """(in_size x factor, in_size) half-pixel lerp weights, float64: output
+    row ``i`` reads the input at ``(i + 0.5) / factor - 0.5``, below 0 read at
+    0, its upper neighbour clamped to the last row (PyTorch's
+    ``align_corners=False``); at most two nonzeros a row."""
+    out = in_size * factor
+    m = np.zeros((out, in_size), np.float64)
+    src = np.maximum((np.arange(out, dtype=np.float64) + 0.5) / factor - 0.5, 0.0)
+    lo = np.floor(src).astype(np.int64)
+    hi = np.minimum(lo + 1, in_size - 1)
+    w = src - lo
+    rows = np.arange(out)
+    m[rows, lo] += 1.0 - w
+    m[rows, hi] += w
+    return m
+
+
+def upsample_bilinear_half_pixel(x: torch.Tensor, factor: int) -> torch.Tensor:
+    """An NCHW tensor upsampled by the whole ``factor`` on both axes,
+    ``align_corners=False`` (half-pixel centres), as ``F.interpolate(mode=
+    'bilinear', align_corners=False)`` computes it, to rounding: output pixel
+    ``i`` reads the input at ``(i + 0.5) / factor - 0.5``. Each axis is one
+    product with a kept (out, in) matrix (:func:`_half_pixel_matrix`; for a
+    factor of 2, 4 or 8 every weight is a multiple of ``1 / (2 factor)``,
+    exact in bf16), H first, in the tensor's dtype with the products' float32
+    sums; so its backward sums in float32 too, where ``F.interpolate``'s adds
+    each of up to ``(2 factor)^2`` contributions into a bf16 gradient. A
+    channels_last input is contracted in its own memory order and gives a
+    channels_last output."""
+    factor = int(factor)
+    if factor < 1:
+        raise ValueError(f"the half-pixel upsample takes a whole factor of 1 or more, got "
+                         f"{factor}")
+    if factor == 1:
+        return x
+    n, c, h, w = x.shape
+    key = ("half_pixel", h, factor, x.dtype, x.device)
+    mh = _MATRICES.get(key)
+    if mh is None:
+        mh = _MATRICES[key] = kept_constant(_half_pixel_matrix(h, factor), x.dtype, x.device)
+    key = ("half_pixel", w, factor, x.dtype, x.device)
+    mw = _MATRICES.get(key)
+    if mw is None:
+        mw = _MATRICES[key] = kept_constant(_half_pixel_matrix(w, factor), x.dtype, x.device)
+    if x.is_contiguous(memory_format=torch.channels_last) and not x.is_contiguous():
+        # memory (N, H, W, C): rows, then columns, each a contiguous product
+        y = torch.matmul(mh, x.permute(0, 2, 3, 1).reshape(n, h, w * c))
+        y = torch.matmul(mw, y.view(n * h * factor, w, c))
+        return y.view(n, h * factor, w * factor, c).permute(0, 3, 1, 2)
+    y = torch.matmul(mh, x.reshape(n * c, h, w))
+    return torch.matmul(y, mw.t()).view(n, c, h * factor, w * factor)

@@ -254,10 +254,9 @@ def shard_state(mesh, state, fsdp: bool = False, min_size: int = DEFAULT_MIN_SIZ
     """Place ``state`` (a ``TrainState`` of whole tensors, the same on every
     rank after rank 0's broadcast) on a tensor-parallel ``mesh``, in place;
     returns it (module docstring)."""
-    from tpu_unet_torch.models.blocks import sync_batchnorm
-    from tpu_unet_torch.models.transunet import refuse
+    from tpu_unet_torch.models.blocks import refuse_train_only, sync_batchnorm
 
-    refuse(state.model, "tensor parallelism")
+    refuse_train_only(state.model, "tensor parallelism")
     if mesh is None or MODEL_AXIS not in (mesh.mesh_dim_names or ()):
         raise ValueError(f"tensor parallelism needs a '{MODEL_AXIS}' mesh axis; build the "
                          f"mesh with make_mesh(..., n_model=K) (got "

@@ -70,7 +70,7 @@ from tpu_unet_torch.core.precision import get_policy
 from tpu_unet_torch.data.transforms import load_image_rgb
 from tpu_unet_torch.metrics.anomaly import anomaly_score
 from tpu_unet_torch.models import build_model
-from tpu_unet_torch.models.unet import TRANSUNET_NAMES
+from tpu_unet_torch.models.unet import trains_only
 from tpu_unet_torch.ops.augment import eval_transform
 from tpu_unet_torch.ops.fold_bn import fold_batchnorm
 from tpu_unet_torch.ops.kernels import build
@@ -741,8 +741,8 @@ class SegmentationPredictor(_Engine):
         package's refusals: not with ``tile_hw``, and ``n_space`` must
         divide the height: ``parallel/spatial.py::check_rows``).
         """
-        if model_name in TRANSUNET_NAMES:
-            raise ValueError("SegmentationPredictor does not serve TransUNet: it trains "
+        if trains_only(model_name):
+            raise ValueError(f"SegmentationPredictor does not serve {model_name}: it trains "
                              "through the segmentation train step alone")
         if quantize not in (None, "none", "int8"):
             raise ValueError(f"unsupported quantize mode {quantize!r}")

@@ -67,6 +67,7 @@ predictions' rows gathered over 'space', whole images.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Dict, List, Optional, Tuple, Union
 
@@ -77,8 +78,8 @@ from tpu_unet_torch.losses.anomaly import combined_anomaly_loss
 from tpu_unet_torch.losses.segmentation import combined_segmentation_loss
 from tpu_unet_torch.metrics.anomaly import anomaly_error_map, anomaly_score
 from tpu_unet_torch.metrics.confusion import confusion_matrix_batch
-from tpu_unet_torch.models.blocks import checkpoint, remat_scope
-from tpu_unet_torch.models.transunet import refuse
+from tpu_unet_torch.models.blocks import (checkpoint, graph_replay, refuse_train_only,
+                                          remat_scope)
 from tpu_unet_torch.ops.augment import (AugmentDraws, eval_transform,
                                         sample_augment_draws, train_transform)
 from tpu_unet_torch.ops.seg_head import sliced_argmax
@@ -180,7 +181,7 @@ Keep = Union[None, torch.Tensor, Tuple[torch.Tensor, ...]]
 
 def _map_keep(fn, keep: Keep) -> Keep:
     """``fn`` of each mask of a model's dropout draw: None, one keep mask
-    (SegmentationUNet's) or a tuple of them (TransUNet's)."""
+    (SegmentationUNet's) or a tuple of them (TransUNet's, SegFormer's)."""
     if keep is None:
         return None
     return fn(keep) if isinstance(keep, torch.Tensor) else tuple(fn(k) for k in keep)
@@ -511,7 +512,7 @@ class SegTrainStep:
                    dropout: Union[Keep, List[Keep]] = None):
         """One optimizer update from the batch under the given draws: one
         :class:`AugmentDraws` and one dropout draw (the model's: an (N, C5)
-        keep mask, or TransUNet's tuple of masks), or a list of
+        keep mask, or TransUNet's or SegFormer's tuple of masks), or a list of
         ``grad_accum`` of each, for microbatches of the global batch.
         ``dropout=None`` is only for a model without dropout. Returns the
         loss scalars (the mean over microbatches) and
@@ -534,14 +535,17 @@ class SegTrainStep:
                                  f"for grad_accum={g}")
             model = state.model.train()
             if space is not None:
-                refuse(model, "the 'space' axis")
+                refuse_train_only(model, "the 'space' axis")
             with span("train.optimizer"):
                 state.optimizer.zero_grad(set_to_none=True)
             losses: List[Dict[str, torch.Tensor]] = []
             cm = None
             rows = len(images_u8) // g
-            for img_u8, lbl, d, keep in zip(images_u8.chunk(g), labels.chunk(g), draws,
-                                            dropout):
+            # A model may replay CUDA graphs where their gradient buffers may
+            # become .grad: the first microbatch, no group, no remat.
+            graphs = self.group is None and self.remat == "none"
+            for i, (img_u8, lbl, d, keep) in enumerate(zip(images_u8.chunk(g), labels.chunk(g),
+                                                           draws, dropout)):
                 with span("train.augment"):
                     # Labels ship as uint8; the geometry is nearest on them, so
                     # the cast to int64 (which the gathers take) after it is
@@ -557,7 +561,8 @@ class SegTrainStep:
                     if self.group is not None:
                         keep = _map_keep(lambda k: _rows(k, self.group, rows, space), keep)
                 with spatial.scope(space, height):
-                    with span("train.forward"):
+                    with span("train.forward"), (graph_replay() if graphs and i == 0
+                                                 else contextlib.nullcontext()):
                         logits = _remat_call(self.remat,
                                              lambda x, k=keep: _seg_logits(model, x, k), img)
                     with span("train.loss"):
@@ -631,7 +636,7 @@ def make_seg_eval_step(num_classes: int, loss_cfg: SegLossConfig = SegLossConfig
         device = state.device
         model = state.model
         if space is not None:
-            refuse(model, "the 'space' axis")
+            refuse_train_only(model, "the 'space' axis")
         was_training = model.training
         model.eval()
         try:

@@ -33,7 +33,9 @@ Names the port uses: ``serve.request`` (each engine call) over
 ``train.forward``, ``train.loss``, ``train.backward``,
 ``train.optimizer`` and ``train.confusion`` (seg); ``transunet.hybrid``,
 ``transunet.embed``, ``transunet.encoder`` (over ``transunet.attention``)
-and ``transunet.decoder`` in TransUNet's forward; ``cli.train`` and
+and ``transunet.decoder`` in TransUNet's forward; ``segformer.encoder``
+(over ``segformer.attention`` and ``segformer.dwconv``) and
+``segformer.decoder`` in SegFormer's; ``cli.train`` and
 ``cli.validate`` for the trainers' epoch passes.
 """
 
